@@ -1,0 +1,119 @@
+"""Configuration dataclasses (the port's copy of
+``vae_tagger_tpu/core/config.py``).
+
+Field names and defaults mirror the diffusers ``AutoencoderKL`` config of
+the FLUX.1 VAE, so existing ``config.json`` files load unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """FLUX AutoencoderKL architecture config."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    down_block_types: Sequence[str] = ("DownEncoderBlock2D",) * 4
+    up_block_types: Sequence[str] = ("UpDecoderBlock2D",) * 4
+    block_out_channels: Sequence[int] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    act_fn: str = "silu"
+    latent_channels: int = 16
+    norm_num_groups: int = 32
+    sample_size: int = 1024
+    scaling_factor: float = 0.3611
+    shift_factor: float = 0.1159
+    use_quant_conv: bool = False
+    use_post_quant_conv: bool = False
+    force_upcast: bool = True
+    mid_block_add_attention: bool = True
+
+    @property
+    def num_down_blocks(self) -> int:
+        return len(self.down_block_types)
+
+    @property
+    def downsample_factor(self) -> int:
+        # one stride-2 downsample between consecutive encoder stages
+        return 2 ** (self.num_down_blocks - 1)
+
+    def to_json_dict(self) -> dict:
+        """Diffusers-layout config dict (save_pretrained-style export)."""
+        return {
+            "_class_name": "AutoencoderKL",
+            "_diffusers_version": "0.30.0.dev0",
+            "act_fn": self.act_fn,
+            "block_out_channels": list(self.block_out_channels),
+            "down_block_types": list(self.down_block_types),
+            "force_upcast": self.force_upcast,
+            "in_channels": self.in_channels,
+            "latent_channels": self.latent_channels,
+            "latents_mean": None,
+            "latents_std": None,
+            "layers_per_block": self.layers_per_block,
+            "mid_block_add_attention": self.mid_block_add_attention,
+            "norm_num_groups": self.norm_num_groups,
+            "out_channels": self.out_channels,
+            "sample_size": self.sample_size,
+            "scaling_factor": self.scaling_factor,
+            "shift_factor": self.shift_factor,
+            "up_block_types": list(self.up_block_types),
+            "use_post_quant_conv": self.use_post_quant_conv,
+            "use_quant_conv": self.use_quant_conv,
+        }
+
+
+def default_flux_vae_config(**overrides) -> VAEConfig:
+    """The FLUX.1-dev VAE config, with optional field overrides."""
+    return dataclasses.replace(VAEConfig(), **overrides)
+
+
+_VAE_FIELDS = {f.name for f in dataclasses.fields(VAEConfig)}
+
+# diffusers AutoencoderKL constructor defaults for keys a config JSON may
+# omit (SD-era configs predate the quant-conv flags and the shift factor);
+# the FLUX config sets all four explicitly
+_DIFFUSERS_JSON_DEFAULTS = {
+    "use_quant_conv": True,
+    "use_post_quant_conv": True,
+    "scaling_factor": 0.18215,
+    "shift_factor": 0.0,  # diffusers' None == no shift
+}
+
+
+def vae_config_from_dict(d: dict) -> VAEConfig:
+    """Build a VAEConfig from a diffusers-style JSON dict, ignoring extra
+    keys; keys the JSON omits (or sets null) get diffusers' constructor
+    defaults."""
+    kwargs = {}
+    for k, v in d.items():
+        if k in _VAE_FIELDS:
+            if isinstance(v, list):
+                v = tuple(v)
+            if v is None and k in _DIFFUSERS_JSON_DEFAULTS:
+                continue  # treat null like an absent key
+            kwargs[k] = v
+    for k, v in _DIFFUSERS_JSON_DEFAULTS.items():
+        kwargs.setdefault(k, v)
+    return VAEConfig(**kwargs)
+
+
+def vae_config_from_file(path: str) -> VAEConfig:
+    with open(path, "r", encoding="utf-8") as f:
+        return vae_config_from_dict(json.load(f))
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionDecoderConfig:
+    """Config of the attention tagger head."""
+
+    use_spatial_attention: bool = True
+    use_self_attention: bool = True
+    use_cross_attention: bool = False
+    attention_heads: int = 8
+    attention_dropout: float = 0.1

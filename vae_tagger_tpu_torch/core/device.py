@@ -1,0 +1,18 @@
+"""Device resolution for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """Entry points run on the card unless the caller asks for the CPU.
+
+    ``None`` means ``cuda``; asking for CUDA on a host without a GPU raises
+    instead of falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) "
+            "to run the plain PyTorch path on the CPU")
+    return dev

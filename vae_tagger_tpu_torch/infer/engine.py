@@ -1,0 +1,133 @@
+"""Model loading and the batched encode/classify engine.
+
+Counterpart of ``vae_tagger_tpu/infer/engine.py``.  The engine loads the
+same checkpoint formats (VAE safetensors/bin + config JSON, decoder
+``pytorch_model.bin``) and runs uint8 pixels -> on-device normalize -> VAE
+encode (the CUDA kernels on the card) -> posterior mode -> scale/shift ->
+tagger head -> sigmoid, under ``torch.inference_mode()``.
+
+- The host->device copy of a uint8 batch is non-blocking, from pinned
+  memory, on the current stream.
+- :meth:`TaggerEngine.classify_async` returns the device tensor without
+  synchronizing, so the caller can format the previous batch meanwhile.
+- The VAE runs in the policy's compute dtype (bf16 with mixed precision);
+  the tagger head, a small fraction of the work, runs in fp32.
+
+The TPU's padding of batches to 8 rows is not carried over; the mesh,
+spatial and YUV methods wait for later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.config import AttentionDecoderConfig
+from ..core.device import resolve_device
+from ..core.precision import Policy, resolve_mixed_precision
+from ..data.dataset import load_tag_names
+from ..io.checkpoints import load_decoder, load_vae
+from ..models.autoencoder_kl import AutoencoderKL, encode_scaled
+from ..models.taggers import (
+    AttentionClassificationDecoder,
+    ClassificationDecoder,
+)
+from ..nn.blocks import seeded_init_
+from ..ops.image import normalize_uint8
+
+
+def build_decoder(num_classes: int, use_attention: bool = True,
+                  attention_config: Optional[dict] = None,
+                  latent_channels: int = 16, seed: int = 0):
+    """Decoder factory of the reference's inference script."""
+    if use_attention:
+        cfg = AttentionDecoderConfig(**(attention_config or {}))
+        head = AttentionClassificationDecoder(latent_channels, num_classes,
+                                              cfg)
+    else:
+        head = ClassificationDecoder(latent_channels, num_classes)
+    return seeded_init_(head, seed)
+
+
+class TaggerEngine:
+    """VAE + tagger head on one device."""
+
+    def __init__(self, vae: AutoencoderKL, decoder: torch.nn.Module,
+                 tag_names: list, policy: Policy = Policy(),
+                 device=None):
+        self.device = resolve_device(device)
+        self.policy = policy
+        self.vae = vae.to(self.device).eval()
+        self.decoder = decoder.to(self.device).eval()
+        self.tag_names = tag_names
+
+    @classmethod
+    def load(cls, vae_checkpoint: str, decoder_checkpoint: str,
+             tags_csv_path: str, vae_config_path: Optional[str] = None,
+             use_attention: bool = True,
+             attention_config: Optional[dict] = None,
+             mixed_precision: Optional[str] = None,
+             device=None) -> "TaggerEngine":
+        """Load both checkpoints.  ``device`` defaults to ``cuda`` and
+        raises on a host without one; pass ``"cpu"`` for the plain path."""
+        device = resolve_device(device)
+        policy = resolve_mixed_precision(mixed_precision)
+        vae = load_vae(vae_checkpoint, vae_config_path)
+        tag_names = load_tag_names(tags_csv_path)
+        decoder = build_decoder(len(tag_names), use_attention,
+                                attention_config,
+                                latent_channels=vae.config.latent_channels)
+        load_decoder(decoder, decoder_checkpoint)
+        return cls(vae, decoder, tag_names, policy, device)
+
+    # -- device forwards ------------------------------------------------------
+    def _place(self, pixels_uint8) -> torch.Tensor:
+        """Host uint8 batch -> device tensor (pinned, non-blocking)."""
+        arr = np.ascontiguousarray(pixels_uint8)
+        if not arr.flags.writeable:
+            arr = arr.copy()
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _encode(self, px: torch.Tensor) -> torch.Tensor:
+        x = normalize_uint8(px, self.policy.compute_dtype)
+        return encode_scaled(self.vae.encode(x).mode(), self.vae.config)
+
+    def _encode_classify(self, px: torch.Tensor):
+        latents = self._encode(px)
+        probs = torch.sigmoid(self.decoder(latents.float()).float())
+        return latents, probs
+
+    # -- public API -----------------------------------------------------------
+    def encode(self, pixels_uint8: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 -> (B, h, w, C) scaled/shifted latents."""
+        with torch.inference_mode():
+            latents = self._encode(self._place(pixels_uint8))
+        return latents.float().cpu().numpy()
+
+    def classify_async(self, pixels_uint8: np.ndarray):
+        """Dispatch without synchronizing: (device_probs, real_count)."""
+        with torch.inference_mode():
+            _, probs = self._encode_classify(self._place(pixels_uint8))
+        return probs, len(pixels_uint8)
+
+    def classify(self, pixels_uint8: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 -> (B, num_tags) sigmoid probabilities."""
+        probs, _ = self.classify_async(pixels_uint8)
+        return probs.cpu().numpy()
+
+    def encode_and_classify(self, pixels_uint8: np.ndarray):
+        with torch.inference_mode():
+            latents, probs = self._encode_classify(
+                self._place(pixels_uint8))
+        return latents.float().cpu().numpy(), probs.cpu().numpy()
+
+    def get_confidence(self, pixels_uint8: np.ndarray):
+        """Descending (confidences, indices) per image."""
+        probs = self.classify(pixels_uint8)
+        indices = np.argsort(-probs, axis=-1, kind="stable")
+        return np.take_along_axis(probs, indices, axis=-1), indices
