@@ -20,7 +20,11 @@ from vae_tagger_tpu_torch.core.config import default_flux_vae_config
 from vae_tagger_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from vae_tagger_tpu_torch.nn.blocks import seeded_init_
 from vae_tagger_tpu_torch.ops import backend
-from vae_tagger_tpu_torch.ops.attention import flash_attention_fwd
+from vae_tagger_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
+)
 from vae_tagger_tpu_torch.ops.conv import gn_silu_conv3x3
 from vae_tagger_tpu_torch.ops.normalization import (
     group_norm_affine,
@@ -109,6 +113,59 @@ def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
 def test_flash_attention_fwd_kernel(gen, b, sq, skv, d):
     q, k, v = _rnd(gen, b, sq, d), _rnd(gen, b, skv, d), _rnd(gen, b, skv, d)
     _check(lambda dt: flash_attention_fwd(q.to(dt), k.to(dt), v.to(dt)))
+
+
+@pytest.mark.parametrize("b,sq,skv,d", [(2, 200, 200, 128),
+                                        (1, 100, 260, 64),
+                                        (1, 77, 45, 512)])
+def test_flash_attention_bwd_kernels(gen, b, sq, skv, d):
+    """Kernels D and E at ragged shapes (rows past the 32-row and 16-row
+    tiles, Sq != Skv), from kernel C's O and logsumexp."""
+    q, k, v = _rnd(gen, b, sq, d), _rnd(gen, b, skv, d), _rnd(gen, b, skv, d)
+    do = _rnd(gen, b, sq, d)
+
+    def op(dt):
+        with backend.backend("torch"):
+            o, lse = flash_attention_fwd(q, k, v)
+        return flash_attention_bwd(q.to(dt), k.to(dt), v.to(dt), o.to(dt),
+                                   lse, do.to(dt))
+
+    _check(op)
+    assert backend.launch_counts()["flash_attention_bwd_dq"] == 2
+    assert backend.launch_counts()["flash_attention_bwd_dkv"] == 2
+
+
+def test_kernel_gradients_match_torch_backend(gen):
+    """Outputs of kernels A, B and C carry a grad_fn, and the gradients of
+    each op through the kernel path match the torch backend in fp32."""
+    from vae_tagger_tpu_torch.ops.normalization import group_norm_silu
+
+    def leaf(*shape, **kw):
+        return _rnd(gen, *shape, **kw).requires_grad_()
+
+    x = leaf(2, 9, 13, 64, shift=0.3)
+    gs, gb = leaf(64, scale=0.2, shift=1.0), leaf(64, scale=0.1)
+    k, b = leaf(3, 3, 64, 96, scale=(9 * 64) ** -0.5), leaf(96, scale=0.1)
+    sck, scb = leaf(64, 96, scale=0.125), leaf(96, scale=0.1)
+    q, kk, v = leaf(2, 100, 64), leaf(2, 130, 64), leaf(2, 130, 64)
+    cases = [
+        (lambda: group_norm_silu(x, gs, gb, num_groups=8), (x, gs, gb)),
+        (lambda: gn_silu_conv3x3(x, gs, gb, k, b, x, sck, scb, num_groups=8),
+         (x, gs, gb, k, b, sck, scb)),
+        (lambda: flash_attention(q, kk, v), (q, kk, v)),
+    ]
+    for fn, inputs in cases:
+        backend.reset_launch_counts()
+        out = fn()
+        assert out.grad_fn is not None
+        g = torch.randn(out.shape, generator=gen).cuda()
+        got = torch.autograd.grad(out, inputs, g)
+        assert sum(backend.launch_counts().values()) > 0
+        with backend.backend("torch"):
+            want = torch.autograd.grad(fn(), inputs, g)
+        for a, w in zip(got, want):
+            rel = ((a - w).norm() / w.norm()).item()
+            assert rel <= 1e-4, rel
 
 
 def test_encoder_kernel_path_matches_plain_path(gen):

@@ -23,8 +23,13 @@ def _modules():
 
 
 def test_every_module_imports_without_jax():
-    """In a fresh interpreter, importing every module of the port leaves
-    jax and the JAX package out of sys.modules."""
+    """In a fresh interpreter, importing every module of the port (the
+    training modules included) leaves jax and the JAX package out of
+    sys.modules."""
+    assert {"vae_tagger_tpu_torch.train.train_full",
+            "vae_tagger_tpu_torch.train.steps",
+            "vae_tagger_tpu_torch.losses.combined",
+            "vae_tagger_tpu_torch.data.loader"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -50,6 +55,7 @@ def test_no_source_names_jax_or_the_jax_package(pattern):
 
 def test_cuda_sources_ship_as_package_data():
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "flash_attention_fwd.cu", "gn_silu_conv3x3.cu", "groupnorm_silu.cu"]
+        "flash_attention_bwd.cu", "flash_attention_fwd.cu",
+        "gn_silu_conv3x3.cu", "groupnorm_silu.cu"]
     text = (ROOT / "pyproject.toml").read_text()
     assert '"vae_tagger_tpu_torch"' in text and "csrc/*.cu" in text

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import argparse
 
+from ..core.cli import resolve_attention_flags
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -46,21 +48,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     return p
-
-
-def resolve_attention_flags(args) -> dict | None:
-    """Apply --no_attention and build the attention config dict."""
-    if args.no_attention:
-        args.use_attention = False
-    if not args.use_attention:
-        return None
-    return {
-        "use_spatial_attention": args.use_spatial_attention,
-        "use_self_attention": args.use_self_attention,
-        "use_cross_attention": args.use_cross_attention,
-        "attention_heads": args.attention_heads,
-        "attention_dropout": args.attention_dropout,
-    }
 
 
 def main(argv=None) -> dict:

@@ -7,6 +7,15 @@
   diffusers key names, so no key is renamed and no weight transposed.
 - :func:`load_decoder`: a tagger head's ``pytorch_model.bin``, BatchNorm
   running stats included.
+- :func:`passthrough_vae_tensors` and :func:`save_vae_pretrained`: the
+  port's VAE has no decoder, so a trainer keeps the checkpoint's
+  ``decoder.*`` and ``post_quant_conv.*`` tensors aside, unchanged, and the
+  export writes them back beside the trained encoder: a whole diffusers
+  VAE.  (The JAX package decays those untrained tensors by (1 - lr*wd)
+  each step; the port leaves them as they are, as the reference's torch
+  AdamW skips parameters without a gradient.)
+- :func:`save_train_state` / :func:`restore_train_state`: the whole train
+  state in one ``torch.save`` file (the JAX package's orbax checkpoint).
 - :func:`torch_state_from_jax_params`: a JAX parameter tree of numpy arrays
   -> the port's ``state_dict`` (HWIO -> OIHW, (in, out) -> (out, in),
   ``scale`` -> ``weight``, ``mean``/``var`` -> ``running_*``).  This is the
@@ -17,6 +26,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -131,21 +141,39 @@ def warn_if_quant_convs_missing(missing) -> None:
               "config -- randomly-initialized quant convs corrupt latents.")
 
 
-def load_vae(vae_checkpoint: str, vae_config_path: Optional[str] = None):
-    """The port's ``AutoencoderKL`` (CPU, fp32) from a diffusers-layout
-    checkpoint: the config JSON if given, else the FLUX config; keys the
-    checkpoint lacks keep a seeded fresh initialization (strict=False)."""
+def load_vae(vae_checkpoint: Optional[str],
+             vae_config_path: Optional[str] = None, *,
+             require_checkpoint: bool = True,
+             resolution: Optional[int] = None, remat: bool = False,
+             use_quant_conv: bool = False,
+             use_post_quant_conv: bool = False):
+    """The port's ``AutoencoderKL`` (CPU, fp32): the config JSON if given,
+    else the FLUX config (``sample_size`` = ``resolution`` when given);
+    ``use_quant_conv``/``use_post_quant_conv`` force the SD-style quant
+    convs on.  Weights come from a diffusers-layout checkpoint; keys it
+    lacks keep a seeded fresh initialization (strict=False).  Without a
+    checkpoint the model stays freshly initialized, unless
+    ``require_checkpoint``."""
     from ..models.autoencoder_kl import AutoencoderKL
     from ..nn.blocks import seeded_init_
 
-    if not (vae_checkpoint and os.path.exists(vae_checkpoint)):
+    have = bool(vae_checkpoint and os.path.exists(vae_checkpoint))
+    if require_checkpoint and not have:
         raise RuntimeError(f"VAE checkpoint not found: {vae_checkpoint}")
     if vae_config_path and os.path.exists(vae_config_path):
         print(f"creating VAE from config file: {vae_config_path}")
         config = vae_config_from_file(vae_config_path)
     else:
         config = default_flux_vae_config()
-    model = seeded_init_(AutoencoderKL(config))
+        if resolution is not None:
+            config = dataclasses.replace(config, sample_size=resolution)
+    if use_quant_conv or use_post_quant_conv:
+        config = dataclasses.replace(config, use_quant_conv=use_quant_conv,
+                                     use_post_quant_conv=use_post_quant_conv)
+    model = seeded_init_(AutoencoderKL(config, remat=remat))
+    if not have:
+        print("no VAE checkpoint: training from a fresh initialization")
+        return model
     print(f"loading pretrained VAE weights: {vae_checkpoint}")
     state = {k: v for k, v in load_state_file(vae_checkpoint).items()
              if not k.startswith(_UNUSED_PREFIXES)}
@@ -166,18 +194,30 @@ def load_decoder(decoder: torch.nn.Module, path: str) -> torch.nn.Module:
     return decoder
 
 
+def passthrough_vae_tensors(vae_checkpoint: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a diffusers VAE checkpoint that the port's encode-only
+    VAE does not hold (``decoder.*``, ``post_quant_conv.*``), unchanged."""
+    return {k: v for k, v in load_state_file(vae_checkpoint).items()
+            if k.startswith(_UNUSED_PREFIXES)}
+
+
 def save_vae_pretrained(model: torch.nn.Module, config: VAEConfig,
-                        output_dir: str) -> None:
+                        output_dir: str,
+                        passthrough: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> None:
     """Diffusers ``save_pretrained``-style export of the port's VAE:
-    ``config.json`` + ``diffusion_pytorch_model.safetensors``."""
+    ``config.json`` + ``diffusion_pytorch_model.safetensors``, with the
+    ``passthrough`` tensors (:func:`passthrough_vae_tensors`) written back
+    unchanged."""
     from safetensors.torch import save_file
 
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "config.json"), "w",
               encoding="utf-8") as f:
         json.dump(config.to_json_dict(), f, indent=2)
-    state = {k: v.detach().float().cpu().contiguous()
-             for k, v in model.state_dict().items()}
+    state = {k: v.contiguous() for k, v in (passthrough or {}).items()}
+    state.update({k: v.detach().float().cpu().contiguous()
+                  for k, v in model.state_dict().items()})
     save_file(state, os.path.join(output_dir,
                                   "diffusion_pytorch_model.safetensors"))
 
@@ -186,3 +226,30 @@ def save_decoder_bin(decoder: torch.nn.Module, path: str) -> None:
     """Save a tagger head as a reference-compatible ``pytorch_model.bin``."""
     torch.save({k: v.detach().cpu() for k, v in decoder.state_dict().items()},
                path)
+
+
+_TRAIN_STATE_FILE = "train_state.pt"
+
+
+def save_train_state(state, path: str) -> None:
+    """Write a ``train.state.TrainState`` (step, both models with the
+    head's BatchNorm buffers, AdamW moments, schedule position) to
+    ``<path>/train_state.pt``, atomically."""
+    os.makedirs(path, exist_ok=True)
+    final = os.path.join(path, _TRAIN_STATE_FILE)
+    tmp = final + ".tmp"
+    torch.save(state.state_dict(), tmp)
+    os.replace(tmp, final)
+
+
+def restore_train_state(state, path: str):
+    """Load ``<path>/train_state.pt`` (or ``path`` itself, a file) into
+    ``state`` in place; returns ``state``."""
+    file = (os.path.join(path, _TRAIN_STATE_FILE) if os.path.isdir(path)
+            else path)
+    if not os.path.exists(file):
+        raise RuntimeError(f"train state not found: {file}")
+    device = next(state.vae.parameters()).device
+    state.load_state_dict(torch.load(file, map_location=device,
+                                     weights_only=True))
+    return state

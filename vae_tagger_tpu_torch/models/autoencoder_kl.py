@@ -1,12 +1,16 @@
 """The FLUX AutoencoderKL encoder in PyTorch, NHWC.
 
 Counterpart of ``vae_tagger_tpu/models/autoencoder_kl.py`` for the encode
-path: ``Encoder``, the diagonal-Gaussian posterior (``from_moments`` with
-logvar clamped to [-30, 20], ``mode``), ``AutoencoderKL.encode`` with the
+and training paths: ``Encoder``, the diagonal-Gaussian posterior
+(``from_moments`` with logvar clamped to [-30, 20], ``mode``, ``sample``
+from an explicit generator, ``kl``), ``AutoencoderKL.encode`` with the
 optional 1x1 ``quant_conv`` of SD-family VAEs, and ``encode_scaled``.
 Module names follow the diffusers keys, so ``encoder.*`` and
-``quant_conv.*`` of a diffusers checkpoint load 1:1.  The decoder,
-``sample`` and ``kl`` wait for the decoder slice.
+``quant_conv.*`` of a diffusers checkpoint load 1:1.  The decoder waits for
+its slice.
+
+``remat=True`` checkpoints every ResnetBlock and the mid-block attention
+(``torch.utils.checkpoint``, the JAX package's ``nn.remat``).
 """
 
 from __future__ import annotations
@@ -36,9 +40,22 @@ class DiagonalGaussian:
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        """mean + exp(logvar / 2) * eps, eps ~ N(0, I) from ``generator``
+        (on the tensors' device)."""
+        eps = torch.randn(self.mean.shape, generator=generator,
+                          device=self.mean.device, dtype=torch.float32)
+        return self.mean + torch.exp(0.5 * self.logvar) * eps.to(
+            self.mean.dtype)
+
+    def kl(self) -> torch.Tensor:
+        """Per-sample KL(q || N(0, I)) summed over (h, w, C) -> (B,)."""
+        m, lv = self.mean.float(), self.logvar.float()
+        return 0.5 * (m.square() + lv.exp() - 1.0 - lv).sum(dim=(1, 2, 3))
+
 
 class Encoder(nn.Module):
-    def __init__(self, config: VAEConfig):
+    def __init__(self, config: VAEConfig, remat: bool = False):
         super().__init__()
         cfg = config
         g = cfg.norm_num_groups
@@ -49,10 +66,10 @@ class Encoder(nn.Module):
             blocks.append(DownEncoderBlock(
                 ch, out_ch, cfg.layers_per_block,
                 add_downsample=i < len(cfg.block_out_channels) - 1,
-                num_groups=g))
+                num_groups=g, remat=remat))
             ch = out_ch
         self.down_blocks = nn.ModuleList(blocks)
-        self.mid_block = MidBlock(ch, g, cfg.mid_block_add_attention)
+        self.mid_block = MidBlock(ch, g, cfg.mid_block_add_attention, remat)
         self.conv_norm_out = GroupNorm(g, ch, with_silu=True)
         self.conv_out = Conv2D(ch, 2 * cfg.latent_channels)
 
@@ -67,10 +84,10 @@ class Encoder(nn.Module):
 class AutoencoderKL(nn.Module):
     """The encode half of the VAE (``encoder`` and ``quant_conv``)."""
 
-    def __init__(self, config: VAEConfig):
+    def __init__(self, config: VAEConfig, remat: bool = False):
         super().__init__()
         self.config = config
-        self.encoder = Encoder(config)
+        self.encoder = Encoder(config, remat)
         self.quant_conv = (
             Conv2D(2 * config.latent_channels, 2 * config.latent_channels, 1,
                    padding=0) if config.use_quant_conv else None)

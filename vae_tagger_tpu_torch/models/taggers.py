@@ -15,7 +15,11 @@ Submodules are ``nn.Sequential``s and layers named after the reference
 NHWC latents, as the JAX heads do, and flatten channel-major like torch's
 NCHW ``reshape``, so Linear weights carry over without permutation.  The
 64-token MHSA stays plain PyTorch, as the JAX package keeps it on XLA.  In
-``eval()`` mode dropout is off and BatchNorm reads its running stats.
+``eval()`` mode dropout is off and BatchNorm reads its running stats.  In
+``train()`` mode dropout draws from the ``generator`` passed to the
+forward (the JAX package's explicit dropout key), and BatchNorm normalizes
+with the batch statistics and updates its running statistics as flax's
+``BatchNorm(momentum=0.9)`` does: with the *biased* batch variance.
 """
 
 from __future__ import annotations
@@ -38,6 +42,45 @@ def _flatten_torch_order(x):
 
 def _conv(conv: nn.Conv2d, x):
     return conv2d_nhwc(x, conv.weight, conv.bias, conv.stride, conv.padding)
+
+
+def dropout(x, p: float, training: bool, generator=None):
+    """Inverted dropout whose mask is drawn from ``generator`` (the default
+    generator when None); the identity outside training."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
+
+
+def _sequential(layers: nn.Sequential, x, generator=None):
+    """``layers`` applied in order, each ``nn.Dropout`` from ``generator``."""
+    for layer in layers:
+        if isinstance(layer, nn.Dropout):
+            x = dropout(x, layer.p, layer.training, generator)
+        else:
+            x = layer(x)
+    return x
+
+
+def batch_norm_nhwc(bn: nn.BatchNorm2d, x):
+    """BatchNorm over an NHWC tensor.  In training it normalizes with the
+    batch statistics and moves the running ones by ``bn.momentum`` toward
+    the batch mean and the biased batch variance (flax's update; torch's
+    own would take the unbiased variance)."""
+    if not bn.training:
+        return F.batch_norm(x.permute(0, 3, 1, 2), bn.running_mean,
+                            bn.running_var, bn.weight, bn.bias, False, 0.0,
+                            bn.eps).permute(0, 2, 3, 1)
+    y = F.batch_norm(x.permute(0, 3, 1, 2), None, None, bn.weight, bn.bias,
+                     True, 0.0, bn.eps).permute(0, 2, 3, 1)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x.float(), dim=(0, 1, 2), correction=0)
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        bn.num_batches_tracked += 1
+    return y
 
 
 class SpatialAttention(nn.Module):
@@ -96,7 +139,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.dropout = nn.Dropout(dropout)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         b, h, w, c = x.shape
         s = h * w
         seq = x.reshape(b, s, c)
@@ -109,7 +152,8 @@ class MultiHeadSelfAttention(nn.Module):
         q, k, v = heads(self.q_proj(y)), heads(self.k_proj(y)), heads(
             self.v_proj(y))
         scores = q @ k.transpose(-2, -1) / (self.head_dim ** 0.5)
-        weights = self.dropout(scores.float().softmax(dim=-1).to(q.dtype))
+        weights = dropout(scores.float().softmax(dim=-1).to(q.dtype),
+                          self.dropout.p, self.training, generator)
         out = (weights @ v).transpose(1, 2).reshape(b, s, c)
         return (self.out_proj(out) + seq).reshape(b, h, w, c)
 
@@ -164,9 +208,10 @@ class ClassificationDecoder(nn.Module):
             nn.Linear(256, num_classes),
         )
 
-    def forward(self, latents):
+    def forward(self, latents, generator=None):
         x = adaptive_avg_pool_nhwc(latents, (4, 4))
-        return self.classifier(_flatten_torch_order(x))
+        return _sequential(self.classifier, _flatten_torch_order(x),
+                           generator)
 
 
 class AttentionClassificationDecoder(nn.Module):
@@ -216,18 +261,15 @@ class AttentionClassificationDecoder(nn.Module):
             nn.Linear(256, num_classes),
         )
 
-    def forward(self, latents):
+    def forward(self, latents, generator=None):
         x = latents
         if self.spatial_attention is not None:
             x = self.spatial_attention(x)
-        conv, bn = self.feature_compress[0], self.feature_compress[1]
-        x = _conv(conv, x)
-        x = F.batch_norm(x.permute(0, 3, 1, 2), bn.running_mean,
-                         bn.running_var, bn.weight, bn.bias, self.training,
-                         bn.momentum, bn.eps).permute(0, 2, 3, 1)
+        x = _conv(self.feature_compress[0], x)
+        x = batch_norm_nhwc(self.feature_compress[1], x)
         x = adaptive_avg_pool_nhwc(F.relu(x), (8, 8))
         if self.self_attention_post is not None:
-            x = self.self_attention_post(x)
+            x = self.self_attention_post(x, generator)
         flattened = _flatten_torch_order(x)
         if self.cross_attention is not None:
             query = self.query_generator(flattened)
@@ -235,7 +277,7 @@ class AttentionClassificationDecoder(nn.Module):
             attended = self.cross_attention(query, x.reshape(b, -1, c))
             # the reference mixes the *mean* of the attended query back in
             flattened = flattened + attended.mean(dim=1, keepdim=True)
-        return self.classifier(flattened)
+        return _sequential(self.classifier, flattened, generator)
 
 
 def create_attention_decoder(latent_channels: int, num_classes: int,

@@ -11,8 +11,11 @@ fp32 and are cast to the activation dtype where a matmul or conv uses them.
 Every encoder ResnetBlock runs both of its branches through the fused
 ``gn_silu_conv3x3`` (kernel B on the card); the attention's GroupNorm and
 ``conv_norm_out`` go through ``group_norm_silu`` (kernel A) and the
-mid-block attention through kernel C.  ``Upsample`` and ``UpDecoderBlock``
-wait for the decoder slice.
+mid-block attention through kernel C.  With ``remat`` each ResnetBlock
+and the attention run under ``torch.utils.checkpoint`` (non-reentrant):
+the counterpart of ``nn.remat`` in the JAX package, O(block) activation
+memory for a second forward in the backward.  ``Upsample`` and
+``UpDecoderBlock`` wait for the decoder slice.
 """
 
 from __future__ import annotations
@@ -22,10 +25,18 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import spatial_single_head_attention
 from ..ops.conv import conv2d_nhwc, gn_silu_conv3x3
 from ..ops.normalization import group_norm_silu
+
+
+def _call(module: nn.Module, x, remat: bool):
+    """``module(x)``, under activation checkpointing when ``remat``."""
+    if remat:
+        return checkpoint(module, x, use_reentrant=False)
+    return module(x)
 
 
 def linear(module: nn.Linear, x):
@@ -141,8 +152,9 @@ class MidBlock(nn.Module):
     """resnet -> (attention) -> resnet at the bottleneck."""
 
     def __init__(self, channels: int, num_groups: int = 32,
-                 add_attention: bool = True):
+                 add_attention: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resnets = nn.ModuleList([
             ResnetBlock(channels, channels, num_groups),
             ResnetBlock(channels, channels, num_groups),
@@ -151,10 +163,10 @@ class MidBlock(nn.Module):
             [VAEAttention(channels, num_groups)] if add_attention else [])
 
     def forward(self, x):
-        x = self.resnets[0](x)
+        x = _call(self.resnets[0], x, self.remat)
         for attn in self.attentions:
-            x = attn(x)
-        return self.resnets[1](x)
+            x = _call(attn, x, self.remat)
+        return _call(self.resnets[1], x, self.remat)
 
 
 class DownEncoderBlock(nn.Module):
@@ -162,8 +174,9 @@ class DownEncoderBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  num_layers: int = 2, add_downsample: bool = True,
-                 num_groups: int = 32):
+                 num_groups: int = 32, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resnets = nn.ModuleList([
             ResnetBlock(in_channels if i == 0 else out_channels, out_channels,
                         num_groups)
@@ -174,7 +187,7 @@ class DownEncoderBlock(nn.Module):
 
     def forward(self, x):
         for r in self.resnets:
-            x = r(x)
+            x = _call(r, x, self.remat)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
         return x

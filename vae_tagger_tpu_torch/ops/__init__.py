@@ -1,6 +1,11 @@
 """Ops of the port: plain PyTorch versions and the CUDA kernel wrappers."""
 
-from .attention import flash_attention_fwd, spatial_single_head_attention
+from .attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
+    spatial_single_head_attention,
+)
 from .conv import conv2d_nhwc, gn_silu_conv3x3
 from .image import normalize_uint8
 from .normalization import (
@@ -16,6 +21,8 @@ __all__ = [
     "adaptive_avg_pool_nhwc",
     "adaptive_max_pool_nhwc",
     "conv2d_nhwc",
+    "flash_attention",
+    "flash_attention_bwd",
     "flash_attention_fwd",
     "gn_silu_conv3x3",
     "group_norm",

@@ -52,6 +52,12 @@ SIGNATURES = {
         "vt_flash_attn_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
                               _P],
     },
+    "flash_attention_bwd": {
+        "vt_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _F, _P, _P],
+        "vt_flash_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _F, _P, _P, _P],
+    },
 }
 
 _LIBS: dict = {}

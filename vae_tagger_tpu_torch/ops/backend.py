@@ -35,6 +35,8 @@ LAUNCHES = {
     "group_stats": 0,
     "gn_silu_conv3x3": 0,
     "flash_attention_fwd": 0,
+    "flash_attention_bwd_dq": 0,
+    "flash_attention_bwd_dkv": 0,
 }
 
 

@@ -8,7 +8,9 @@ kernel B (``csrc/gn_silu_conv3x3.cu``), which applies the GroupNorm affine
 and the SiLU as it stages input pixels and adds the residual or the
 shortcut product in its epilogue.  Beside it, :func:`gn_silu_conv3x3_plain`
 is the same function in PyTorch: ``group_norm`` -> SiLU -> ``F.conv2d`` ->
-residual or shortcut.
+residual or shortcut.  The op is a ``torch.autograd.Function`` whose
+backward recomputes the plain version and takes its VJP, so the forward
+keeps only its inputs for the backward.
 
 Every other conv of the encode path (``conv_in``, the stride-2
 downsamples, ``conv_out``, the tagger head's convs) is :func:`conv2d_nhwc`,
@@ -29,6 +31,7 @@ from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
     group_norm,
     group_norm_affine,
     group_stats,
+    vjp_of_plain,
 )
 
 
@@ -100,21 +103,47 @@ def _gn_silu_conv3x3_kernel(x, gn_scale, gn_bias, kernel, bias, residual,
     return out
 
 
+class _GnSiluConv3x3(torch.autograd.Function):
+    """Forward: kernel A's stats pass and kernel B on a CUDA tensor, else
+    the plain version; backward: the VJP of the plain version, recomputed
+    (the JAX package's custom VJP), for every tensor input -- x, the GN
+    scale and bias, the HWIO kernel, the bias, the residual and the
+    shortcut kernel and bias."""
+
+    @staticmethod
+    def forward(ctx, num_groups, eps, *tensors):
+        ctx.save_for_backward(*(t for t in tensors if t is not None))
+        ctx.present = [t is not None for t in tensors]
+        ctx.args = (num_groups, eps)
+        if backend.use_kernel(tensors[0]):
+            out = _gn_silu_conv3x3_kernel(*tensors, num_groups, eps)
+            backend.count_launch("gn_silu_conv3x3")
+            return out
+        return gn_silu_conv3x3_plain(*tensors, num_groups=num_groups,
+                                     eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_groups, eps = ctx.args
+        saved = iter(ctx.saved_tensors)
+        tensors = [next(saved) if p else None for p in ctx.present]
+
+        def plain(*ts):
+            return gn_silu_conv3x3_plain(*ts, num_groups=num_groups, eps=eps)
+
+        return (None, None) + vjp_of_plain(plain, tensors, g)
+
+
 def gn_silu_conv3x3(x, gn_scale, gn_bias, kernel, bias, residual=None,
                     shortcut_kernel=None, shortcut_bias=None, *,
                     num_groups: int, eps: float = 1e-6):
-    """Fused ResnetBlock branch: conv3x3(silu(gn(x))) + bias [+ residual].
+    """Fused ResnetBlock branch: conv3x3(silu(gn(x))) + bias [+ residual],
+    with gradients to every tensor input.
 
     x (N,H,W,Cin); gn_scale/gn_bias (Cin,); kernel (3,3,Cin,Cout) HWIO;
     bias (Cout,); residual (N,H,W,Cout), or (N,H,W,Cres) projected first by
     ``shortcut_kernel`` ((1,1,Cres,Cout) or (Cres,Cout)) + ``shortcut_bias``.
     """
-    if backend.use_kernel(x):
-        out = _gn_silu_conv3x3_kernel(x, gn_scale, gn_bias, kernel, bias,
-                                      residual, shortcut_kernel,
-                                      shortcut_bias, num_groups, eps)
-        backend.count_launch("gn_silu_conv3x3")
-        return out
-    return gn_silu_conv3x3_plain(x, gn_scale, gn_bias, kernel, bias, residual,
-                                 shortcut_kernel, shortcut_bias,
-                                 num_groups=num_groups, eps=eps)
+    return _GnSiluConv3x3.apply(num_groups, eps, x, gn_scale, gn_bias,
+                                kernel, bias, residual, shortcut_kernel,
+                                shortcut_bias)

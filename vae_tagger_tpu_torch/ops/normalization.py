@@ -11,6 +11,12 @@ Kernel A (``csrc/groupnorm_silu.cu``) serves two wrappers here:
 - :func:`group_norm_affine`: the stats pass alone, folded into per-(n, c)
   ``eff_scale``/``eff_bias`` for the fused conv (ops/conv.py).
 
+:func:`group_norm_silu` is a ``torch.autograd.Function`` on both paths:
+its backward recomputes the plain version under ``enable_grad`` and takes
+its VJP (:func:`vjp_of_plain`), as the JAX package's custom VJP does, so
+the forward saves only its inputs.  The stats pass is forward-only (the
+fused conv's Function owns its gradient).
+
 Beside them, the plain versions compute the same function in PyTorch: the
 fp32 sum and sum of squares, ``rstd = rsqrt(E[x^2] - mean^2 + eps)``, the
 affine and the SiLU in fp32, one cast at the end.  A wrapper takes the plain
@@ -163,13 +169,52 @@ def _group_norm_silu_kernel(x, scale, bias, num_groups, eps, apply_silu):
     return out
 
 
+def vjp_of_plain(plain, inputs, grads):
+    """Gradients of ``plain(*inputs)`` for every tensor input (None for the
+    others), recomputed under ``enable_grad``: the backward of the kernel
+    ops, as the JAX package's ``bwd`` takes ``jax.vjp`` of its reference."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(t.is_floating_point())
+                  if isinstance(t, torch.Tensor) else t for t in inputs]
+        out = plain(*leaves)
+        diff = [t for t in leaves if isinstance(t, torch.Tensor)
+                and t.requires_grad]
+        got = iter(torch.autograd.grad(out, diff, grads, allow_unused=True))
+    return tuple(next(got) if isinstance(t, torch.Tensor) and t.requires_grad
+                 else None for t in leaves)
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    """Forward: kernel A on a CUDA tensor, else the plain version; backward:
+    the VJP of the plain version (GroupNorm's backward is cheap next to the
+    convs around it)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (num_groups, eps, apply_silu)
+        if backend.use_kernel(x):
+            out = _group_norm_silu_kernel(x, scale, bias, num_groups, eps,
+                                          apply_silu)
+            backend.count_launch("group_norm_silu")
+            return out
+        return group_norm_silu_plain(x, scale, bias, num_groups=num_groups,
+                                     eps=eps, apply_silu=apply_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_groups, eps, apply_silu = ctx.args
+
+        def plain(x, scale, bias):
+            return group_norm_silu_plain(x, scale, bias,
+                                         num_groups=num_groups, eps=eps,
+                                         apply_silu=apply_silu)
+
+        return vjp_of_plain(plain, ctx.saved_tensors, g) + (None,) * 3
+
+
 def group_norm_silu(x, scale, bias, *, num_groups: int, eps: float = 1e-6,
                     apply_silu: bool = True):
-    """GroupNorm, optionally followed by SiLU, over an NHWC tensor."""
-    if backend.use_kernel(x):
-        out = _group_norm_silu_kernel(x, scale, bias, num_groups, eps,
-                                      apply_silu)
-        backend.count_launch("group_norm_silu")
-        return out
-    return group_norm_silu_plain(x, scale, bias, num_groups=num_groups,
-                                 eps=eps, apply_silu=apply_silu)
+    """GroupNorm, optionally followed by SiLU, over an NHWC tensor, with
+    gradients to x, scale and bias."""
+    return _GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)
