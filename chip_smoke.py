@@ -12,15 +12,24 @@ failure (non-zero exit, no ``ok`` line):
    all at once) and print the build seconds and register use;
 3. kernel phases: each kernel against its plain PyTorch version on the card,
    at the encode path's shapes (batch 4 at 1024px), in fp32 (TF32 off) and
-   bf16.  fp32: max relative error <= 1e-4.  bf16: error against the plain
-   fp32 result within 4x the plain version's own bf16 error (with a floor
-   of 1e-4 where the plain version's arithmetic is fp32 whatever the input
-   dtype).  Each kernel is timed with CUDA events, beside its plain version
-   and one PyTorch library call computing the same function (a yardstick
-   only; the port never calls it);
+   bf16.  The dtype picks the kernel of the fused conv and the attention
+   forward: bf16 runs the tensor-core kernels B' and C', fp32 the SIMT
+   kernels B and C.  Each kernel is checked in the dtypes it runs (B' and
+   C' bf16, B and C fp32, the others both), so every error it reports is
+   its own.  fp32: max relative error <= 1e-4.  bf16: error against the
+   plain fp32 result within 4x the plain version's own bf16 error (with a
+   floor of 1e-4 where the plain version's arithmetic is fp32 whatever the
+   input dtype).  Each kernel is timed with CUDA events in the dtype it
+   runs (A and its stats pass in bf16), over about 100 ms of calls, beside
+   its plain version and one PyTorch library call computing the same
+   function (a yardstick only; the port never calls it).  C' is also timed
+   at the training step's B=3.  B''s and C''s registers and shared memory
+   a block are read from the CUDA runtime (cudaFuncGetAttributes).
    Kernels D and E (the flash-attention backward) are checked the same way
    at the training step's shapes (B=3, S=16,384 and 4,096, D=512) and timed
-   beside the backward of ``F.scaled_dot_product_attention``;
+   beside the backward of ``F.scaled_dot_product_attention``, whose backend
+   is pinned to EFFICIENT_ATTENTION (the flash and cuDNN backends refuse
+   D=512);
 4. autograd on the card: the outputs of A, B and C on tensors that require
    a gradient carry a ``grad_fn``, and each op's gradients through the
    kernel path match the torch backend in fp32 (relative error <= 1e-4);
@@ -29,19 +38,24 @@ failure (non-zero exit, no ``ok`` line):
    seeded random weights, written in diffusers layout and as
    pytorch_model.bin, then ``python -m vae_tagger_tpu_torch.infer``'s entry
    point on seeded 1024px PNGs at batch 4 in bf16.  Checks: every image in
-   the JSON, finite probabilities, every kernel launched (A twice, B 20
-   times and C once per batch), and fp32 latents of the kernel path within
-   MSE 1e-4 of the plain (torch-backend) path on the same batch;
+   the JSON, finite probabilities, the exact launches (A twice, its stats
+   pass 20 times, B' 20 times and C' once per batch; B and C never); then,
+   on one batch through ``TaggerEngine``, the fp32 path with its own exact
+   launches (B 20 and C once; B' and C' never), fp32 latents of the kernel
+   path within MSE 1e-4 of the plain (torch-backend) path, and the bf16
+   gate: the bf16 kernel path's latents against the fp32 plain path within
+   4x the MSE of the torch backend's own bf16 latents; the steady classify
+   rate over 50 batches (host clock);
 6. training path: the same weights and images as a tagged dataset (2,000
    tags), then ``python -m vae_tagger_tpu_torch.train.train_full``'s entry
    point for one epoch at 1024px, batch 1 (a stacked triplet of 3 images),
    bf16, no warmup.  Checks: finite losses, the exact launch counts (per
-   train step A 2, stats 20, B 20, C 1, D 1, E 1; per validation batch the
-   forward's), every encoder and head parameter changed, the exported VAE
-   (with the checkpoint's decoder tensor kept) and head classify through
-   ``TaggerEngine``.  Then the steady step time, images/s and peak memory,
-   a profiler breakdown of one step by kernel, and the gradient gate: on
-   one fp32 batch, every parameter's gradient through the kernel path
+   train step A 2, stats 20, B' 20, C' 1, D 1, E 1, B and C none; per
+   validation batch the forward's), every encoder and head parameter
+   changed, the exported VAE (with the checkpoint's decoder tensor kept)
+   and head classify through ``TaggerEngine``.  Then the steady step time
+   over 10 steps, images/s and peak memory, a profiler breakdown of one
+   step by kernel, and the gradient gate: on one fp32 batch, every parameter's gradient through the kernel path
    within 1e-3 of the torch backend's, relative, or absolute where the
    torch path's norm is below 1e-8 (gradients that are zero in exact
    arithmetic);
@@ -106,11 +120,22 @@ KERNELS = {
                  "pass of kernel A, fed to the fused conv)"),
     "gn_silu_conv3x3": dict(
         route="cuda", source="vae_tagger_tpu_torch/csrc/gn_silu_conv3x3.cu",
-        replaces="vae_tagger_tpu/ops/pallas/conv_fused.py:173"),
+        replaces="vae_tagger_tpu/ops/pallas/conv_fused.py:173 (fp32 path)"),
+    "gn_silu_conv3x3_tc": dict(
+        route="cuda",
+        source="vae_tagger_tpu_torch/csrc/gn_silu_conv3x3_tc.cu",
+        replaces="vae_tagger_tpu/ops/pallas/conv_fused.py:173 (bf16 path, "
+                 "pallas_call at :260)"),
     "flash_attention_fwd": dict(
         route="cuda",
         source="vae_tagger_tpu_torch/csrc/flash_attention_fwd.cu",
-        replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:87"),
+        replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:87 (fp32 "
+                 "path)"),
+    "flash_attention_fwd_tc": dict(
+        route="cuda",
+        source="vae_tagger_tpu_torch/csrc/flash_attention_fwd_tc.cu",
+        replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:87 (bf16 "
+                 "path, pallas_call at :112)"),
     "flash_attention_bwd_dq": dict(
         route="cuda",
         source="vae_tagger_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -122,13 +147,24 @@ KERNELS = {
         replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:187 "
                  "(_bwd_dkv_kernel, pallas_call at :296)"),
 }
-# launches of one train step and of one validation (forward-only) batch
+# the SIMT kernels of the fused conv and the attention forward run on fp32
+# paths only (bf16 paths run B' and C')
+SIMT_KERNELS = ("gn_silu_conv3x3", "flash_attention_fwd")
+# launches of one bf16 train step and of one validation (forward-only) batch
 TRAIN_STEP_LAUNCHES = {"group_norm_silu": 2, "group_stats": 20,
-                       "gn_silu_conv3x3": 20, "flash_attention_fwd": 1,
+                       "gn_silu_conv3x3": 0, "gn_silu_conv3x3_tc": 20,
+                       "flash_attention_fwd": 0, "flash_attention_fwd_tc": 1,
                        "flash_attention_bwd_dq": 1,
                        "flash_attention_bwd_dkv": 1}
 EVAL_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, flash_attention_bwd_dq=0,
                      flash_attention_bwd_dkv=0)
+# launches of one encode batch, bf16 and fp32
+ENCODE_LAUNCHES = {
+    "bf16": {"group_norm_silu": 2, "group_stats": 20, "gn_silu_conv3x3_tc": 20,
+             "flash_attention_fwd_tc": 1},
+    "fp32": {"group_norm_silu": 2, "group_stats": 20, "gn_silu_conv3x3": 20,
+             "flash_attention_fwd": 1},
+}
 
 
 def log(*a):
@@ -139,14 +175,22 @@ def log(*a):
 # measurement helpers
 # --------------------------------------------------------------------------
 
-def time_ms(fn, iters=3):
-    """Mean device time of fn() over iters calls after one warm-up call."""
+def time_ms(fn, window_ms=100.0, max_iters=50):
+    """Mean device time of fn() after one warm-up call, over as many calls
+    as fill about window_ms by a first timed call (at least 3, at most
+    max_iters)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    first = start.elapsed_time(end)
+    iters = int(min(max_iters, max(3, window_ms / max(first, 1e-3))))
     start.record()
     for _ in range(iters):
         fn()
@@ -166,15 +210,19 @@ def abs_err(a, ref):
 
 
 class Check:
-    """Kernel vs plain on the same inputs, fp32 and bf16."""
+    """One kernel vs its plain version on the same inputs, in the dtypes
+    that kernel runs ("fp32", "bf16"), so that every error it reports is
+    that kernel's own."""
 
-    def __init__(self, name):
+    def __init__(self, name, dtypes=("fp32", "bf16")):
         self.name = name
+        self.dtypes = dtypes
         self.rows = []
 
     def run(self, label, op):
         """op(dtype) -> tensor or tuple of tensors.  The inputs op closes
-        over are bf16-representable, so both dtypes see the same values."""
+        over are bf16-representable, so both dtypes see the same values;
+        the plain fp32 result is the reference of both."""
         import torch
         from vae_tagger_tpu_torch.ops import backend
 
@@ -184,38 +232,79 @@ class Check:
             torch.cuda.synchronize()
             return r if isinstance(r, tuple) else (r,)
 
+        def finite(t):
+            return bool(torch.isfinite(t).all())
+
         p32 = outs(torch.float32, "torch")
-        k32 = outs(torch.float32, "kernel")
-        p16 = outs(torch.bfloat16, "torch")
-        k16 = outs(torch.bfloat16, "kernel")
+        if "fp32" in self.dtypes:
+            k32 = outs(torch.float32, "kernel")
+        if "bf16" in self.dtypes:
+            p16 = outs(torch.bfloat16, "torch")
+            k16 = outs(torch.bfloat16, "kernel")
         for i, ref in enumerate(p32):
-            e32 = rel_err(k32[i], ref)
-            a32 = abs_err(k32[i], ref)
-            ek = rel_err(k16[i], ref)
-            ep = rel_err(p16[i], ref)
-            tol16 = max(4 * ep, 1e-4)
-            ok = (e32 <= 1e-4 and ek <= tol16
-                  and all(bool(torch.isfinite(t).all()) for t in
-                          (k32[i], k16[i])))
-            row = dict(case=f"{label}[{i}]", rel_err_fp32=e32,
-                       abs_err_fp32=a32, rel_err_bf16=ek,
-                       plain_rel_err_bf16=ep, tol_bf16=tol16, ok=ok)
+            row, ok, said = dict(case=f"{label}[{i}]"), True, []
+            if "fp32" in self.dtypes:
+                e32, a32 = rel_err(k32[i], ref), abs_err(k32[i], ref)
+                ok = ok and e32 <= 1e-4 and finite(k32[i])
+                row.update(rel_err_fp32=e32, abs_err_fp32=a32)
+                said.append(f"fp32 rel {e32:.3e} (abs {a32:.3e})")
+            if "bf16" in self.dtypes:
+                ek, ep = rel_err(k16[i], ref), rel_err(p16[i], ref)
+                tol16 = max(4 * ep, 1e-4)
+                ok = ok and ek <= tol16 and finite(k16[i])
+                row.update(rel_err_bf16=ek, abs_err_bf16=abs_err(k16[i], ref),
+                           plain_rel_err_bf16=ep, tol_bf16=tol16)
+                said.append(f"bf16 rel {ek:.3e} vs plain {ep:.3e} "
+                            f"(tol {tol16:.3e})")
+            row["ok"] = ok
             self.rows.append(row)
-            log(f"  {self.name} {row['case']}: fp32 rel {e32:.3e} "
-                f"(abs {a32:.3e}); bf16 rel {ek:.3e} vs plain {ep:.3e} "
-                f"(tol {tol16:.3e}) {'ok' if ok else 'FAIL'}")
+            log(f"  {self.name} {row['case']}: {'; '.join(said)} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{self.name} {label}: kernel disagrees "
                                      f"with its plain version: {row}")
 
     def summary(self):
-        return dict(
-            max_abs_err=max(r["abs_err_fp32"] for r in self.rows),
-            max_rel_err_fp32=max(r["rel_err_fp32"] for r in self.rows),
-            max_rel_err_bf16=max(r["rel_err_bf16"] for r in self.rows),
-            plain_rel_err_bf16=max(r["plain_rel_err_bf16"]
-                                   for r in self.rows),
-            cases=len(self.rows))
+        """Worst errors over the cases, None for a dtype the kernel does
+        not run; ``max_abs_err`` is that of the fp32 rows where the kernel
+        runs fp32, else of the bf16 rows."""
+        def worst(key):
+            vals = [r[key] for r in self.rows if key in r]
+            return max(vals) if vals else None
+
+        abs_of = "fp32" if "fp32" in self.dtypes else "bf16"
+        return dict(max_abs_err=worst(f"abs_err_{abs_of}"),
+                    max_rel_err_fp32=worst("rel_err_fp32"),
+                    max_rel_err_bf16=worst("rel_err_bf16"),
+                    plain_rel_err_bf16=worst("plain_rel_err_bf16"),
+                    cases=len(self.rows))
+
+
+def time_kernel(op, dt, library=None):
+    """ms of op(dt) on the kernel backend and on the torch backend (the
+    plain version), and ms of library() where there is one."""
+    from vae_tagger_tpu_torch.ops import backend
+
+    fn = lambda: op(dt)  # noqa: E731
+    ms = time_ms(fn)
+    with backend.backend("torch"):
+        plain_ms = time_ms(fn)
+    return ms, plain_ms, None if library is None else time_ms(library)
+
+
+def sdpa(q, k, v):
+    """F.scaled_dot_product_attention on (B, S, D) tensors, pinned to the
+    EFFICIENT_ATTENTION backend: the flash and cuDNN backends refuse
+    D=512.  A yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return F.scaled_dot_product_attention(q[:, None], k[:, None],
+                                              v[:, None])
+
+
+SDPA_NAME = "F.scaled_dot_product_attention, EFFICIENT_ATTENTION backend"
 
 
 def bound(nbytes, flops, dtype="bfloat16"):
@@ -265,6 +354,9 @@ def _ptxas_function(line):
     if found is None:
         return None
     name, args = found
+    ints = re.match(r"I((?:Li\d+E)+)E", args)
+    if ints:  # e.g. <512> or <256, 2>: tile widths and variants
+        return f"{name}<{', '.join(re.findall(r'Li(\d+)E', ints.group(1)))}>"
     t = re.match(r"I(13__nv_bfloat16|f)(L[bi](\d))?", args)
     if not t:
         return name
@@ -364,17 +456,24 @@ def phase_kernel_a(g, results):
 def phase_kernel_b(g, results):
     import torch
     import torch.nn.functional as F
-    from vae_tagger_tpu_torch.ops import backend
-    from vae_tagger_tpu_torch.ops.conv import gn_silu_conv3x3
+    from vae_tagger_tpu_torch.ops.conv import gn_silu_conv3x3, tc_kernel_attrs
     from vae_tagger_tpu_torch.ops.normalization import group_norm_affine
 
-    log(f"kernel B: gn_silu_conv3x3 at the {B_PER_FORWARD} encoder convs; "
-        f"kernel A's stats pass (group_stats) on their inputs")
-    chk = Check("gn_silu_conv3x3")
+    log(f"kernels B' (bf16) and B (fp32): gn_silu_conv3x3 at the "
+        f"{B_PER_FORWARD} encoder convs; kernel A's stats pass (group_stats) "
+        f"on their inputs")
+    dts = {"gn_silu_conv3x3_tc": torch.bfloat16,
+           "gn_silu_conv3x3": torch.float32}
+    chk = {"gn_silu_conv3x3_tc": Check("gn_silu_conv3x3_tc", ("bf16",)),
+           "gn_silu_conv3x3": Check("gn_silu_conv3x3", ("fp32",))}
     chk_s = Check("group_stats")
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0.0)
+    tot = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
+                      nbytes=0.0) for name in dts}
     st = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0)
+    attrs = {}  # B''s instances: what the CUDA runtime reports for each
     for hw, cin, cout, variant, cres, mult in B_CASES:
+        a = tc_kernel_attrs(cout, variant)
+        attrs[f"bn={a['bn']} {variant}"] = a
         x = _rnd(g, BATCH, hw, hw, cin)
         gs = _rnd(g, cin, scale=0.2, shift=1.0)
         gb = _rnd(g, cin, scale=0.1)
@@ -391,56 +490,73 @@ def phase_kernel_b(g, results):
                                    num_groups=GROUPS)
 
         label = f"{hw}^2 {cin}->{cout} {variant}"
-        chk.run(label, op)
+        for c in chk.values():
+            c.run(label, op)
 
         def stats_op(dt):
             return group_norm_affine(xs[dt], gs, gb, num_groups=GROUPS)
 
         chk_s.run(label, stats_op)
 
-        xb, kb, rb = xs[torch.bfloat16], k.bfloat16(), rs[torch.bfloat16]
-        w_oihw = kb.permute(3, 2, 0, 1).contiguous()
-        sc_oihw = (None if sck is None
-                   else sck.bfloat16().t()[:, :, None, None].contiguous())
+        def library(dt):
+            xd, rd = xs[dt], rs[dt]
+            w_oihw = k.to(dt).permute(3, 2, 0, 1).contiguous()
+            sc_oihw = (None if sck is None
+                       else sck.to(dt).t()[:, :, None, None].contiguous())
 
-        def library():
-            y = F.silu(F.group_norm(xb.permute(0, 3, 1, 2), GROUPS,
-                                    gs.bfloat16(), gb.bfloat16(), 1e-6))
-            out = F.conv2d(y, w_oihw, b.bfloat16(), padding=1)
-            if sc_oihw is not None:
-                out = out + F.conv2d(rb.permute(0, 3, 1, 2), sc_oihw,
-                                     scb.bfloat16())
-            elif rb is not None:
-                out = out + rb.permute(0, 3, 1, 2)
-            return out
+            def call():
+                y = F.silu(F.group_norm(xd.permute(0, 3, 1, 2), GROUPS,
+                                        gs.to(dt), gb.to(dt), 1e-6))
+                out = F.conv2d(y, w_oihw, b.to(dt), padding=1)
+                if sc_oihw is not None:
+                    out = out + F.conv2d(rd.permute(0, 3, 1, 2), sc_oihw,
+                                         scb.to(dt))
+                elif rd is not None:
+                    out = out + rd.permute(0, 3, 1, 2)
+                return out
+            return call
+
+        xb = xs[torch.bfloat16]
 
         def library_stats():
             return torch.var_mean(xb.view(BATCH, hw * hw, GROUPS, -1).float(),
                                   dim=(1, 3), correction=0)
 
-        bf = lambda: op(torch.bfloat16)  # noqa: E731
-        sbf = lambda: stats_op(torch.bfloat16)  # noqa: E731
-        tot["ms"] += mult * time_ms(bf)
-        st["ms"] += mult * time_ms(sbf)
-        with backend.backend("torch"):
-            tot["plain_ms"] += mult * time_ms(bf)
-            st["plain_ms"] += mult * time_ms(sbf)
-        tot["library_ms"] += mult * time_ms(library)
-        st["library_ms"] += mult * time_ms(library_stats)
         m = BATCH * hw * hw
         k_dim = 9 * cin + (cres if variant == "shortcut" else 0)
-        tot["flops"] += mult * 2.0 * m * k_dim * cout
-        tot["nbytes"] += mult * 2.0 * (m * cin + m * cout + (m * cres if cres else 0)
-                                       + k_dim * cout)
+        for name, dt in dts.items():
+            ms, plain_ms, lib_ms = time_kernel(op, dt, library(dt))
+            esize = 2.0 if dt == torch.bfloat16 else 4.0
+            t = tot[name]
+            t["ms"] += mult * ms
+            t["plain_ms"] += mult * plain_ms
+            t["library_ms"] += mult * lib_ms
+            t["flops"] += mult * 2.0 * m * k_dim * cout
+            t["nbytes"] += mult * esize * (m * cin + m * cout
+                                           + (m * cres if cres else 0)
+                                           + k_dim * cout)
+        ms, plain_ms, lib_ms = time_kernel(stats_op, torch.bfloat16,
+                                           library_stats)
+        st["ms"] += mult * ms
+        st["plain_ms"] += mult * plain_ms
+        st["library_ms"] += mult * lib_ms
         st["nbytes"] += mult * 2.0 * m * cin
-    b_ms, b_by = bound(tot["nbytes"], tot["flops"])
-    results["gn_silu_conv3x3"] = dict(
-        chk.summary(), ms=tot["ms"], plain_ms=tot["plain_ms"],
-        library_ms=tot["library_ms"], bound_ms=b_ms, bound_by=b_by,
-        flops=tot["flops"],
-        library="F.group_norm + F.silu + cuDNN F.conv2d + residual add or "
-                "1x1 F.conv2d (NCHW views of channels_last tensors)",
-        per=f"{B_PER_FORWARD} launches: one batch of {BATCH} at {RES}px, bf16")
+        del x, xs, res, rs, xb
+        torch.cuda.empty_cache()
+    log(f"  B' instances (cudaFuncGetAttributes): {attrs}")
+    for name, dt in dts.items():
+        t = tot[name]
+        dname = "bfloat16" if dt == torch.bfloat16 else "float32"
+        b_ms, b_by = bound(t["nbytes"], t["flops"], dname)
+        results[name] = dict(
+            chk[name].summary(),
+            ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+            bound_ms=b_ms, bound_by=b_by, flops=t["flops"],
+            **({"runtime_attrs": attrs} if dt == torch.bfloat16 else {}),
+            library="F.group_norm + F.silu + cuDNN F.conv2d + residual add "
+                    "or 1x1 F.conv2d (NCHW views of channels_last tensors)",
+            per=f"{B_PER_FORWARD} launches: one batch of {BATCH} at {RES}px, "
+                f"{dname}")
     s_ms, s_by = bound(st["nbytes"], 0.0)
     results["group_stats"] = dict(
         chk_s.summary(), ms=st["ms"], plain_ms=st["plain_ms"],
@@ -451,46 +567,65 @@ def phase_kernel_b(g, results):
 
 def phase_kernel_c(g, results):
     import torch
-    import torch.nn.functional as F
-    from vae_tagger_tpu_torch.ops import backend
-    from vae_tagger_tpu_torch.ops.attention import flash_attention_fwd
+    from vae_tagger_tpu_torch.ops.attention import (
+        flash_attention_fwd,
+        fwd_tc_kernel_attrs,
+    )
 
-    log("kernel C: flash_attention_fwd, one head, D=512")
-    chk = Check("flash_attention_fwd")
+    log("kernels C' (bf16) and C (fp32): flash_attention_fwd, one head, "
+        "D=512")
     d = 512
+    dts = {"flash_attention_fwd_tc": torch.bfloat16,
+           "flash_attention_fwd": torch.float32}
+    chk = {"flash_attention_fwd_tc": Check("flash_attention_fwd_tc",
+                                           ("bf16",)),
+           "flash_attention_fwd": Check("flash_attention_fwd", ("fp32",))}
+    attrs = fwd_tc_kernel_attrs()
+    log(f"  C' (cudaFuncGetAttributes): {attrs}")
     timed = {}
-    # the mid-block sequence at 512px and at 1024px
-    for s in ((RES // 16) ** 2, (RES // 8) ** 2):
-        qs, ks, vs = (_both(_rnd(g, BATCH, s, d)) for _ in range(3))
+    # the mid-block sequence at 512px and 1024px, and the train step's B=3
+    for b, s in ((BATCH, (RES // 16) ** 2), (BATCH, (RES // 8) ** 2),
+                 (TRAIN_ROWS, (RES // 8) ** 2)):
+        qs, ks, vs = (_both(_rnd(g, b, s, d)) for _ in range(3))
 
         def op(dt):
             return flash_attention_fwd(qs[dt], ks[dt], vs[dt])
 
-        chk.run(f"B={BATCH} S={s}", op)
-        if s == (RES // 8) ** 2:
-            qb, kb, vb = (t[torch.bfloat16] for t in (qs, ks, vs))
-            bf = lambda: op(torch.bfloat16)  # noqa: E731
-            timed["ms"] = time_ms(bf)
-            with backend.backend("torch"):
-                timed["plain_ms"] = time_ms(bf)
-            timed["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qb[:, None], kb[:, None], vb[:, None]))
-            flops = 4.0 * BATCH * s * s * d
-            nbytes = 2.0 * 4 * BATCH * s * d + 4.0 * BATCH * s
+        for c in chk.values():
+            c.run(f"B={b} S={s}", op)
+        full = s == (RES // 8) ** 2
+        if full and b == BATCH:
+            for name, dt in dts.items():
+                esize = 2.0 if dt == torch.bfloat16 else 4.0
+                ms, plain_ms, lib_ms = time_kernel(
+                    op, dt, lambda dt=dt: sdpa(qs[dt], ks[dt], vs[dt]))
+                dname = "bfloat16" if dt == torch.bfloat16 else "float32"
+                b_ms, b_by = bound(esize * 4 * b * s * d + 4.0 * b * s,
+                                   4.0 * b * s * s * d, dname)
+                timed[name] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=b_ms,
+                                    bound_by=b_by, flops=4.0 * b * s * s * d,
+                                    per=f"1 launch: one batch of {b} at "
+                                        f"{RES}px (S={s}), {dname}")
+        elif full:
+            fn = lambda: op(torch.bfloat16)  # noqa: E731
+            b_ms, _ = bound(2.0 * 4 * b * s * d + 4.0 * b * s,
+                            4.0 * b * s * s * d)
+            timed["flash_attention_fwd_tc"]["train_step"] = dict(
+                ms=time_ms(fn), bound_ms=b_ms,
+                library_ms=time_ms(lambda: sdpa(qs[torch.bfloat16],
+                                                ks[torch.bfloat16],
+                                                vs[torch.bfloat16])),
+                per=f"1 launch: one train step at batch 1 (B={b}, S={s})")
         del qs, ks, vs
         torch.cuda.empty_cache()
-    b_ms, b_by = bound(nbytes, flops)
-    results["flash_attention_fwd"] = dict(
-        chk.summary(), **timed, bound_ms=b_ms, bound_by=b_by, flops=flops,
-        library="F.scaled_dot_product_attention",
-        per=f"1 launch: one batch of {BATCH} at {RES}px "
-            f"(S={(RES // 8) ** 2}), bf16")
+    for name, c in chk.items():
+        results[name] = dict(c.summary(), **timed[name], library=SDPA_NAME)
+    results["flash_attention_fwd_tc"]["runtime_attrs"] = attrs
 
 
 def phase_kernel_de(g, results):
     import torch
-    import torch.nn.functional as F
     from vae_tagger_tpu_torch.ops import backend
     from vae_tagger_tpu_torch.ops.attention import (
         bwd_delta,
@@ -524,9 +659,9 @@ def phase_kernel_de(g, results):
                 with backend.backend("torch"):
                     timed[name]["plain_ms"] = time_ms(bf)
             with torch.enable_grad():
-                qb, kb, vb = (t[:, None].detach().requires_grad_()
+                qb, kb, vb = (t.detach().requires_grad_()
                               for t in ins[torch.bfloat16][:3])
-                out = F.scaled_dot_product_attention(qb, kb, vb)
+                out = sdpa(qb, kb, vb)
                 dob = ins[torch.bfloat16][3][:, None]
                 lib_ms = time_ms(lambda: torch.autograd.grad(
                     out, (qb, kb, vb), dob, retain_graph=True))
@@ -545,8 +680,8 @@ def phase_kernel_de(g, results):
     for name in fns:
         results[name] = dict(
             chk[name].summary(), **timed[name],
-            library="backward of F.scaled_dot_product_attention (dq, dk "
-                    "and dv in one call)",
+            library=f"backward of {SDPA_NAME} (dq, dk and dv in one "
+                    f"call)",
             per=f"1 launch: one train step at batch 1, {RES}px "
                 f"(B={TRAIN_ROWS} stacked, S={(RES // 8) ** 2}), bf16")
 
@@ -599,6 +734,14 @@ def phase_autograd(g):
                          rel_errs=errs)
         del y, got, want
     return out
+
+
+def _expected(per_batch, n):
+    """Every launch counter's exact expected count after n batches: those
+    of ``per_batch`` times n, every other kernel 0."""
+    from vae_tagger_tpu_torch.ops import backend
+
+    return {k: n * per_batch.get(k, 0) for k in backend.launch_counts()}
 
 
 def _write_artifacts(num_tags=2000):
@@ -689,10 +832,7 @@ def phase_main_path():
     for r in on_disk.values():
         for key in ("max_confidence", "avg_confidence_top5"):
             assert np.isfinite(r[key]), r
-    expect = {"group_norm_silu": 2 * n_batches,
-              "gn_silu_conv3x3": B_PER_FORWARD * n_batches,
-              "group_stats": B_PER_FORWARD * n_batches,
-              "flash_attention_fwd": n_batches}
+    expect = _expected(ENCODE_LAUNCHES["bf16"], n_batches)
     for name, want in expect.items():
         assert counts[name] == want, (name, counts[name], want)
 
@@ -705,23 +845,41 @@ def phase_main_path():
     assert probs.shape == (BATCH, art["num_tags"]) and np.isfinite(probs).all()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    iters = 3
+    iters = 50  # about 3 s at 60 ms a batch
     for _ in range(iters):
         eng16.classify(batch)
     steady = iters * BATCH / (time.perf_counter() - t0)
     log(f"  steady-state classify, bf16: {steady:.3f} images/s "
         f"(host clock, {iters} batches of {BATCH}, host->device copy included)")
     lat16 = eng16.encode(batch)
+    with backend.backend("torch"):
+        lat16_t = eng16.encode(batch)
     del eng16
+    # the fp32 path, one batch through the engine: the SIMT kernels B and C
     eng32 = TaggerEngine.load(mixed_precision="no", **kw)
+    torch.cuda.synchronize()
+    backend.reset_launch_counts()
     lat_k = eng32.encode(batch)
+    torch.cuda.synchronize()
+    counts32 = backend.launch_counts()
+    log(f"  launches in the fp32 path (one batch through TaggerEngine): "
+        f"{counts32}")
+    expect32 = _expected(ENCODE_LAUNCHES["fp32"], 1)
+    for name, want in expect32.items():
+        assert counts32[name] == want, (name, counts32[name], want)
     with backend.backend("torch"):
         lat_t = eng32.encode(batch)
     mse = float(np.mean((lat_k - lat_t) ** 2))
     mse16 = float(np.mean((lat16 - lat_t) ** 2))
+    mse16_t = float(np.mean((lat16_t - lat_t) ** 2))
     log(f"  fp32 latents, kernel path vs torch path: MSE {mse:.3e} "
-        f"(gate 1e-4); bf16 kernel path vs fp32 torch path: MSE {mse16:.3e}")
+        f"(gate 1e-4)")
+    log(f"  bf16 latents vs the fp32 torch path: kernel path MSE "
+        f"{mse16:.3e}, torch backend's own bf16 MSE {mse16_t:.3e} (gate: "
+        f"kernel <= 4x torch, {4 * mse16_t:.3e})")
     assert np.isfinite(lat_k).all() and mse < 1e-4, mse
+    assert np.isfinite(lat16).all() and mse16 <= 4 * mse16_t, \
+        (mse16, mse16_t)
     del eng32
     torch.cuda.empty_cache()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -729,7 +887,9 @@ def phase_main_path():
                 cli_images_per_s=len(out) / wall,
                 steady_images_per_s_bf16=steady, peak_mem_bytes=peak,
                 launches=counts, expected_launches=expect,
+                launches_fp32=counts32, expected_launches_fp32=expect32,
                 latent_mse_fp32_kernel_vs_torch=mse,
+                latent_mse_bf16_torch_vs_fp32_torch=mse16_t,
                 latent_mse_bf16_kernel_vs_fp32_torch=mse16)
 
 
@@ -762,6 +922,8 @@ def _kernel_breakdown(prof):
     """Device time of one profiled step by kernel: the port's kernels by
     name, everything else (cuDNN, cuBLAS, elementwise) as the rest."""
     names = {"conv3x3_kernel": "gn_silu_conv3x3",
+             "conv3x3_tc_kernel": "gn_silu_conv3x3_tc",
+             "flash_fwd_tc_kernel": "flash_attention_fwd_tc",
              "gn_partial_kernel": "group_stats (+A's stats)",
              "gn_finalize_kernel": "group_stats (+A's stats)",
              "gn_apply_kernel": "group_norm_silu (apply)",
@@ -907,8 +1069,8 @@ def phase_training():
         f"{wall:.2f} s (load, exports and checkpoints included), peak "
         f"device memory {cli_peak / 2**30:.2f} GiB")
     log(f"  launches in the training path: {counts}")
-    expect = {k: n_train * TRAIN_STEP_LAUNCHES[k] + n_val * EVAL_LAUNCHES[k]
-              for k in TRAIN_STEP_LAUNCHES}
+    expect = {k: n_train * TRAIN_STEP_LAUNCHES.get(k, 0)
+              + n_val * EVAL_LAUNCHES.get(k, 0) for k in counts}
     for name, want in expect.items():
         assert counts[name] == want, (name, counts[name], want)
 
@@ -957,7 +1119,7 @@ def phase_training():
     steps.train_step(state, batch, 1000)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    iters = 3
+    iters = 10
     t0 = time.perf_counter()
     for i in range(iters):
         steps.train_step(state, batch, 1001 + i)
@@ -1024,17 +1186,22 @@ def main():
     report["training"] = phase_training()
     report["kernels"] = results
 
-    # launches: this slice's main path is training, which runs all six;
-    # the inference path's counts stand beside them
-    launches = report["training"]["launches"]
-    infer_launches = report["main_path"]["launches"]
+    # launches: the main path is bf16 training, which runs A, its stats
+    # pass, B', C', D and E; the SIMT kernels B and C run on the fp32 path
+    # (one encode batch through the engine).  Each path's counts were reset
+    # just before it ran and read just after.
+    by_path = {"train_bf16": report["training"]["launches"],
+               "infer_bf16": report["main_path"]["launches"],
+               "infer_fp32": report["main_path"]["launches_fp32"]}
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
+        path = "infer_fp32" if name in SIMT_KERNELS else "train_bf16"
+        launches = by_path[path][name]
+        assert launches > 0, f"{name} was not launched on its path {path}"
         kernels.append(dict(
-            name=name, **meta, launches=launches[name],
-            launches_by_path={"train": launches[name],
-                              "infer": infer_launches[name]},
+            name=name, **meta, launches=launches, path=path,
+            launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=r["max_abs_err"],
             max_rel_err_fp32=r["max_rel_err_fp32"],
             max_rel_err_bf16=r["max_rel_err_bf16"],

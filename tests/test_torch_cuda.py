@@ -7,9 +7,12 @@ inside the fixture, never at import).  Run on the card with
 
 Shapes here are small and deliberately ragged (channel counts that are not
 multiples of the kernels' tiles, sequences that are not multiples of the
-key tile); chip_smoke.py covers the encode path's full shapes.  Tolerances:
-fp32 max relative error 1e-4; bf16 error against the plain fp32 result
-within 4x the plain version's own bf16 error, floored at 1e-4.
+key tile, images narrower or wider than one pixel tile); chip_smoke.py
+covers the encode path's full shapes.  Each check runs both dtypes (the
+attention forward at head widths other than 512 fp32 only): bf16 goes to
+the tensor-core kernels B' and C', fp32 to the SIMT kernels B and C.
+Tolerances: fp32 max relative error 1e-4; bf16 error against the plain
+fp32 result within 4x the plain version's own bf16 error, floored at 1e-4.
 """
 
 import numpy as np
@@ -54,8 +57,8 @@ def _rel(a, ref):
     return ((a.float() - ref).abs().max() / ref.abs().max()).item()
 
 
-def _check(op):
-    """op(dtype) under both backends; kernel vs plain in fp32 and bf16."""
+def _check(op, dtypes=(torch.float32, torch.bfloat16)):
+    """op(dtype) under both backends; kernel vs plain in each of dtypes."""
     def run(dt, name):
         with backend.backend(name):
             out = op(dt)
@@ -63,12 +66,16 @@ def _check(op):
         return out if isinstance(out, tuple) else (out,)
 
     backend.reset_launch_counts()
-    p32, k32 = run(torch.float32, "torch"), run(torch.float32, "kernel")
-    p16, k16 = run(torch.bfloat16, "torch"), run(torch.bfloat16, "kernel")
+    p32 = run(torch.float32, "torch")
+    k32 = run(torch.float32, "kernel") if torch.float32 in dtypes else None
+    if torch.bfloat16 in dtypes:
+        p16, k16 = run(torch.bfloat16, "torch"), run(torch.bfloat16, "kernel")
     assert sum(backend.launch_counts().values()) > 0
     for i, ref in enumerate(p32):
-        assert _rel(k32[i], ref) <= 1e-4
-        assert _rel(k16[i], ref) <= max(4 * _rel(p16[i], ref), 1e-4)
+        if k32 is not None:
+            assert _rel(k32[i], ref) <= 1e-4
+        if torch.bfloat16 in dtypes:
+            assert _rel(k16[i], ref) <= max(4 * _rel(p16[i], ref), 1e-4)
 
 
 @pytest.mark.parametrize("shape", [(2, 33, 17, 96), (1, 64, 64, 512)])
@@ -87,6 +94,11 @@ def test_group_norm_silu_kernel(gen, shape, silu):
     (1, 9, 13, 64, 64, "residual"),
     (2, 7, 11, 64, 96, "shortcut"),
     (1, 16, 16, 40, 136, "shortcut"),
+    # H = 1; W past one 64-pixel tile and not a multiple of it
+    (1, 1, 70, 64, 64, "residual"),
+    (2, 3, 130, 96, 256, "plain"),
+    # three channel chunks (the last partial), two output-channel tiles
+    (1, 4, 66, 136, 512, "shortcut"),
 ])
 def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
     groups = 8
@@ -105,14 +117,70 @@ def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
     _check(lambda dt: gn_silu_conv3x3(
         x.to(dt), gs, gb, k, b, None if res is None else res.to(dt), sck,
         scb, num_groups=groups))
+    counts = backend.launch_counts()
+    assert counts["gn_silu_conv3x3_tc"] == 1 and counts["gn_silu_conv3x3"] == 1
 
 
 @pytest.mark.parametrize("b,sq,skv,d", [(2, 300, 300, 128),
                                         (1, 100, 260, 64),
-                                        (1, 1024, 1024, 512)])
+                                        (2, 300, 300, 512),
+                                        (1, 100, 260, 512),
+                                        (1, 1024, 1024, 512),
+                                        (2, 64, 33, 512),
+                                        (1, 70, 20, 512),  # one key tile
+                                        # the full sequence at 512px
+                                        (1, 4096, 4096, 512)])
 def test_flash_attention_fwd_kernel(gen, b, sq, skv, d):
+    """Ragged Sq != Skv and sequences that are not multiples of the 64-row
+    or 32-key tiles.  At the model's width D = 512 both dtypes (bf16 runs
+    kernel C', fp32 kernel C); at other widths fp32 only, since C' takes
+    D = 512 alone and kernel C takes any multiple of 32 up to 512."""
     q, k, v = _rnd(gen, b, sq, d), _rnd(gen, b, skv, d), _rnd(gen, b, skv, d)
-    _check(lambda dt: flash_attention_fwd(q.to(dt), k.to(dt), v.to(dt)))
+    tc = d == 512
+    _check(lambda dt: flash_attention_fwd(q.to(dt), k.to(dt), v.to(dt)),
+           (torch.float32, torch.bfloat16) if tc else (torch.float32,))
+    counts = backend.launch_counts()
+    assert counts["flash_attention_fwd_tc"] == int(tc)
+    assert counts["flash_attention_fwd"] == 1
+
+
+def test_dtype_picks_the_kernel(gen):
+    """Through the launch counters: bf16 runs the tensor-core kernels B'
+    and C', fp32 the SIMT kernels B and C, and nothing else."""
+    x = _rnd(gen, 1, 5, 9, 64)
+    gs, gb = _rnd(gen, 64, shift=1.0), _rnd(gen, 64, scale=0.1)
+    k, b = _rnd(gen, 3, 3, 64, 64, scale=0.04), _rnd(gen, 64)
+    q = _rnd(gen, 1, 70, 512)
+    for dt, conv_k, attn_k in ((torch.bfloat16, "gn_silu_conv3x3_tc",
+                                "flash_attention_fwd_tc"),
+                               (torch.float32, "gn_silu_conv3x3",
+                                "flash_attention_fwd")):
+        backend.reset_launch_counts()
+        gn_silu_conv3x3(x.to(dt), gs, gb, k, b, num_groups=8)
+        flash_attention_fwd(q.to(dt), q.to(dt), q.to(dt))
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in backend.launch_counts().items() if c}
+        assert launched == {conv_k: 1, attn_k: 1, "group_stats": 1}, launched
+
+
+def test_tc_kernels_refuse_what_they_do_not_take(gen):
+    """A bf16 shape that B' or C' refuses raises (no fallback to another
+    kernel or to the plain version), and so does an operand off the
+    16-byte alignment a TMA tensor map needs."""
+    backend.reset_launch_counts()
+    q = _rnd(gen, 1, 40, 128).bfloat16()
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention_fwd(q, q, q)
+    x = _rnd(gen, 1, 4, 4, 36).bfloat16()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gn_silu_conv3x3(x, _rnd(gen, 36), _rnd(gen, 36),
+                        _rnd(gen, 3, 3, 36, 64), _rnd(gen, 64), num_groups=4)
+    flat = torch.zeros(1 + 40 * 512, dtype=torch.bfloat16, device="cuda")
+    q = flat[1:].view(1, 40, 512)  # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(q, q, q)
+    assert backend.launch_counts()["flash_attention_fwd_tc"] == 0
+    assert backend.launch_counts()["gn_silu_conv3x3_tc"] == 0
 
 
 @pytest.mark.parametrize("b,sq,skv,d", [(2, 200, 200, 128),

@@ -25,8 +25,10 @@
 //  - O = acc / l and lse = m + log(max(l, 1e-30)) are written at the end.
 //
 // Bound on this card: operations.  4*Sq*Skv*D FLOP (550 GFLOP per image at
-// S = 16,384) against O(S*D) bytes.  This first version multiplies with fp32
-// FMA on the CUDA cores for both dtypes; wgmma is the later step.
+// S = 16,384) against O(S*D) bytes.  It multiplies with fp32 FMA on the
+// CUDA cores and takes fp32 tensors only: the fp32 gates need full fp32
+// products.  bf16 tensors go to the tensor-core kernel C'
+// (flash_attention_fwd_tc.cu).
 #include "common.cuh"
 
 namespace {
@@ -204,8 +206,8 @@ int launch(const void* q, const void* k, const void* v, int B, int Sq,
 
 }  // namespace
 
-// q (B,Sq,D), k and v (B,Skv,D), all contiguous in one dtype; out (B,Sq,D)
-// in that dtype; lse (B,Sq) fp32.  D must be a multiple of 32, at most 512.
+// q (B,Sq,D), k and v (B,Skv,D), all contiguous fp32; out (B,Sq,D) fp32;
+// lse (B,Sq) fp32.  D must be a multiple of 32, at most 512.
 VT_EXPORT int vt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                 int dtype, int B, int Sq, int Skv, int D,
                                 float scale, void* out, float* lse,
@@ -216,7 +218,5 @@ VT_EXPORT int vt_flash_attn_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == vt::kF32)
     return launch<float>(q, k, v, B, Sq, Skv, D, scale, out, lse, st);
-  if (dtype == vt::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, B, Sq, Skv, D, scale, out, lse, st);
   return (int)cudaErrorInvalidValue;
 }

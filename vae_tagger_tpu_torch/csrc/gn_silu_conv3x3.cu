@@ -27,9 +27,9 @@
 //
 // Bound on this card: operations.  At 1024^2 x 128 -> 128 one conv is
 // 2*1024^2*9*128^2 = 309 GFLOP per image against well under 1 GB of
-// traffic.  This first version multiplies with fp32 FMA on the CUDA cores
-// for both dtypes (bf16 values are widened in shared memory), so it runs far
-// below the tensor-core bound; wgmma with TMA-fed tiles is the later step.
+// traffic.  It multiplies with fp32 FMA on the CUDA cores and takes fp32
+// tensors only: the fp32 gates need full fp32 products.  bf16 tensors go to
+// the tensor-core kernel B' (gn_silu_conv3x3_tc.cu).
 #include "common.cuh"
 
 namespace {
@@ -215,10 +215,10 @@ int launch(const void* x, int N, int H, int W, int Cin, int Cout,
 
 }  // namespace
 
-// x (N,H,W,Cin); eff_scale/eff_bias (N,Cin) fp32; wmat (9*Cin, Cout) in the
-// dtype of x; bias (Cout) fp32; res (N,H,W,Cres) or null; wsc (Cres, Cout)
-// in the dtype of x, or null for a plain residual (then Cres == Cout);
-// sc_bias (Cout) fp32 with wsc; out (N,H,W,Cout).
+// x (N,H,W,Cin) fp32; eff_scale/eff_bias (N,Cin) fp32; wmat (9*Cin, Cout)
+// fp32; bias (Cout) fp32; res (N,H,W,Cres) fp32 or null; wsc (Cres, Cout)
+// fp32, or null for a plain residual (then Cres == Cout); sc_bias (Cout)
+// fp32 with wsc; out (N,H,W,Cout) fp32.
 VT_EXPORT int vt_gn_silu_conv3x3(const void* x, int dtype, int N, int H,
                                  int W, int Cin, int Cout,
                                  const float* eff_scale,
@@ -236,8 +236,5 @@ VT_EXPORT int vt_gn_silu_conv3x3(const void* x, int dtype, int N, int H,
   if (dtype == vt::kF32)
     return launch<float>(x, N, H, W, Cin, Cout, eff_scale, eff_bias, wmat,
                          bias, res, Cres, wsc, sc_bias, out, st);
-  if (dtype == vt::kBF16)
-    return launch<__nv_bfloat16>(x, N, H, W, Cin, Cout, eff_scale, eff_bias,
-                                 wmat, bias, res, Cres, wsc, sc_bias, out, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,9 +48,19 @@ SIGNATURES = {
         "vt_gn_silu_conv3x3": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                _P, _I, _P, _P, _P, _P],
     },
+    "gn_silu_conv3x3_tc": {
+        "vt_gn_silu_conv3x3_tc": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                  _P, _P, _I, _P, _P, _P, _P],
+        "vt_gn_silu_conv3x3_tc_attrs": [_I, _I, _P],
+    },
     "flash_attention_fwd": {
         "vt_flash_attn_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
                               _P],
+    },
+    "flash_attention_fwd_tc": {
+        "vt_flash_attn_fwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
+                                 _P],
+        "vt_flash_attn_fwd_tc_attrs": [_P],
     },
     "flash_attention_bwd": {
         "vt_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -151,6 +161,16 @@ def dtype_code(t) -> int:
     if code is None:
         raise TypeError(f"CUDA kernels take float32 or bfloat16, got {t.dtype}")
     return code
+
+
+def check_tma_aligned(*tensors) -> None:
+    """Raise unless every given tensor (None skipped) starts on a 16-byte
+    boundary: a TMA tensor map refuses any other base address."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"a tensor-core kernel's operand must be "
+                             f"16-byte aligned, got address "
+                             f"{t.data_ptr():#x} ({tuple(t.shape)})")
 
 
 def stream_of(t) -> int:

@@ -1,5 +1,5 @@
 """Single-head spatial attention with its gradient, and the wrappers of
-kernels C, D and E.
+kernels C, C', D and E.
 
 Counterpart of ``vae_tagger_tpu/ops/attention.py`` and of the custom VJP in
 ``vae_tagger_tpu/ops/pallas/flash_attention.py``.  The one long-sequence
@@ -7,8 +7,11 @@ attention of the model is the VAE mid-block: one head of D = 512 channels
 over the whole latent grid (16,384 tokens at 1024px).
 
 :func:`flash_attention` is a ``torch.autograd.Function``.  Its forward is
-:func:`flash_attention_fwd` (kernel C, ``csrc/flash_attention_fwd.cu``, on a
-CUDA tensor) and saves q, k, v, O and the logsumexp L; its backward is
+:func:`flash_attention_fwd`, which on a CUDA tensor launches the kernel
+that :data:`FWD_KERNELS` names for the dtype: bf16 goes to the tensor-core
+kernel C' (``csrc/flash_attention_fwd_tc.cu``, head width 512, the
+mid-block's), fp32 to the SIMT kernel C (``csrc/flash_attention_fwd.cu``); it
+saves q, k, v, O and the logsumexp L.  Its backward is
 :func:`flash_attention_bwd`: Dl = rowsum(dO * O) in fp32 with plain torch,
 as the JAX package takes it in XLA, then kernel D
 (:func:`flash_attention_bwd_dq`) and kernel E
@@ -28,10 +31,40 @@ slice.  The tagger head's 64-token MHSA stays plain PyTorch
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import backend
-from ._build import check, dtype_code, lib, stream_of
+from ._build import check, check_tma_aligned, dtype_code, lib, stream_of
+
+# dtype of a CUDA tensor -> (library, C entry, launch counter) of the
+# forward kernel.  fp32 keeps the SIMT kernel C: the fp32 gates need full
+# fp32 products, which the tensor cores (TF32) would not give.
+FWD_KERNELS = {
+    torch.bfloat16: ("flash_attention_fwd_tc", "vt_flash_attn_fwd_tc",
+                     "flash_attention_fwd_tc"),
+    torch.float32: ("flash_attention_fwd", "vt_flash_attn_fwd",
+                    "flash_attention_fwd"),
+}
+# the head width kernel C' is built for: the VAE mid-block's channels
+TC_HEAD_DIM = 512
+
+
+def check_tc_head_width(d):
+    """Raise for a head width kernel C' is not built for."""
+    if d != TC_HEAD_DIM:
+        raise ValueError(f"kernel C' takes head width {TC_HEAD_DIM}, got "
+                         f"{d}")
+
+
+def fwd_tc_kernel_attrs():
+    """What the CUDA runtime reports for kernel C': registers a thread and
+    shared memory bytes a block.  On a machine with the card only."""
+    out = (ctypes.c_int * 2)()
+    check(lib("flash_attention_fwd_tc").vt_flash_attn_fwd_tc_attrs(out),
+          "vt_flash_attn_fwd_tc_attrs")
+    return dict(registers=out[0], smem_bytes=out[1])
 
 
 def attention_plain(q, k, v):
@@ -107,26 +140,41 @@ def _check_qkv(q, k, v):
         raise TypeError("q, k and v must share one dtype")
 
 
+def fwd_kernel_for(q):
+    """(library, C entry, launch counter) of the forward kernel for q's
+    dtype and head width; raises for one that no kernel takes."""
+    entry = FWD_KERNELS.get(q.dtype)
+    if entry is None:
+        raise TypeError(f"the attention kernels take bfloat16 or float32, "
+                        f"got {q.dtype}")
+    if q.dtype == torch.bfloat16:
+        check_tc_head_width(q.shape[-1])
+    return entry
+
+
 def _flash_attention_fwd_kernel(q, k, v):
     _check_qkv(q, k, v)
+    stem, fn, counter = fwd_kernel_for(q)
     b, sq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty(b, sq, dtype=torch.float32, device=q.device)
-    err = lib("flash_attention_fwd").vt_flash_attn_fwd(
+    if stem.endswith("_tc"):
+        check_tma_aligned(q, k, v, out)
+    err = getattr(lib(stem), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dtype_code(q), b, sq,
         k.shape[1], d, 1.0 / (d ** 0.5), out.data_ptr(), lse.data_ptr(),
         stream_of(q))
-    check(err, "vt_flash_attn_fwd")
-    return out, lse
+    check(err, fn)
+    return out, lse, counter
 
 
 def flash_attention_fwd(q, k, v):
     """Returns (out (B, Sq, D), lse (B, Sq) fp32); Sq may differ from Skv."""
     if backend.use_kernel(q):
-        out = _flash_attention_fwd_kernel(q, k, v)
-        backend.count_launch("flash_attention_fwd")
-        return out
+        out, lse, counter = _flash_attention_fwd_kernel(q, k, v)
+        backend.count_launch(counter)
+        return out, lse
     return flash_attention_fwd_plain(q, k, v)
 
 
@@ -196,7 +244,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v):
     """Single-head attention (B, Sq, D) x (B, Skv, D) -> (B, Sq, D) with the
-    flash backward: kernels C, D and E on the card."""
+    flash backward: kernel C' (bf16) or C (fp32), then D and E on the
+    card."""
     return _FlashAttention.apply(q, k, v)
 
 

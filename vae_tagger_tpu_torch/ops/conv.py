@@ -1,16 +1,21 @@
-"""Convolutions over NHWC tensors, and kernel B's wrapper.
+"""Convolutions over NHWC tensors, and the wrapper of kernels B and B'.
 
 Counterpart of ``vae_tagger_tpu/ops/conv.py``.  :func:`gn_silu_conv3x3` is
 one ResnetBlock branch, ``conv3x3(silu(gn(x))) + bias [+ residual]``, with
 the residual optionally projected by the 1x1 ``conv_shortcut``.  On a CUDA
 tensor it runs kernel A's stats pass (:func:`group_norm_affine`) and then
-kernel B (``csrc/gn_silu_conv3x3.cu``), which applies the GroupNorm affine
-and the SiLU as it stages input pixels and adds the residual or the
-shortcut product in its epilogue.  Beside it, :func:`gn_silu_conv3x3_plain`
-is the same function in PyTorch: ``group_norm`` -> SiLU -> ``F.conv2d`` ->
-residual or shortcut.  The op is a ``torch.autograd.Function`` whose
-backward recomputes the plain version and takes its VJP, so the forward
-keeps only its inputs for the backward.
+the fused kernel that :data:`CONV_KERNELS` names for the dtype: bf16 the
+tensor-core kernel B' (``csrc/gn_silu_conv3x3_tc.cu``, an implicit GEMM on
+wgmma that activates each input tile once; shapes it refuses named by
+:func:`check_tc_conv_shape`, weights packed K-major by
+:func:`pack_conv3x3_weight`),
+fp32 the SIMT kernel B (``csrc/gn_silu_conv3x3.cu``).  Both apply the
+GroupNorm affine and the SiLU to the input pixels they stage and add the
+residual or the shortcut product in their epilogue.  Beside them,
+:func:`gn_silu_conv3x3_plain` is the same function in PyTorch:
+``group_norm`` -> SiLU -> ``F.conv2d`` -> residual or shortcut.  The op is
+a ``torch.autograd.Function`` whose backward recomputes the plain version
+and takes its VJP, so the forward keeps only its inputs for the backward.
 
 Every other conv of the encode path (``conv_in``, the stride-2
 downsamples, ``conv_out``, the tagger head's convs) is :func:`conv2d_nhwc`,
@@ -21,11 +26,13 @@ are TPU layout experiments and are not ported.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from . import backend
-from ._build import check, dtype_code, lib, stream_of
+from ._build import check, check_tma_aligned, dtype_code, lib, stream_of
 from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
     effective_affine,
     group_norm,
@@ -33,6 +40,68 @@ from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
     group_stats,
     vjp_of_plain,
 )
+
+
+# dtype of a CUDA tensor -> (library, C entry, launch counter) of the
+# fused conv.  fp32 keeps the SIMT kernel B: the fp32 gates need full fp32
+# products, which the tensor cores (TF32) would not give.
+CONV_KERNELS = {
+    torch.bfloat16: ("gn_silu_conv3x3_tc", "vt_gn_silu_conv3x3_tc",
+                     "gn_silu_conv3x3_tc"),
+    torch.float32: ("gn_silu_conv3x3", "vt_gn_silu_conv3x3",
+                    "gn_silu_conv3x3"),
+}
+
+# the residual modes of kernel B''s instances (csrc/gn_silu_conv3x3_tc.cu)
+TC_MODES = ("plain", "residual", "shortcut")
+
+
+def conv_kernel_for(x):
+    """(library, C entry, launch counter) of the fused conv for x's dtype;
+    raises for a dtype no kernel takes."""
+    entry = CONV_KERNELS.get(x.dtype)
+    if entry is None:
+        raise TypeError(f"the fused conv kernels take bfloat16 or float32, "
+                        f"got {x.dtype}")
+    return entry
+
+
+def check_tc_conv_shape(n, h, w, c_in, c_out, c_shortcut=0):
+    """Raise for a conv kernel B' refuses: an empty one, or channel counts
+    that are not multiples of 8 (TMA needs 16-byte strides).  The kernel
+    picks its own tiles."""
+    for name, c in (("Cin", c_in), ("Cout", c_out), ("Cres", c_shortcut)):
+        if c % 8:
+            raise ValueError(f"kernel B' takes channel counts that are "
+                             f"multiples of 8, got {name}={c}")
+    if min(n, h, w, c_in, c_out) <= 0:
+        raise ValueError(f"empty conv: {(n, h, w, c_in, c_out)}")
+
+
+def tc_kernel_attrs(c_out, mode):
+    """What the CUDA runtime reports for the instance of kernel B' that a
+    conv with ``c_out`` output channels and residual ``mode`` (one of
+    :data:`TC_MODES`) launches: its output-channel tile, registers a thread
+    and shared memory bytes a block.  On a machine with the card only."""
+    out = (ctypes.c_int * 3)()
+    check(lib("gn_silu_conv3x3_tc").vt_gn_silu_conv3x3_tc_attrs(
+        c_out, TC_MODES.index(mode), out), "vt_gn_silu_conv3x3_tc_attrs")
+    return dict(bn=out[0], registers=out[1], smem_bytes=out[2])
+
+
+def pack_conv3x3_weight(kernel):
+    """HWIO (3, 3, Cin, Cout) -> (9, Cout, Cin) bf16: each tap's matrix
+    transposed, so that kernel B' reads its weight tiles K-major."""
+    c_in, c_out = kernel.shape[2], kernel.shape[3]
+    return (kernel.to(torch.bfloat16).permute(0, 1, 3, 2)
+            .reshape(9, c_out, c_in).contiguous())
+
+
+def pack_shortcut_weight(shortcut_kernel, c_res):
+    """The 1x1 shortcut ((1, 1, Cres, Cout) or (Cres, Cout)) -> (Cout, Cres)
+    bf16, K-major for kernel B'."""
+    return (shortcut_kernel.to(torch.bfloat16).reshape(c_res, -1).t()
+            .contiguous())
 
 
 def conv2d_nhwc(x, weight, bias=None, stride=1, padding=0):
@@ -69,46 +138,55 @@ def _gn_silu_conv3x3_kernel(x, gn_scale, gn_bias, kernel, bias, residual,
         raise ValueError(f"kernel must be (3, 3, {c_in}, Cout) HWIO, got "
                          f"{tuple(kernel.shape)}")
     dt = x.dtype
-    code = dtype_code(x)
-    x = x.contiguous()
-    eff_scale, eff_bias = group_norm_affine(x, gn_scale, gn_bias,
-                                            num_groups=num_groups, eps=eps)
-    wmat = kernel.to(dt).reshape(9 * c_in, c_out).contiguous()
-    b = bias.float().contiguous()
-    res = wsc = scb = None
+    stem, fn, counter = conv_kernel_for(x)
+    tc = stem.endswith("_tc")
     c_res = 0
     if residual is not None:
         if residual.shape[:3] != x.shape[:3]:
             raise ValueError("residual must match x in (N, H, W)")
-        res = residual.to(dt).contiguous()
-        c_res = res.shape[-1]
-        if shortcut_kernel is not None:
-            wsc = shortcut_kernel.to(dt).reshape(c_res, c_out).contiguous()
-            scb = shortcut_bias.float().contiguous()
-        elif c_res != c_out:
+        c_res = residual.shape[-1]
+        if shortcut_kernel is None and c_res != c_out:
             raise ValueError(f"residual has {c_res} channels, output "
                              f"{c_out}: pass the 1x1 shortcut")
     elif shortcut_kernel is not None:
         raise ValueError("a shortcut needs the residual it projects")
+    if tc:  # B' refuses what it cannot take before anything is launched
+        check_tc_conv_shape(n, h, w, c_in, c_out,
+                            0 if shortcut_kernel is None else c_res)
+    x = x.contiguous()
+    eff_scale, eff_bias = group_norm_affine(x, gn_scale, gn_bias,
+                                            num_groups=num_groups, eps=eps)
+    wmat = (pack_conv3x3_weight(kernel) if tc
+            else kernel.to(dt).reshape(9 * c_in, c_out).contiguous())
+    b = bias.float().contiguous()
+    res = wsc = scb = None
+    if residual is not None:
+        res = residual.to(dt).contiguous()
+        if shortcut_kernel is not None:
+            wsc = (pack_shortcut_weight(shortcut_kernel, c_res) if tc else
+                   shortcut_kernel.to(dt).reshape(c_res, c_out).contiguous())
+            scb = shortcut_bias.float().contiguous()
     out = torch.empty(n, h, w, c_out, dtype=dt, device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib("gn_silu_conv3x3").vt_gn_silu_conv3x3(
-        x.data_ptr(), code, n, h, w, c_in, c_out, eff_scale.data_ptr(),
-        eff_bias.data_ptr(), wmat.data_ptr(), b.data_ptr(), ptr(res), c_res,
-        ptr(wsc), ptr(scb), out.data_ptr(), stream_of(x))
-    check(err, "vt_gn_silu_conv3x3")
-    return out
+    args = [x.data_ptr(), dtype_code(x), n, h, w, c_in, c_out,
+            eff_scale.data_ptr(), eff_bias.data_ptr(), wmat.data_ptr(),
+            b.data_ptr(), ptr(res), c_res, ptr(wsc), ptr(scb), out.data_ptr()]
+    if tc:
+        check_tma_aligned(x, eff_scale, eff_bias, wmat, res, wsc, out)
+    err = getattr(lib(stem), fn)(*args, stream_of(x))
+    check(err, fn)
+    return out, counter
 
 
 class _GnSiluConv3x3(torch.autograd.Function):
-    """Forward: kernel A's stats pass and kernel B on a CUDA tensor, else
-    the plain version; backward: the VJP of the plain version, recomputed
-    (the JAX package's custom VJP), for every tensor input -- x, the GN
-    scale and bias, the HWIO kernel, the bias, the residual and the
-    shortcut kernel and bias."""
+    """Forward: kernel A's stats pass and kernel B' (bf16) or B (fp32) on a
+    CUDA tensor, else the plain version; backward: the VJP of the plain
+    version, recomputed (the JAX package's custom VJP), for every tensor
+    input -- x, the GN scale and bias, the HWIO kernel, the bias, the
+    residual and the shortcut kernel and bias."""
 
     @staticmethod
     def forward(ctx, num_groups, eps, *tensors):
@@ -116,8 +194,8 @@ class _GnSiluConv3x3(torch.autograd.Function):
         ctx.present = [t is not None for t in tensors]
         ctx.args = (num_groups, eps)
         if backend.use_kernel(tensors[0]):
-            out = _gn_silu_conv3x3_kernel(*tensors, num_groups, eps)
-            backend.count_launch("gn_silu_conv3x3")
+            out, counter = _gn_silu_conv3x3_kernel(*tensors, num_groups, eps)
+            backend.count_launch(counter)
             return out
         return gn_silu_conv3x3_plain(*tensors, num_groups=num_groups,
                                      eps=eps)
