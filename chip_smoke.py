@@ -23,16 +23,22 @@ failure (non-zero exit, no ``ok`` line):
    runs (A and its stats pass in bf16), over about 100 ms of calls, beside
    its plain version and one PyTorch library call computing the same
    function (a yardstick only; the port never calls it).  C' is also timed
-   at the training step's B=3.  B''s and C''s registers and shared memory
-   a block are read from the CUDA runtime (cudaFuncGetAttributes).
-   Kernels D and E (the flash-attention backward) are checked the same way
-   at the training step's shapes (B=3, S=16,384 and 4,096, D=512) and timed
-   beside the backward of ``F.scaled_dot_product_attention``, whose backend
-   is pinned to EFFICIENT_ATTENTION (the flash and cuDNN backends refuse
-   D=512);
+   at the training step's B=3.  The registers and shared memory a block of
+   B', C', D' and E' are read from the CUDA runtime (cudaFuncGetAttributes).
+   The flash-attention backward (bf16: D' for dQ and E' for dK/dV, whose
+   two passes are two launches; fp32: D and E) is checked the same way at
+   the training step's shapes (B=3, S=16,384 and 4,096, D=512), D' and E'
+   twice more for bit-identical repeats, and timed beside the backward of
+   ``F.scaled_dot_product_attention``, whose backend is pinned to
+   EFFICIENT_ATTENTION (the flash and cuDNN backends refuse D=512); D and E
+   are also timed on the same bf16 inputs (their bf16 instantiation,
+   launched directly), and D' + E' must beat them;
 4. autograd on the card: the outputs of A, B and C on tensors that require
    a gradient carry a ``grad_fn``, and each op's gradients through the
    kernel path match the torch backend in fp32 (relative error <= 1e-4);
+   then the bf16 attention at the mid-block shape (C', D', E'): its
+   gradients against the plain fp32 path within 4x the plain bf16 path's
+   own error;
 5. inference path: the full FLUX VAE (block_out_channels (128, 256, 512,
    512), 32 groups, 16 latent channels) and the default attention head on
    seeded random weights, written in diffusers layout and as
@@ -50,15 +56,16 @@ failure (non-zero exit, no ``ok`` line):
    tags), then ``python -m vae_tagger_tpu_torch.train.train_full``'s entry
    point for one epoch at 1024px, batch 1 (a stacked triplet of 3 images),
    bf16, no warmup.  Checks: finite losses, the exact launch counts (per
-   train step A 2, stats 20, B' 20, C' 1, D 1, E 1, B and C none; per
-   validation batch the forward's), every encoder and head parameter
+   train step A 2, stats 20, B' 20, C' 1, D' 1, E' 2, B, C, D and E none;
+   per validation batch the forward's), every encoder and head parameter
    changed, the exported VAE (with the checkpoint's decoder tensor kept)
    and head classify through ``TaggerEngine``.  Then the steady step time
    over 10 steps, images/s and peak memory, a profiler breakdown of one
-   step by kernel, and the gradient gate: on one fp32 batch, every parameter's gradient through the kernel path
-   within 1e-3 of the torch backend's, relative, or absolute where the
-   torch path's norm is below 1e-8 (gradients that are zero in exact
-   arithmetic);
+   step by kernel, and the gradient gate: on one fp32 batch, every
+   parameter's gradient through the kernel path (A, stats, B, C, D and E,
+   with exact launch counts) within 1e-3 of the torch backend's, relative,
+   or absolute where the torch path's norm is below 1e-8 (gradients that
+   are zero in exact arithmetic);
 7. one JSON line ``{"kernels": [...]}``, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -140,24 +147,41 @@ KERNELS = {
         route="cuda",
         source="vae_tagger_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:154 "
-                 "(_bwd_dq_kernel, pallas_call at :265)"),
+                 "(_bwd_dq_kernel, pallas_call at :265; fp32 path)"),
+    "flash_attention_bwd_dq_tc": dict(
+        route="cuda",
+        source="vae_tagger_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+        replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:154 "
+                 "(_bwd_dq_kernel, pallas_call at :265; bf16 path)"),
     "flash_attention_bwd_dkv": dict(
         route="cuda",
         source="vae_tagger_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:187 "
-                 "(_bwd_dkv_kernel, pallas_call at :296)"),
+                 "(_bwd_dkv_kernel, pallas_call at :296; fp32 path)"),
+    "flash_attention_bwd_dkv_tc": dict(
+        route="cuda",
+        source="vae_tagger_tpu_torch/csrc/flash_attention_bwd_tc.cu",
+        replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:187 "
+                 "(_bwd_dkv_kernel, pallas_call at :296; bf16 path)"),
 }
-# the SIMT kernels of the fused conv and the attention forward run on fp32
-# paths only (bf16 paths run B' and C')
-SIMT_KERNELS = ("gn_silu_conv3x3", "flash_attention_fwd")
+# the path whose launches a kernel's line reports: the SIMT kernels run on
+# fp32 paths only (bf16 paths run B', C', D' and E'), the fused conv's and
+# the forward's on the fp32 encode, the backward's in the fp32 gradient gate
+KERNEL_PATH = {"gn_silu_conv3x3": "infer_fp32",
+               "flash_attention_fwd": "infer_fp32",
+               "flash_attention_bwd_dq": "grad_gate_fp32",
+               "flash_attention_bwd_dkv": "grad_gate_fp32"}
 # launches of one bf16 train step and of one validation (forward-only) batch
 TRAIN_STEP_LAUNCHES = {"group_norm_silu": 2, "group_stats": 20,
                        "gn_silu_conv3x3": 0, "gn_silu_conv3x3_tc": 20,
                        "flash_attention_fwd": 0, "flash_attention_fwd_tc": 1,
-                       "flash_attention_bwd_dq": 1,
-                       "flash_attention_bwd_dkv": 1}
-EVAL_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, flash_attention_bwd_dq=0,
-                     flash_attention_bwd_dkv=0)
+                       "flash_attention_bwd_dq": 0,
+                       "flash_attention_bwd_dkv": 0,
+                       "flash_attention_bwd_dq_tc": 1,
+                       # E' runs a dV pass and a dK pass
+                       "flash_attention_bwd_dkv_tc": 2}
+EVAL_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, flash_attention_bwd_dq_tc=0,
+                     flash_attention_bwd_dkv_tc=0)
 # launches of one encode batch, bf16 and fp32
 ENCODE_LAUNCHES = {
     "bf16": {"group_norm_silu": 2, "group_stats": 20, "gn_silu_conv3x3_tc": 20,
@@ -165,6 +189,9 @@ ENCODE_LAUNCHES = {
     "fp32": {"group_norm_silu": 2, "group_stats": 20, "gn_silu_conv3x3": 20,
              "flash_attention_fwd": 1},
 }
+# launches of the fp32 gradient gate's kernel-path forward and backward
+GATE_LAUNCHES = dict(ENCODE_LAUNCHES["fp32"], flash_attention_bwd_dq=1,
+                     flash_attention_bwd_dkv=1)
 
 
 def log(*a):
@@ -624,66 +651,130 @@ def phase_kernel_c(g, results):
     results["flash_attention_fwd_tc"]["runtime_attrs"] = attrs
 
 
+def _simt_bwd(q, k, v, do, lse, delta):
+    """Kernels D and E launched directly in q's dtype: on bf16 tensors,
+    which the port sends to D' and E', they are the yardstick D' + E' must
+    beat on the same inputs."""
+    from vae_tagger_tpu_torch.ops import _build, attention
+
+    keep, args = attention._bwd_args(q, k, v, do, lse, delta)
+    dq, dk, dv = (t.new_empty(t.shape) for t in keep[:3])
+    simt, st = _build.lib("flash_attention_bwd"), _build.stream_of(q)
+    _build.check(simt.vt_flash_attn_bwd_dq(*args, dq.data_ptr(), st),
+                 "vt_flash_attn_bwd_dq")
+    _build.check(simt.vt_flash_attn_bwd_dkv(*args, dk.data_ptr(),
+                                            dv.data_ptr(), st),
+                 "vt_flash_attn_bwd_dkv")
+    return dq, dk, dv
+
+
 def phase_kernel_de(g, results):
     import torch
     from vae_tagger_tpu_torch.ops import backend
     from vae_tagger_tpu_torch.ops.attention import (
         bwd_delta,
+        bwd_tc_kernel_attrs,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_fwd,
     )
 
-    log(f"kernels D and E: flash_attention_bwd_dq and _dkv, one head, D=512, "
-        f"B={TRAIN_ROWS} (one train step at batch 1)")
-    chk = {"flash_attention_bwd_dq": Check("flash_attention_bwd_dq"),
-           "flash_attention_bwd_dkv": Check("flash_attention_bwd_dkv")}
-    fns = {"flash_attention_bwd_dq": flash_attention_bwd_dq,
-           "flash_attention_bwd_dkv": flash_attention_bwd_dkv}
-    d, b = 512, TRAIN_ROWS
-    timed = {}
-    for s in ((RES // 16) ** 2, (RES // 8) ** 2):
+    log(f"kernels D' and E' (bf16) and D and E (fp32): the flash-attention "
+        f"backward, one head, D=512, B={TRAIN_ROWS} (one train step at "
+        f"batch 1)")
+    d, b, full = 512, TRAIN_ROWS, (RES // 8) ** 2
+    parts = {"dq": flash_attention_bwd_dq, "dkv": flash_attention_bwd_dkv}
+    # kernel -> (its part of the backward, the dtype it runs)
+    kinds = {"flash_attention_bwd_dq_tc": ("dq", torch.bfloat16),
+             "flash_attention_bwd_dkv_tc": ("dkv", torch.bfloat16),
+             "flash_attention_bwd_dq": ("dq", torch.float32),
+             "flash_attention_bwd_dkv": ("dkv", torch.float32)}
+    chk = {name: Check(name, ("bf16",) if dt == torch.bfloat16 else ("fp32",))
+           for name, (_, dt) in kinds.items()}
+    attrs = bwd_tc_kernel_attrs()
+    log(f"  D' and E' (cudaFuncGetAttributes): {attrs}")
+    timed, repeats = {}, {}
+    for s in ((RES // 16) ** 2, full):
         q, k, v, do = (_rnd(g, b, s, d) for _ in range(4))
         with backend.backend("torch"):
             o, lse = flash_attention_fwd(q, k, v)
         delta = bwd_delta(o, do)
         ins = {dt: tuple(t.to(dt) for t in (q, k, v, do))
                for dt in (torch.float32, torch.bfloat16)}
-        for name, fn in fns.items():
-            chk[name].run(f"B={b} S={s}",
-                          lambda dt, fn=fn: fn(*ins[dt], lse, delta))
-        if s == (RES // 8) ** 2:
-            for name, fn in fns.items():
-                bf = lambda fn=fn: fn(*ins[torch.bfloat16], lse, delta)  # noqa: E731
-                timed[name] = {"ms": time_ms(bf)}
+
+        def call(name, dt=None):
+            part, own = kinds[name]
+            out = parts[part](*ins[dt or own], lse, delta)
+            return out if isinstance(out, tuple) else (out,)
+
+        for name in kinds:
+            chk[name].run(f"B={b} S={s}", lambda dt, name=name: call(name, dt))
+        # no float atomics: a second launch repeats the first bit for bit
+        for name in ("flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc"):
+            first, second = call(name), call(name)
+            same = all(torch.equal(x, y) for x, y in zip(first, second))
+            log(f"  {name} B={b} S={s}: two launches bit-identical: {same}")
+            assert same, f"{name}: two launches differ"
+            repeats.setdefault(name, []).append(f"S={s}")
+            del first, second
+        if s == full:
+            for name in kinds:
+                fn = lambda name=name: call(name)  # noqa: E731
+                timed[name] = {"ms": time_ms(fn)}
                 with backend.backend("torch"):
-                    timed[name]["plain_ms"] = time_ms(bf)
-            with torch.enable_grad():
-                qb, kb, vb = (t.detach().requires_grad_()
-                              for t in ins[torch.bfloat16][:3])
-                out = sdpa(qb, kb, vb)
-                dob = ins[torch.bfloat16][3][:, None]
-                lib_ms = time_ms(lambda: torch.autograd.grad(
-                    out, (qb, kb, vb), dob, retain_graph=True))
-                del out, qb, kb, vb
-            n_in = 2.0 * 4 * b * s * d + 4.0 * 2 * b * s  # q k v dO, L Dl
-            sizes = {"flash_attention_bwd_dq": (6.0, n_in + 2.0 * b * s * d),
-                     "flash_attention_bwd_dkv": (8.0,
-                                                 n_in + 4.0 * b * s * d)}
-            for name, (mult, nbytes) in sizes.items():
-                flops = mult * b * s * s * d
-                b_ms, b_by = bound(nbytes, flops)
-                timed[name].update(library_ms=lib_ms, bound_ms=b_ms,
+                    timed[name]["plain_ms"] = time_ms(fn)
+            bf = ins[torch.bfloat16]
+            simt_bf16_ms = time_ms(lambda: _simt_bwd(*bf, lse, delta))
+            lib_ms = {}
+            for dt in (torch.bfloat16, torch.float32):
+                with torch.enable_grad():
+                    qb, kb, vb = (t.detach().requires_grad_()
+                                  for t in ins[dt][:3])
+                    out = sdpa(qb, kb, vb)
+                    dob = ins[dt][3][:, None]
+                    lib_ms[dt] = time_ms(lambda: torch.autograd.grad(
+                        out, (qb, kb, vb), dob, retain_graph=True))
+                    del out, qb, kb, vb
+            tc_ms = (timed["flash_attention_bwd_dq_tc"]["ms"]
+                     + timed["flash_attention_bwd_dkv_tc"]["ms"])
+            log(f"  on the same bf16 inputs: D' + E' {tc_ms:.3f} ms, D + E "
+                f"{simt_bf16_ms:.3f} ms, SDPA's backward "
+                f"{lib_ms[torch.bfloat16]:.3f} ms")
+            assert tc_ms < simt_bf16_ms, (tc_ms, simt_bf16_ms)
+            for name, (part, dt) in kinds.items():
+                esize = 2.0 if dt == torch.bfloat16 else 4.0
+                dname = "bfloat16" if dt == torch.bfloat16 else "float32"
+                # q k v dO read, L and Dl read, dq or dk and dv written
+                nbytes = (esize * 4 * b * s * d + 4.0 * 2 * b * s
+                          + esize * (1 if part == "dq" else 2) * b * s * d)
+                flops = (6.0 if part == "dq" else 8.0) * b * s * s * d
+                b_ms, b_by = bound(nbytes, flops, dname)
+                timed[name].update(library_ms=lib_ms[dt], bound_ms=b_ms,
                                    bound_by=b_by, flops=flops)
+            # E' computes S^T in both passes: 10 B S^2 D of its own
+            own = 10.0 * b * s * s * d
+            timed["flash_attention_bwd_dkv_tc"].update(
+                kernel_flops=own, bound_ms_kernel_flops=bound(
+                    4.0 * b * s * d * 2 + 8.0 * b * s + 4.0 * b * s * d,
+                    own)[0])
+            for name in ("flash_attention_bwd_dq_tc",
+                         "flash_attention_bwd_dkv_tc"):
+                timed[name]["simt_on_bf16_ms_dq_plus_dkv"] = simt_bf16_ms
+                timed[name]["tc_ms_dq_plus_dkv"] = tc_ms
         del q, k, v, do, o, lse, delta, ins
         torch.cuda.empty_cache()
-    for name in fns:
+    for name, (part, dt) in kinds.items():
+        tc = dt == torch.bfloat16
         results[name] = dict(
             chk[name].summary(), **timed[name],
             library=f"backward of {SDPA_NAME} (dq, dk and dv in one "
-                    f"call)",
-            per=f"1 launch: one train step at batch 1, {RES}px "
-                f"(B={TRAIN_ROWS} stacked, S={(RES // 8) ** 2}), bf16")
+                    f"call), {'bf16' if tc else 'fp32'}",
+            per=f"{2 if part == 'dkv' and tc else 1} launch(es): one train "
+                f"step at batch 1, {RES}px (B={TRAIN_ROWS} stacked, "
+                f"S={full}), {'bf16' if tc else 'fp32'}")
+        if tc:
+            results[name].update(runtime_attrs=attrs,
+                                 bit_identical_repeats=repeats[name])
 
 
 def phase_autograd(g):
@@ -694,7 +785,8 @@ def phase_autograd(g):
     from vae_tagger_tpu_torch.ops.normalization import group_norm_silu
 
     log("autograd on the card: A, B and C carry gradients; kernel path vs "
-        "torch backend in fp32 (relative error <= 1e-4)")
+        "torch backend in fp32 (relative error <= 1e-4); the bf16 attention "
+        "gradients (C', D', E') within 4x the plain bf16 path's error")
 
     def leaf(*shape, **kw):
         return _rnd(g, *shape, **kw).requires_grad_()
@@ -733,6 +825,37 @@ def phase_autograd(g):
         out[name] = dict(grad_fn=type(y.grad_fn).__name__, launches=launched,
                          rel_errs=errs)
         del y, got, want
+    # the bf16 attention (C', D', E') at the mid-block shape: gradients
+    # against the plain fp32 path within 4x the plain bf16 path's own error
+    gq = _rnd(g, *q.shape)
+
+    def attn_grads(dt, be):
+        ins = [t.detach().to(dt).requires_grad_() for t in (q, k, v)]
+        with backend.backend(be):
+            return torch.autograd.grad(flash_attention(*ins), ins, gq.to(dt))
+
+    backend.reset_launch_counts()
+    got = attn_grads(torch.bfloat16, "kernel")
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in backend.launch_counts().items() if n}
+    want = {"flash_attention_fwd_tc": 1, "flash_attention_bwd_dq_tc": 1,
+            "flash_attention_bwd_dkv_tc": 2}
+    assert launched == want, launched
+    ref = attn_grads(torch.float32, "torch")
+    plain = attn_grads(torch.bfloat16, "torch")
+
+    def norm_err(a, r):
+        return ((a.float() - r).norm() / r.norm()).item()
+
+    errs = [norm_err(a, r) for a, r in zip(got, ref)]
+    owns = [norm_err(p, r) for p, r in zip(plain, ref)]
+    log(f"  flash_attention bf16 (B={TRAIN_ROWS}, S={q.shape[1]}): launches "
+        f"{launched}, gradient rel errors vs fp32 plain "
+        f"{', '.join(f'{e:.2e}' for e in errs)}; plain bf16's own "
+        f"{', '.join(f'{e:.2e}' for e in owns)} (gate 4x)")
+    assert all(e <= 4 * o for e, o in zip(errs, owns)), (errs, owns)
+    out["flash_attention_bf16"] = dict(launches=launched, rel_errs=errs,
+                                       plain_bf16_rel_errs=owns)
     return out
 
 
@@ -929,7 +1052,12 @@ def _kernel_breakdown(prof):
              "gn_apply_kernel": "group_norm_silu (apply)",
              "flash_fwd_kernel": "flash_attention_fwd",
              "flash_bwd_dq_kernel": "flash_attention_bwd_dq",
-             "flash_bwd_dkv_kernel": "flash_attention_bwd_dkv"}
+             "flash_bwd_dkv_kernel": "flash_attention_bwd_dkv",
+             "flash_bwd_dq_tc_kernel": "flash_attention_bwd_dq_tc",
+             "flash_bwd_dv_tc_kernel": "flash_attention_bwd_dkv_tc (dV pass)",
+             "flash_bwd_dk_tc_kernel": "flash_attention_bwd_dkv_tc (dK pass)"}
+    # a name that is part of another would take its time
+    assert not [a for a in names for b_ in names if a != b_ and a in b_]
     from torch.autograd import DeviceType
 
     by_kernel, top = {}, []
@@ -988,11 +1116,18 @@ def _gradient_gate(art, batch):
     for be in ("kernel", "torch"):
         for _, p in params:
             p.grad = None
+        backend.reset_launch_counts()
         with backend.backend(be):
             total, _, _ = steps.forward_losses(
                 state, dev_batch, step_generator(dev, SEED, 7), train=False)
             total.backward()
         torch.cuda.synchronize()
+        if be == "kernel":  # A, stats, B, C, D and E, exactly
+            launches = backend.launch_counts()
+            expect = _expected(GATE_LAUNCHES, 1)
+            log(f"  launches in the gate's kernel path: "
+                f"{ {k: n for k, n in launches.items() if n} }")
+            assert launches == expect, (launches, expect)
         losses[be] = total.item()
         missing = [n for n, p in params if p.grad is None]
         assert not missing, f"{be} path: no gradient for {missing[:5]}"
@@ -1020,7 +1155,8 @@ def _gradient_gate(art, batch):
     assert all(e <= 1e-3 for e in errs), worst
     del grads, state, vae, head
     torch.cuda.empty_cache()
-    return dict(parameters=len(params), worst_param=worst[0],
+    return dict(parameters=len(params), launches=launches,
+                expected_launches=expect, worst_param=worst[0],
                 worst_err=worst[1], worst_param_grad_norm=worst[2],
                 median_err=sorted(errs)[len(errs) // 2], losses=losses,
                 compared_absolutely={k: dict(torch_norm=a, diff_norm=b)
@@ -1187,16 +1323,19 @@ def main():
     report["kernels"] = results
 
     # launches: the main path is bf16 training, which runs A, its stats
-    # pass, B', C', D and E; the SIMT kernels B and C run on the fp32 path
-    # (one encode batch through the engine).  Each path's counts were reset
-    # just before it ran and read just after.
+    # pass, B', C', D' and E'; the SIMT kernels B and C run on the fp32
+    # encode (one batch through the engine), D and E in the fp32 gradient
+    # gate.  Each path's counts were reset just before it ran and read just
+    # after.
     by_path = {"train_bf16": report["training"]["launches"],
                "infer_bf16": report["main_path"]["launches"],
-               "infer_fp32": report["main_path"]["launches_fp32"]}
+               "infer_fp32": report["main_path"]["launches_fp32"],
+               "grad_gate_fp32":
+                   report["training"]["gradient_gate"]["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
-        path = "infer_fp32" if name in SIMT_KERNELS else "train_bf16"
+        path = KERNEL_PATH.get(name, "train_bf16")
         launches = by_path[path][name]
         assert launches > 0, f"{name} was not launched on its path {path}"
         kernels.append(dict(

@@ -9,8 +9,9 @@ Shapes here are small and deliberately ragged (channel counts that are not
 multiples of the kernels' tiles, sequences that are not multiples of the
 key tile, images narrower or wider than one pixel tile); chip_smoke.py
 covers the encode path's full shapes.  Each check runs both dtypes (the
-attention forward at head widths other than 512 fp32 only): bf16 goes to
-the tensor-core kernels B' and C', fp32 to the SIMT kernels B and C.
+attention forward and backward at head widths other than 512 fp32 only):
+bf16 goes to the tensor-core kernels B', C', D' and E', fp32 to the SIMT
+kernels B, C, D and E.
 Tolerances: fp32 max relative error 1e-4; bf16 error against the plain
 fp32 result within 4x the plain version's own bf16 error, floored at 1e-4.
 """
@@ -24,8 +25,11 @@ from vae_tagger_tpu_torch.models.autoencoder_kl import AutoencoderKL
 from vae_tagger_tpu_torch.nn.blocks import seeded_init_
 from vae_tagger_tpu_torch.ops import backend
 from vae_tagger_tpu_torch.ops.attention import (
+    bwd_delta,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
     flash_attention_fwd,
 )
 from vae_tagger_tpu_torch.ops.conv import gn_silu_conv3x3
@@ -185,10 +189,22 @@ def test_tc_kernels_refuse_what_they_do_not_take(gen):
 
 @pytest.mark.parametrize("b,sq,skv,d", [(2, 200, 200, 128),
                                         (1, 100, 260, 64),
-                                        (1, 77, 45, 512)])
+                                        (1, 77, 45, 512),
+                                        # D' and E': Sq != Skv, neither a
+                                        # multiple of the 64-row block or
+                                        # the 32-row tile
+                                        (3, 130, 200, 512),
+                                        (2, 64, 33, 512),
+                                        (1, 200, 97, 512),
+                                        (1, 70, 20, 512),  # one key tile
+                                        (2, 1, 45, 512),   # one query row
+                                        # the full sequence at 512px
+                                        (1, 4096, 4096, 512)])
 def test_flash_attention_bwd_kernels(gen, b, sq, skv, d):
-    """Kernels D and E at ragged shapes (rows past the 32-row and 16-row
-    tiles, Sq != Skv), from kernel C's O and logsumexp."""
+    """The backward kernels at ragged shapes, from the plain forward's O
+    and logsumexp: fp32 runs D and E (rows past their 32-row and 16-row
+    tiles), bf16 runs D' and E' (D = 512 only; rows past the 64-row block
+    and the 32-row tile, on both sides)."""
     q, k, v = _rnd(gen, b, sq, d), _rnd(gen, b, skv, d), _rnd(gen, b, skv, d)
     do = _rnd(gen, b, sq, d)
 
@@ -198,9 +214,90 @@ def test_flash_attention_bwd_kernels(gen, b, sq, skv, d):
         return flash_attention_bwd(q.to(dt), k.to(dt), v.to(dt), o.to(dt),
                                    lse, do.to(dt))
 
-    _check(op)
-    assert backend.launch_counts()["flash_attention_bwd_dq"] == 2
-    assert backend.launch_counts()["flash_attention_bwd_dkv"] == 2
+    tc = d == 512
+    _check(op, (torch.float32, torch.bfloat16) if tc else (torch.float32,))
+    counts = backend.launch_counts()
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    assert counts["flash_attention_bwd_dq_tc"] == int(tc)
+    assert counts["flash_attention_bwd_dkv_tc"] == 2 * int(tc)  # two passes
+
+
+def test_dtype_picks_the_backward_kernel(gen):
+    """Through the launch counters: bf16 runs D' once and E''s two passes,
+    fp32 runs D and E, and nothing else."""
+    q, do = _rnd(gen, 2, 70, 512), _rnd(gen, 2, 70, 512)
+    k, v = _rnd(gen, 2, 45, 512), _rnd(gen, 2, 45, 512)
+    with backend.backend("torch"):
+        o, lse = flash_attention_fwd(q, k, v)
+    for dt, want in ((torch.bfloat16, {"flash_attention_bwd_dq_tc": 1,
+                                       "flash_attention_bwd_dkv_tc": 2}),
+                     (torch.float32, {"flash_attention_bwd_dq": 1,
+                                      "flash_attention_bwd_dkv": 1})):
+        backend.reset_launch_counts()
+        flash_attention_bwd(q.to(dt), k.to(dt), v.to(dt), o.to(dt), lse,
+                            do.to(dt))
+        torch.cuda.synchronize()
+        launched = {n: c for n, c in backend.launch_counts().items() if c}
+        assert launched == want, launched
+
+
+def test_tc_backward_refuses_what_it_does_not_take(gen):
+    """A bf16 backward at a head width other than 512 raises, and so does
+    an operand off the 16-byte alignment a TMA tensor map needs; neither
+    falls back to D, E or the plain version."""
+    backend.reset_launch_counts()
+    q = _rnd(gen, 1, 40, 128).bfloat16()
+    lse = torch.zeros(1, 40, device="cuda")
+    for fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="head width"):
+            fn(q, q, q, q, lse, lse)
+    flat = torch.zeros(1 + 40 * 512, dtype=torch.bfloat16, device="cuda")
+    bad = flat[1:].view(1, 40, 512)  # contiguous, 2 bytes off
+    good = torch.zeros(1, 40, 512, dtype=torch.bfloat16, device="cuda")
+    for args in ((bad, good, good, good), (good, good, good, bad)):
+        for fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fn(*args, lse, lse)
+    assert not any(backend.launch_counts().values())
+
+
+def test_tc_backward_repeats_bit_for_bit(gen):
+    """No float atomics: two launches of D' and of E' on the same inputs
+    give bit-identical outputs."""
+    q, do = _rnd(gen, 2, 300, 512), _rnd(gen, 2, 300, 512)
+    k, v = _rnd(gen, 2, 260, 512), _rnd(gen, 2, 260, 512)
+    with backend.backend("torch"):
+        o, lse = flash_attention_fwd(q, k, v)
+    args = tuple(t.bfloat16() for t in (q, k, v, do))
+    delta = bwd_delta(o, do)
+    first = (flash_attention_bwd_dq(*args, lse, delta),
+             *flash_attention_bwd_dkv(*args, lse, delta))
+    second = (flash_attention_bwd_dq(*args, lse, delta),
+              *flash_attention_bwd_dkv(*args, lse, delta))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bf16_attention_gradients(gen):
+    """The bf16 autograd path (C' forward, D' and E' backward): gradients
+    against the plain fp32 path within 4x the plain bf16 path's own error."""
+    q, k, v = (_rnd(gen, 2, 200, 512) for _ in range(3))
+    g = _rnd(gen, 2, 200, 512)
+
+    def grads(dt, name):
+        ins = [t.to(dt).requires_grad_() for t in (q, k, v)]
+        with backend.backend(name):
+            out = flash_attention(*ins)
+            return torch.autograd.grad(out, ins, g.to(dt))
+
+    backend.reset_launch_counts()
+    got = grads(torch.bfloat16, "kernel")
+    assert backend.launch_counts()["flash_attention_bwd_dkv_tc"] == 2
+    ref, plain = grads(torch.float32, "torch"), grads(torch.bfloat16, "torch")
+    for a, r, p in zip(got, ref, plain):
+        err, own = _rel(a, r), _rel(p, r)
+        assert err <= 4 * own, (err, own)
 
 
 def test_kernel_gradients_match_torch_backend(gen):

@@ -8,7 +8,11 @@
 //   E: dV = P^T dO,  dK = scale * dS^T Q one writer per k row
 //
 // Replace the TPU kernels of vae_tagger_tpu/ops/pallas/flash_attention.py::
-// _flash_attention_bwd_impl: _bwd_dq_kernel (D) and _bwd_dkv_kernel (E).
+// _flash_attention_bwd_impl: _bwd_dq_kernel (D) and _bwd_dkv_kernel (E), on
+// the fp32 path; the wrappers send bf16 tensors to the tensor-core kernels
+// D' and E' (flash_attention_bwd_tc.cu).  The bf16 instantiation stays for
+// chip_smoke.py, which launches it directly as the yardstick D' and E' must
+// beat on the same bf16 inputs.
 // The TPU grids run in order and carry the accumulators across the innermost
 // grid step in VMEM; here a block owns its output rows and loops over the
 // whole reduction itself, so no float atomics are used and results repeat
@@ -19,8 +23,9 @@
 // them before its dots.
 //
 // Bound on this card: operations.  D does 6 and E 8 * B*Sq*Skv*D FLOP
-// (2.5 and 3.3 TFLOP at B=3, S=16,384, D=512) against O(S*D) bytes.  This
-// first version runs fp32 FMA on the CUDA cores; wgmma is the later step.
+// (2.5 and 3.3 TFLOP at B=3, S=16,384, D=512) against O(S*D) bytes.  These
+// kernels run fp32 FMA on the CUDA cores: the fp32 gradient gate needs full
+// fp32 products, which the tensor cores (TF32) would not give.
 //
 // D = 512 is the difficulty, as in kernel C:
 //  - D keeps C's layout: a block owns 32 q rows, each warp 4 rows, each lane

@@ -68,6 +68,14 @@ SIGNATURES = {
         "vt_flash_attn_bwd_dkv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _F, _P, _P, _P],
     },
+    "flash_attention_bwd_tc": {
+        "vt_flash_attn_bwd_dq_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _F, _P, _P],
+        "vt_flash_attn_bwd_dkv_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _F, _P, _P, _P],
+        "vt_flash_attn_bwd_dq_tc_attrs": [_P],
+        "vt_flash_attn_bwd_dkv_tc_attrs": [_P],
+    },
 }
 
 _LIBS: dict = {}

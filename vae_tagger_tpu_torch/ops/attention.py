@@ -1,5 +1,5 @@
 """Single-head spatial attention with its gradient, and the wrappers of
-kernels C, C', D and E.
+kernels C, C', D, D', E and E'.
 
 Counterpart of ``vae_tagger_tpu/ops/attention.py`` and of the custom VJP in
 ``vae_tagger_tpu/ops/pallas/flash_attention.py``.  The one long-sequence
@@ -13,12 +13,15 @@ kernel C' (``csrc/flash_attention_fwd_tc.cu``, head width 512, the
 mid-block's), fp32 to the SIMT kernel C (``csrc/flash_attention_fwd.cu``); it
 saves q, k, v, O and the logsumexp L.  Its backward is
 :func:`flash_attention_bwd`: Dl = rowsum(dO * O) in fp32 with plain torch,
-as the JAX package takes it in XLA, then kernel D
-(:func:`flash_attention_bwd_dq`) and kernel E
-(:func:`flash_attention_bwd_dkv`), ``csrc/flash_attention_bwd.cu``.
-Neither direction materializes the (S, S) scores on the card.  Beside each
-wrapper stands its plain version: :func:`flash_attention_fwd_plain`
-(einsum, fp32 softmax, einsum), :func:`flash_attention_bwd_dq_plain` and
+as the JAX package takes it in XLA, then the dQ kernel
+(:func:`flash_attention_bwd_dq`) and the dK/dV kernel
+(:func:`flash_attention_bwd_dkv`) that :data:`BWD_KERNELS` names: bf16 goes
+to the tensor-core kernels D' and E' (``csrc/flash_attention_bwd_tc.cu``,
+head width 512; E' runs a dV pass and a dK pass, two launches), fp32 to the
+SIMT kernels D and E (``csrc/flash_attention_bwd.cu``).  Neither direction
+materializes the (S, S) scores on the card.  Beside each wrapper stands its
+plain version: :func:`flash_attention_fwd_plain` (einsum, fp32 softmax,
+einsum), :func:`flash_attention_bwd_dq_plain` and
 :func:`flash_attention_bwd_dkv_plain` (the recurrences written out in fp32,
 composed by :func:`flash_attention_bwd_plain`).  A wrapper takes the plain
 version only for a CPU tensor or under the ``torch`` backend.  Sq may
@@ -47,15 +50,35 @@ FWD_KERNELS = {
     torch.float32: ("flash_attention_fwd", "vt_flash_attn_fwd",
                     "flash_attention_fwd"),
 }
-# the head width kernel C' is built for: the VAE mid-block's channels
+# dtype of a CUDA tensor -> {"dq": ..., "dkv": ...}, each the (library, C
+# entry, launch counter) of a backward kernel: bf16 D' and E', fp32 D and E
+# (the fp32 gradient gate needs full fp32 products, as the forward's does).
+BWD_KERNELS = {
+    torch.bfloat16: {
+        "dq": ("flash_attention_bwd_tc", "vt_flash_attn_bwd_dq_tc",
+               "flash_attention_bwd_dq_tc"),
+        "dkv": ("flash_attention_bwd_tc", "vt_flash_attn_bwd_dkv_tc",
+                "flash_attention_bwd_dkv_tc"),
+    },
+    torch.float32: {
+        "dq": ("flash_attention_bwd", "vt_flash_attn_bwd_dq",
+               "flash_attention_bwd_dq"),
+        "dkv": ("flash_attention_bwd", "vt_flash_attn_bwd_dkv",
+                "flash_attention_bwd_dkv"),
+    },
+}
+# kernels a C entry launches a call: E' runs its dV pass, then its dK pass
+LAUNCHES_PER_CALL = {"vt_flash_attn_bwd_dkv_tc": 2}
+# the head width the tensor-core kernels C', D' and E' are built for: the
+# VAE mid-block's channels
 TC_HEAD_DIM = 512
 
 
 def check_tc_head_width(d):
-    """Raise for a head width kernel C' is not built for."""
+    """Raise for a head width the tensor-core kernels are not built for."""
     if d != TC_HEAD_DIM:
-        raise ValueError(f"kernel C' takes head width {TC_HEAD_DIM}, got "
-                         f"{d}")
+        raise ValueError(f"the tensor-core attention kernels (C', D', E') "
+                         f"take head width {TC_HEAD_DIM}, got {d}")
 
 
 def fwd_tc_kernel_attrs():
@@ -65,6 +88,21 @@ def fwd_tc_kernel_attrs():
     check(lib("flash_attention_fwd_tc").vt_flash_attn_fwd_tc_attrs(out),
           "vt_flash_attn_fwd_tc_attrs")
     return dict(registers=out[0], smem_bytes=out[1])
+
+
+def bwd_tc_kernel_attrs():
+    """What the CUDA runtime reports for kernel D' and for E''s two passes:
+    registers a thread and shared memory bytes a block.  On a machine with
+    the card only."""
+    bwd = lib("flash_attention_bwd_tc")
+    dq, dkv = (ctypes.c_int * 2)(), (ctypes.c_int * 4)()
+    check(bwd.vt_flash_attn_bwd_dq_tc_attrs(dq),
+          "vt_flash_attn_bwd_dq_tc_attrs")
+    check(bwd.vt_flash_attn_bwd_dkv_tc_attrs(dkv),
+          "vt_flash_attn_bwd_dkv_tc_attrs")
+    return {"dq": dict(registers=dq[0], smem_bytes=dq[1]),
+            "dkv_dv_pass": dict(registers=dkv[0], smem_bytes=dkv[1]),
+            "dkv_dk_pass": dict(registers=dkv[2], smem_bytes=dkv[3])}
 
 
 def attention_plain(q, k, v):
@@ -140,16 +178,27 @@ def _check_qkv(q, k, v):
         raise TypeError("q, k and v must share one dtype")
 
 
-def fwd_kernel_for(q):
-    """(library, C entry, launch counter) of the forward kernel for q's
-    dtype and head width; raises for one that no kernel takes."""
-    entry = FWD_KERNELS.get(q.dtype)
+def _kernel_entry(table, q):
+    entry = table.get(q.dtype)
     if entry is None:
         raise TypeError(f"the attention kernels take bfloat16 or float32, "
                         f"got {q.dtype}")
     if q.dtype == torch.bfloat16:
         check_tc_head_width(q.shape[-1])
     return entry
+
+
+def fwd_kernel_for(q):
+    """(library, C entry, launch counter) of the forward kernel for q's
+    dtype and head width; raises for one that no kernel takes."""
+    return _kernel_entry(FWD_KERNELS, q)
+
+
+def bwd_kernels_for(q):
+    """{"dq": ..., "dkv": ...}: (library, C entry, launch counter) of the
+    backward kernels for q's dtype and head width; raises for one that no
+    kernel takes."""
+    return _kernel_entry(BWD_KERNELS, q)
 
 
 def _flash_attention_fwd_kernel(q, k, v):
@@ -195,35 +244,41 @@ def _bwd_args(q, k, v, do, lse, delta):
     return keep, args
 
 
+def _bwd_kernel(part, q, k, v, do, lse, delta):
+    """Launch the backward kernel ``part`` ("dq" or "dkv") that
+    :data:`BWD_KERNELS` names for q's dtype; returns its outputs."""
+    stem, fn, counter = bwd_kernels_for(q)[part]
+    keep, args = _bwd_args(q, k, v, do, lse, delta)
+    outs = ((torch.empty_like(keep[0]),) if part == "dq"
+            else (torch.empty_like(keep[1]), torch.empty_like(keep[2])))
+    if stem.endswith("_tc"):
+        check_tma_aligned(*keep[:4], *outs)
+    check(getattr(lib(stem), fn)(*args, *(t.data_ptr() for t in outs),
+                                 stream_of(q)), fn)
+    backend.count_launch(counter, LAUNCHES_PER_CALL.get(fn, 1))
+    return outs
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta):
-    """dQ (B, Sq, D) from dO, L and Dl = rowsum(dO O); kernel D on a CUDA
-    tensor."""
+    """dQ (B, Sq, D) from dO, L and Dl = rowsum(dO O); kernel D' (bf16) or
+    D (fp32) on a CUDA tensor."""
     if not backend.use_kernel(q):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta)
-    keep, args = _bwd_args(q, k, v, do, lse, delta)
-    dq = torch.empty_like(keep[0])
-    check(lib("flash_attention_bwd").vt_flash_attn_bwd_dq(
-        *args, dq.data_ptr(), stream_of(q)), "vt_flash_attn_bwd_dq")
-    backend.count_launch("flash_attention_bwd_dq")
-    return dq
+    return _bwd_kernel("dq", q, k, v, do, lse, delta)[0]
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
-    """(dK, dV) (B, Skv, D) from dO, L and Dl; kernel E on a CUDA tensor."""
+    """(dK, dV) (B, Skv, D) from dO, L and Dl; kernel E' (bf16, two
+    launches) or E (fp32) on a CUDA tensor."""
     if not backend.use_kernel(q):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)
-    keep, args = _bwd_args(q, k, v, do, lse, delta)
-    dk, dv = torch.empty_like(keep[1]), torch.empty_like(keep[2])
-    check(lib("flash_attention_bwd").vt_flash_attn_bwd_dkv(
-        *args, dk.data_ptr(), dv.data_ptr(), stream_of(q)),
-        "vt_flash_attn_bwd_dkv")
-    backend.count_launch("flash_attention_bwd_dkv")
-    return dk, dv
+    return _bwd_kernel("dkv", q, k, v, do, lse, delta)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do):
     """(dq, dk, dv) of single-head attention from the forward's O and
-    logsumexp: Dl in torch, then kernels D and E on a CUDA tensor."""
+    logsumexp: Dl in torch, then kernels D' and E' (bf16) or D and E (fp32)
+    on a CUDA tensor."""
     do = do.to(q.dtype)
     delta = bwd_delta(o, do)
     return (flash_attention_bwd_dq(q, k, v, do, lse, delta),
@@ -244,8 +299,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v):
     """Single-head attention (B, Sq, D) x (B, Skv, D) -> (B, Sq, D) with the
-    flash backward: kernel C' (bf16) or C (fp32), then D and E on the
-    card."""
+    flash backward: kernels C', D' and E' (bf16) or C, D and E (fp32) on
+    the card."""
     return _FlashAttention.apply(q, k, v)
 
 

@@ -42,6 +42,8 @@ LAUNCHES = {
     "flash_attention_fwd_tc": 0,
     "flash_attention_bwd_dq": 0,
     "flash_attention_bwd_dkv": 0,
+    "flash_attention_bwd_dq_tc": 0,
+    "flash_attention_bwd_dkv_tc": 0,
 }
 
 
@@ -73,8 +75,9 @@ def backend(name: str):
         _BACKEND = prev
 
 
-def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+def count_launch(name: str, n: int = 1) -> None:
+    """Add the n kernels one call launched (E' runs two passes)."""
+    LAUNCHES[name] += n
 
 
 def reset_launch_counts() -> None:
