@@ -9,11 +9,13 @@ Shapes here are small and deliberately ragged (channel counts that are not
 multiples of the kernels' tiles, sequences that are not multiples of the
 key tile, images narrower or wider than one pixel tile); chip_smoke.py
 covers the encode path's full shapes.  Each check runs both dtypes (the
-attention forward and backward at head widths other than 512 fp32 only):
-bf16 goes to the tensor-core kernels B', C', D' and E', fp32 to the SIMT
-kernels B, C, D and E.
-Tolerances: fp32 max relative error 1e-4; bf16 error against the plain
-fp32 result within 4x the plain version's own bf16 error, floored at 1e-4.
+attention backward at head widths other than 512 fp32 only; the forward
+takes 512 alone): bf16 goes to the tensor-core kernels B', C', D' and E',
+fp32 to the 3xTF32 tensor-core kernels B'' and C'' and the SIMT kernels D
+and E.
+Tolerances: fp32 max relative error 1e-4 (1e-5 for B'' and C''); bf16
+error against the plain fp32 result within 4x the plain version's own bf16
+error, floored at 1e-4.
 """
 
 import numpy as np
@@ -61,8 +63,9 @@ def _rel(a, ref):
     return ((a.float() - ref).abs().max() / ref.abs().max()).item()
 
 
-def _check(op, dtypes=(torch.float32, torch.bfloat16)):
-    """op(dtype) under both backends; kernel vs plain in each of dtypes."""
+def _check(op, dtypes=(torch.float32, torch.bfloat16), tol32=1e-4):
+    """op(dtype) under both backends; kernel vs plain in each of dtypes
+    (fp32 to rel tol32)."""
     def run(dt, name):
         with backend.backend(name):
             out = op(dt)
@@ -77,7 +80,7 @@ def _check(op, dtypes=(torch.float32, torch.bfloat16)):
     assert sum(backend.launch_counts().values()) > 0
     for i, ref in enumerate(p32):
         if k32 is not None:
-            assert _rel(k32[i], ref) <= 1e-4
+            assert _rel(k32[i], ref) <= tol32
         if torch.bfloat16 in dtypes:
             assert _rel(k16[i], ref) <= max(4 * _rel(p16[i], ref), 1e-4)
 
@@ -120,9 +123,11 @@ def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
         scb = _rnd(gen, cout, scale=0.1)
     _check(lambda dt: gn_silu_conv3x3(
         x.to(dt), gs, gb, k, b, None if res is None else res.to(dt), sck,
-        scb, num_groups=groups))
+        scb, num_groups=groups), tol32=1e-5)
     counts = backend.launch_counts()
-    assert counts["gn_silu_conv3x3_tc"] == 1 and counts["gn_silu_conv3x3"] == 1
+    assert counts["gn_silu_conv3x3_tc"] == 1
+    assert counts["gn_silu_conv3x3_tf32x3"] == 1
+    assert counts["gn_silu_conv3x3"] == 0
 
 
 @pytest.mark.parametrize("b,sq,skv,d", [(2, 300, 300, 128),
@@ -137,28 +142,33 @@ def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
 def test_flash_attention_fwd_kernel(gen, b, sq, skv, d):
     """Ragged Sq != Skv and sequences that are not multiples of the 64-row
     or 32-key tiles.  At the model's width D = 512 both dtypes (bf16 runs
-    kernel C', fp32 kernel C); at other widths fp32 only, since C' takes
-    D = 512 alone and kernel C takes any multiple of 32 up to 512."""
+    kernel C', fp32 kernel C'', to 1e-5); both take D = 512 alone, and
+    other widths raise in either dtype."""
     q, k, v = _rnd(gen, b, sq, d), _rnd(gen, b, skv, d), _rnd(gen, b, skv, d)
-    tc = d == 512
+    if d != 512:
+        for dt in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="head width"):
+                flash_attention_fwd(q.to(dt), k.to(dt), v.to(dt))
+        return
     _check(lambda dt: flash_attention_fwd(q.to(dt), k.to(dt), v.to(dt)),
-           (torch.float32, torch.bfloat16) if tc else (torch.float32,))
+           tol32=1e-5)
     counts = backend.launch_counts()
-    assert counts["flash_attention_fwd_tc"] == int(tc)
-    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_fwd_tc"] == 1
+    assert counts["flash_attention_fwd_tf32x3"] == 1
+    assert counts["flash_attention_fwd"] == 0
 
 
 def test_dtype_picks_the_kernel(gen):
     """Through the launch counters: bf16 runs the tensor-core kernels B'
-    and C', fp32 the SIMT kernels B and C, and nothing else."""
+    and C', fp32 the 3xTF32 kernels B'' and C'', and nothing else."""
     x = _rnd(gen, 1, 5, 9, 64)
     gs, gb = _rnd(gen, 64, shift=1.0), _rnd(gen, 64, scale=0.1)
     k, b = _rnd(gen, 3, 3, 64, 64, scale=0.04), _rnd(gen, 64)
     q = _rnd(gen, 1, 70, 512)
     for dt, conv_k, attn_k in ((torch.bfloat16, "gn_silu_conv3x3_tc",
                                 "flash_attention_fwd_tc"),
-                               (torch.float32, "gn_silu_conv3x3",
-                                "flash_attention_fwd")):
+                               (torch.float32, "gn_silu_conv3x3_tf32x3",
+                                "flash_attention_fwd_tf32x3")):
         backend.reset_launch_counts()
         gn_silu_conv3x3(x.to(dt), gs, gb, k, b, num_groups=8)
         flash_attention_fwd(q.to(dt), q.to(dt), q.to(dt))
@@ -168,23 +178,25 @@ def test_dtype_picks_the_kernel(gen):
 
 
 def test_tc_kernels_refuse_what_they_do_not_take(gen):
-    """A bf16 shape that B' or C' refuses raises (no fallback to another
-    kernel or to the plain version), and so does an operand off the
-    16-byte alignment a TMA tensor map needs."""
+    """A shape that B' or C' (bf16), or B'' or C'' (fp32), refuses raises
+    (no fallback to another kernel or to the plain version), and so does
+    an operand off the 16-byte alignment a TMA tensor map needs."""
     backend.reset_launch_counts()
-    q = _rnd(gen, 1, 40, 128).bfloat16()
-    with pytest.raises(ValueError, match="head width"):
-        flash_attention_fwd(q, q, q)
-    x = _rnd(gen, 1, 4, 4, 36).bfloat16()
-    with pytest.raises(ValueError, match="multiples of 8"):
-        gn_silu_conv3x3(x, _rnd(gen, 36), _rnd(gen, 36),
-                        _rnd(gen, 3, 3, 36, 64), _rnd(gen, 64), num_groups=4)
-    flat = torch.zeros(1 + 40 * 512, dtype=torch.bfloat16, device="cuda")
-    q = flat[1:].view(1, 40, 512)  # contiguous, 2 bytes off
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        flash_attention_fwd(q, q, q)
-    assert backend.launch_counts()["flash_attention_fwd_tc"] == 0
-    assert backend.launch_counts()["gn_silu_conv3x3_tc"] == 0
+    for dt, channels, multiple in ((torch.bfloat16, 36, 8),
+                                   (torch.float32, 38, 4)):
+        q = _rnd(gen, 1, 40, 128).to(dt)
+        with pytest.raises(ValueError, match="head width"):
+            flash_attention_fwd(q, q, q)
+        x = _rnd(gen, 1, 4, 4, channels).to(dt)
+        with pytest.raises(ValueError, match=f"multiples of {multiple}"):
+            gn_silu_conv3x3(x, _rnd(gen, channels), _rnd(gen, channels),
+                            _rnd(gen, 3, 3, channels, 64), _rnd(gen, 64),
+                            num_groups=2)
+        flat = torch.zeros(1 + 40 * 512, dtype=dt, device="cuda")
+        q = flat[1:].view(1, 40, 512)  # contiguous, 2 or 4 bytes off
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention_fwd(q, q, q)
+    assert not any(backend.launch_counts().values())
 
 
 @pytest.mark.parametrize("b,sq,skv,d", [(2, 200, 200, 128),
@@ -312,7 +324,7 @@ def test_kernel_gradients_match_torch_backend(gen):
     gs, gb = leaf(64, scale=0.2, shift=1.0), leaf(64, scale=0.1)
     k, b = leaf(3, 3, 64, 96, scale=(9 * 64) ** -0.5), leaf(96, scale=0.1)
     sck, scb = leaf(64, 96, scale=0.125), leaf(96, scale=0.1)
-    q, kk, v = leaf(2, 100, 64), leaf(2, 130, 64), leaf(2, 130, 64)
+    q, kk, v = leaf(2, 100, 512), leaf(2, 130, 512), leaf(2, 130, 512)
     cases = [
         (lambda: group_norm_silu(x, gs, gb, num_groups=8), (x, gs, gb)),
         (lambda: gn_silu_conv3x3(x, gs, gb, k, b, x, sck, scb, num_groups=8),
@@ -335,8 +347,9 @@ def test_kernel_gradients_match_torch_backend(gen):
 
 def test_encoder_kernel_path_matches_plain_path(gen):
     """A narrow VAE through every kernel on the card: fp32 latents of the
-    kernel path against the plain path."""
-    cfg = default_flux_vae_config(block_out_channels=(32, 32, 64, 64),
+    kernel path (B'' and C'') against the plain path.  The last block is
+    512 wide, the mid-block attention's head width, the one C'' takes."""
+    cfg = default_flux_vae_config(block_out_channels=(32, 32, 64, 512),
                                   norm_num_groups=8, latent_channels=16)
     vae = seeded_init_(AutoencoderKL(cfg), 3).cuda().eval()
     x = torch.from_numpy(np.random.default_rng(0).uniform(
@@ -347,6 +360,30 @@ def test_encoder_kernel_path_matches_plain_path(gen):
         counts = backend.launch_counts()
         with backend.backend("torch"):
             lat_t = vae.encode(x).mean
-    assert counts["gn_silu_conv3x3"] == 20 and counts[
-        "flash_attention_fwd"] == 1 and counts["group_norm_silu"] == 2
+    assert counts["gn_silu_conv3x3_tf32x3"] == 20 and counts[
+        "flash_attention_fwd_tf32x3"] == 1 and counts["group_norm_silu"] == 2
+    assert counts["gn_silu_conv3x3"] == 0 and counts["flash_attention_fwd"] == 0
     assert float(((lat_k - lat_t) ** 2).mean()) < 1e-10
+
+
+def test_tf32x3_repeats_bit_for_bit(gen):
+    """No float atomics: two launches of B'' and of C'' on the same fp32
+    inputs give bit-identical outputs."""
+    x = _rnd(gen, 2, 7, 70, 64)
+    gs, gb = _rnd(gen, 64, shift=1.0), _rnd(gen, 64, scale=0.1)
+    k, b = _rnd(gen, 3, 3, 64, 136, scale=0.04), _rnd(gen, 136)
+    res, sck = _rnd(gen, 2, 7, 70, 64), _rnd(gen, 64, 136, scale=0.1)
+    q, kv = _rnd(gen, 2, 300, 512), _rnd(gen, 2, 260, 512)
+    calls = (lambda: gn_silu_conv3x3(x, gs, gb, k, b, res, sck, b,
+                                     num_groups=8),
+             lambda: flash_attention_fwd(q, kv, kv))
+    backend.reset_launch_counts()
+    for call in calls:
+        first, second = call(), call()
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        for a, b_ in zip(first, second):
+            assert torch.equal(a, b_)
+    counts = backend.launch_counts()
+    assert counts["gn_silu_conv3x3_tf32x3"] == 2
+    assert counts["flash_attention_fwd_tf32x3"] == 2

@@ -57,7 +57,8 @@ def test_cuda_sources_ship_as_package_data():
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
         "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
         "flash_attention_fwd.cu",
-        "flash_attention_fwd_tc.cu", "gn_silu_conv3x3.cu",
-        "gn_silu_conv3x3_tc.cu", "groupnorm_silu.cu"]
+        "flash_attention_fwd_tc.cu", "flash_attention_fwd_tf32x3.cu",
+        "gn_silu_conv3x3.cu", "gn_silu_conv3x3_tc.cu",
+        "gn_silu_conv3x3_tf32x3.cu", "groupnorm_silu.cu"]
     text = (ROOT / "pyproject.toml").read_text()
     assert '"vae_tagger_tpu_torch"' in text and "csrc/*.cu" in text

@@ -1,4 +1,5 @@
-"""Host-side code of the tensor-core kernels B' and C', on the CPU.
+"""Host-side code of the tensor-core kernels B' and C', on the CPU (B''
+and C'' in test_torch_tf32x3_host.py).
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py); what
 surrounds them is Python and is checked here: the packing of the conv
@@ -140,11 +141,12 @@ def test_tma_alignment_check():
      lambda dt: torch.zeros(1, 4, 4, 64, dtype=dt)),
 ])
 def test_dispatch_tables(table, kernel_for, arg):
-    """bf16 -> the tensor-core kernel, fp32 -> the SIMT kernel; each entry
-    names a built library, its C function and its own launch counter."""
+    """bf16 -> the tensor-core kernel, fp32 -> the 3xTF32 tensor-core
+    kernel; each entry names a built library, its C function and its own
+    launch counter."""
     assert set(table) == {torch.bfloat16, torch.float32}
     assert table[torch.bfloat16][0].endswith("_tc")
-    assert not table[torch.float32][0].endswith("_tc")
+    assert table[torch.float32][0].endswith("_tf32x3")
     counters = set()
     for dt, (stem, fn, counter) in table.items():
         assert kernel_for(arg(dt)) == (stem, fn, counter)
@@ -181,8 +183,11 @@ def test_signatures_match_the_c_entries(stem):
 
 @pytest.mark.parametrize("d", [64, 128, 256, 1024])
 def test_tc_attention_refuses_head_widths(d):
-    with pytest.raises(ValueError, match="head width"):
-        attention.fwd_kernel_for(torch.zeros(1, 4, d, dtype=torch.bfloat16))
-    # fp32 keeps the SIMT kernel whatever the width (it checks its own)
-    assert attention.fwd_kernel_for(torch.zeros(1, 4, d))[0] == \
-        "flash_attention_fwd"
+    # the forward's kernels C' (bf16) and C'' (fp32) take 512 alone
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="head width"):
+            attention.fwd_kernel_for(torch.zeros(1, 4, d, dtype=dt))
+    # the fp32 backward keeps the SIMT kernels whatever the width (they
+    # check their own)
+    assert attention.bwd_kernels_for(torch.zeros(1, 4, d))["dq"][0] == \
+        "flash_attention_bwd"

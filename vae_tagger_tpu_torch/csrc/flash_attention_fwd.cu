@@ -26,9 +26,11 @@
 //
 // Bound on this card: operations.  4*Sq*Skv*D FLOP (550 GFLOP per image at
 // S = 16,384) against O(S*D) bytes.  It multiplies with fp32 FMA on the
-// CUDA cores and takes fp32 tensors only: the fp32 gates need full fp32
-// products.  bf16 tensors go to the tensor-core kernel C'
-// (flash_attention_fwd_tc.cu).
+// CUDA cores and takes fp32 tensors only.  No dispatch table names it any
+// more: fp32 tensors go to kernel C'' (flash_attention_fwd_tf32x3.cu),
+// which keeps fp32-level error on the tensor cores with 3xTF32 products,
+// and bf16 tensors to C' (flash_attention_fwd_tc.cu).  chip_smoke.py
+// launches it directly, as the yardstick C'' is checked and timed against.
 #include "common.cuh"
 
 namespace {

@@ -1,17 +1,17 @@
-// Helpers of the tensor-core kernels (flash_attention_fwd_tc.cu,
-// gn_silu_conv3x3_tc.cu): mbarriers, TMA tile loads, wgmma matrix
-// descriptors and synchronisation, ldmatrix, and the host-side encoding of
+// Helpers of the tensor-core kernels (the *_tc.cu and *_tf32x3.cu
+// sources): mbarriers, TMA tile loads, wgmma matrix descriptors and
+// synchronisation, ldmatrix, the tf32 split, and the host-side encoding of
 // TMA tensor maps.
 //
 // Tensor maps are encoded on the host for every call with the driver's
 // cuTensorMapEncodeTiled, fetched through the runtime's driver entry point,
 // so the shared libraries need no -lcuda.  They reach the kernels as
 // __grid_constant__ parameters.  Every tile is loaded with the 128-byte
-// swizzle: a row of the box is 64 bf16 values (128 bytes), and the 16-byte
-// chunk j of box row r lands at chunk j ^ (r % 8) -- the layout both wgmma's
-// swizzled descriptors and the ldmatrix addressing below expect.  Tiles sit
-// at 1024-byte aligned shared addresses, so the swizzle phase is the row
-// index.
+// swizzle: a row of the box is 128 bytes (64 bf16 or 32 fp32 values), and
+// the 16-byte chunk j of box row r lands at chunk j ^ (r % 8) -- the layout
+// both wgmma's swizzled descriptors and the ldmatrix addressing below
+// expect.  Tiles sit at 1024-byte aligned shared addresses, so the swizzle
+// phase is the row index.
 #pragma once
 
 #include <cuda.h>
@@ -134,11 +134,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 //    LBO is unused; a K step of 16 inside the 128-byte row adds 32 bytes.
 //  MN-major (rows of 64 MN values, one row per K index): LBO = the step
 //    between 64-wide MN blocks, SBO = 1024, the step between 8-row K groups.
+__device__ __forceinline__ uint64_t desc_sw128_at(uint32_t addr, uint32_t lbo,
+                                                  uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
 __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
                                                uint32_t sbo) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+  return desc_sw128_at(smem_u32(p), lbo, sbo);
+}
+
+// v, as a value the compiler must take as computed here: addresses and
+// descriptors derived from it are not hoisted out of the loop around it
+// (where dozens of them would stay live in registers and spill).
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -174,6 +186,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// as the .b32 operand wgmma reads: the low 13 bits are zero.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The 3xTF32 split of four fragment values: hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in fp32), so that hi + lo keeps about 21 bits of x.
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float v = __uint_as_float(x[i]);
+    hi[i] = to_tf32(v);
+    lo[i] = to_tf32(v - __uint_as_float(hi[i]));
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ T* align1024(T* p) {
   return reinterpret_cast<T*>((reinterpret_cast<uintptr_t>(p) + 1023) &
@@ -207,12 +240,13 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions, innermost first: dims[i] elements,
-// byte strides of dimensions 1.. in strides[0..rank-2], box[i] elements;
-// 128-byte swizzle, zero fill out of bounds.  False when the driver refuses.
+// A bf16 (or, with f32, fp32) tensor map of `rank` dimensions, innermost
+// first: dims[i] elements, byte strides of dimensions 1.. in
+// strides[0..rank-2], box[i] elements; 128-byte swizzle, zero fill out of
+// bounds.  False when cuTensorMapEncodeTiled refuses.
 inline bool make_map(CUtensorMap* map, const void* base, int rank,
                      const uint64_t* dims, const uint64_t* strides,
-                     const uint32_t* box) {
+                     const uint32_t* box, bool f32 = false) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
   cuuint64_t d[5], s[4];
@@ -223,7 +257,10 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return fn(map,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            rank,
             const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

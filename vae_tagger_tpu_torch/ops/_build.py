@@ -53,6 +53,11 @@ SIGNATURES = {
                                   _P, _P, _I, _P, _P, _P, _P],
         "vt_gn_silu_conv3x3_tc_attrs": [_I, _I, _P],
     },
+    "gn_silu_conv3x3_tf32x3": {
+        "vt_gn_silu_conv3x3_tf32x3": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                      _P, _P, _I, _P, _P, _P, _P, _P],
+        "vt_gn_silu_conv3x3_tf32x3_attrs": [_I, _I, _P],
+    },
     "flash_attention_fwd": {
         "vt_flash_attn_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
                               _P],
@@ -61,6 +66,11 @@ SIGNATURES = {
         "vt_flash_attn_fwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
                                  _P],
         "vt_flash_attn_fwd_tc_attrs": [_P],
+    },
+    "flash_attention_fwd_tf32x3": {
+        "vt_flash_attn_fwd_tf32x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _F, _P, _P, _P],
+        "vt_flash_attn_fwd_tf32x3_attrs": [_P],
     },
     "flash_attention_bwd": {
         "vt_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

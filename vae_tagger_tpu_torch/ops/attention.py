@@ -1,5 +1,5 @@
 """Single-head spatial attention with its gradient, and the wrappers of
-kernels C, C', D, D', E and E'.
+kernels C', C'', D, D', E and E'.
 
 Counterpart of ``vae_tagger_tpu/ops/attention.py`` and of the custom VJP in
 ``vae_tagger_tpu/ops/pallas/flash_attention.py``.  The one long-sequence
@@ -8,12 +8,16 @@ over the whole latent grid (16,384 tokens at 1024px).
 
 :func:`flash_attention` is a ``torch.autograd.Function``.  Its forward is
 :func:`flash_attention_fwd`, which on a CUDA tensor launches the kernel
-that :data:`FWD_KERNELS` names for the dtype: bf16 goes to the tensor-core
-kernel C' (``csrc/flash_attention_fwd_tc.cu``, head width 512, the
-mid-block's), fp32 to the SIMT kernel C (``csrc/flash_attention_fwd.cu``); it
-saves q, k, v, O and the logsumexp L.  Its backward is
-:func:`flash_attention_bwd`: Dl = rowsum(dO * O) in fp32 with plain torch,
-as the JAX package takes it in XLA, then the dQ kernel
+that :data:`FWD_KERNELS` names for the dtype, both on the tensor cores and
+for head width 512 (the mid-block's): bf16 goes to kernel C'
+(``csrc/flash_attention_fwd_tc.cu``), fp32 to kernel C''
+(``csrc/flash_attention_fwd_tf32x3.cu``, 3xTF32 products; the wrapper
+splits K and a key-permuted V^T into hi and lo in every call,
+:func:`tf32x3_kv`).  The SIMT kernel C (``csrc/flash_attention_fwd.cu``)
+that C'' replaced is no longer dispatched; chip_smoke.py launches it
+directly as a yardstick.  The forward saves q, k, v, O and the logsumexp
+L.  Its backward is :func:`flash_attention_bwd`: Dl = rowsum(dO * O) in
+fp32 with plain torch, as the JAX package takes it in XLA, then the dQ kernel
 (:func:`flash_attention_bwd_dq`) and the dK/dV kernel
 (:func:`flash_attention_bwd_dkv`) that :data:`BWD_KERNELS` names: bf16 goes
 to the tensor-core kernels D' and E' (``csrc/flash_attention_bwd_tc.cu``,
@@ -40,19 +44,21 @@ import torch
 
 from . import backend
 from ._build import check, check_tma_aligned, dtype_code, lib, stream_of
+from .tf32x3 import split_tf32
 
 # dtype of a CUDA tensor -> (library, C entry, launch counter) of the
-# forward kernel.  fp32 keeps the SIMT kernel C: the fp32 gates need full
-# fp32 products, which the tensor cores (TF32) would not give.
+# forward kernel.  fp32 takes the tensor cores too: 3xTF32 keeps the fp32
+# gates' accuracy, where single-pass TF32 (about 3 decimal digits) would not.
 FWD_KERNELS = {
     torch.bfloat16: ("flash_attention_fwd_tc", "vt_flash_attn_fwd_tc",
                      "flash_attention_fwd_tc"),
-    torch.float32: ("flash_attention_fwd", "vt_flash_attn_fwd",
-                    "flash_attention_fwd"),
+    torch.float32: ("flash_attention_fwd_tf32x3", "vt_flash_attn_fwd_tf32x3",
+                    "flash_attention_fwd_tf32x3"),
 }
 # dtype of a CUDA tensor -> {"dq": ..., "dkv": ...}, each the (library, C
-# entry, launch counter) of a backward kernel: bf16 D' and E', fp32 D and E
-# (the fp32 gradient gate needs full fp32 products, as the forward's does).
+# entry, launch counter) of a backward kernel: bf16 D' and E', fp32 the
+# SIMT kernels D and E (any head width that is a multiple of 32 up to 512;
+# their 3xTF32 redesign is still to come).
 BWD_KERNELS = {
     torch.bfloat16: {
         "dq": ("flash_attention_bwd_tc", "vt_flash_attn_bwd_dq_tc",
@@ -67,27 +73,46 @@ BWD_KERNELS = {
                 "flash_attention_bwd_dkv"),
     },
 }
+# the dtypes whose kernels are tensor-core kernels that take head width
+# TC_HEAD_DIM only: both of the forward's, the backward's bf16 ones
+TC_DTYPES = {"fwd": {torch.bfloat16, torch.float32}, "bwd": {torch.bfloat16}}
 # kernels a C entry launches a call: E' runs its dV pass, then its dK pass
 LAUNCHES_PER_CALL = {"vt_flash_attn_bwd_dkv_tc": 2}
-# the head width the tensor-core kernels C', D' and E' are built for: the
-# VAE mid-block's channels
+# the head width the tensor-core kernels C', C'', D' and E' are built for:
+# the VAE mid-block's channels
 TC_HEAD_DIM = 512
 
 
 def check_tc_head_width(d):
     """Raise for a head width the tensor-core kernels are not built for."""
     if d != TC_HEAD_DIM:
-        raise ValueError(f"the tensor-core attention kernels (C', D', E') "
-                         f"take head width {TC_HEAD_DIM}, got {d}")
+        raise ValueError(f"the tensor-core attention kernels (C', C'', D', "
+                         f"E') take head width {TC_HEAD_DIM}, got {d}")
 
 
-def fwd_tc_kernel_attrs():
-    """What the CUDA runtime reports for kernel C': registers a thread and
-    shared memory bytes a block.  On a machine with the card only."""
+def fwd_tc_kernel_attrs(dtype=torch.bfloat16):
+    """What the CUDA runtime reports for kernel C' (bf16) or C'' (fp32):
+    registers a thread and shared memory bytes a block.  On a machine with
+    the card only."""
+    stem, fn, _ = FWD_KERNELS[dtype]
     out = (ctypes.c_int * 2)()
-    check(lib("flash_attention_fwd_tc").vt_flash_attn_fwd_tc_attrs(out),
-          "vt_flash_attn_fwd_tc_attrs")
+    check(getattr(lib(stem), f"{fn}_attrs")(out), f"{fn}_attrs")
     return dict(registers=out[0], smem_bytes=out[1])
+
+
+def tf32x3_kv(k, v):
+    """The shared-memory operands of kernel C'' from fp32 k and v (B, Skv,
+    D): (k_hi, k_lo, vt_hi, vt_lo, skv_pad).  K is split as it stands.  V^T
+    is (B, D, skv_pad), Skv rounded up to a multiple of 8 with zeros, the
+    keys of each group of 8 in the order 0 2 4 6 1 3 5 7 (the order in
+    which the kernel's P fragments hold them), then split."""
+    b, skv, d = k.shape
+    skv_pad = -(-skv // 8) * 8
+    vp = v.new_zeros(b, skv_pad, d)
+    vp[:, :skv] = v
+    vt = (vp.view(b, skv_pad // 8, 4, 2, d).transpose(2, 3)
+          .reshape(b, skv_pad, d).transpose(1, 2).contiguous())
+    return (*split_tf32(k.contiguous()), *split_tf32(vt), skv_pad)
 
 
 def bwd_tc_kernel_attrs():
@@ -178,12 +203,12 @@ def _check_qkv(q, k, v):
         raise TypeError("q, k and v must share one dtype")
 
 
-def _kernel_entry(table, q):
+def _kernel_entry(table, q, direction):
     entry = table.get(q.dtype)
     if entry is None:
         raise TypeError(f"the attention kernels take bfloat16 or float32, "
                         f"got {q.dtype}")
-    if q.dtype == torch.bfloat16:
+    if q.dtype in TC_DTYPES[direction]:
         check_tc_head_width(q.shape[-1])
     return entry
 
@@ -191,14 +216,14 @@ def _kernel_entry(table, q):
 def fwd_kernel_for(q):
     """(library, C entry, launch counter) of the forward kernel for q's
     dtype and head width; raises for one that no kernel takes."""
-    return _kernel_entry(FWD_KERNELS, q)
+    return _kernel_entry(FWD_KERNELS, q, "fwd")
 
 
 def bwd_kernels_for(q):
     """{"dq": ..., "dkv": ...}: (library, C entry, launch counter) of the
     backward kernels for q's dtype and head width; raises for one that no
     kernel takes."""
-    return _kernel_entry(BWD_KERNELS, q)
+    return _kernel_entry(BWD_KERNELS, q, "bwd")
 
 
 def _flash_attention_fwd_kernel(q, k, v):
@@ -208,12 +233,17 @@ def _flash_attention_fwd_kernel(q, k, v):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty(b, sq, dtype=torch.float32, device=q.device)
-    if stem.endswith("_tc"):
+    if q.dtype == torch.float32:  # C'': this call's split operands
+        *kv, skv_pad = tf32x3_kv(k, v)
+        check_tma_aligned(q, *kv, out)
+        args = (q.data_ptr(), *(t.data_ptr() for t in kv), b, sq, k.shape[1],
+                skv_pad, d)
+    else:
         check_tma_aligned(q, k, v, out)
-    err = getattr(lib(stem), fn)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dtype_code(q), b, sq,
-        k.shape[1], d, 1.0 / (d ** 0.5), out.data_ptr(), lse.data_ptr(),
-        stream_of(q))
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dtype_code(q), b,
+                sq, k.shape[1], d)
+    err = getattr(lib(stem), fn)(*args, 1.0 / (d ** 0.5), out.data_ptr(),
+                                 lse.data_ptr(), stream_of(q))
     check(err, fn)
     return out, lse, counter
 
@@ -299,8 +329,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v):
     """Single-head attention (B, Sq, D) x (B, Skv, D) -> (B, Sq, D) with the
-    flash backward: kernels C', D' and E' (bf16) or C, D and E (fp32) on
-    the card."""
+    flash backward: kernels C', D' and E' (bf16) or C'', D and E (fp32)
+    on the card."""
     return _FlashAttention.apply(q, k, v)
 
 

@@ -7,8 +7,9 @@ has a plain PyTorch version beside it in the same module.  The policy:
   a CPU tensor to the plain version -- the plain version is taken only
   because the tensor lies on the CPU.  Where an op has two kernels, the
   dtype picks one (its module's dispatch table): bf16 the tensor-core
-  kernel, fp32 the SIMT kernel, and a shape the chosen kernel refuses
-  raises;
+  kernel, fp32 the 3xTF32 tensor-core kernel (the fused conv and the
+  attention forward) or the SIMT kernel (the attention backward), and a
+  shape the chosen kernel refuses raises;
 - backend ``torch``: the plain version on every device.  On the card this
   is the yardstick the kernels are checked against (chip_smoke.py).
 
@@ -38,8 +39,10 @@ LAUNCHES = {
     "group_stats": 0,
     "gn_silu_conv3x3": 0,
     "gn_silu_conv3x3_tc": 0,
+    "gn_silu_conv3x3_tf32x3": 0,
     "flash_attention_fwd": 0,
     "flash_attention_fwd_tc": 0,
+    "flash_attention_fwd_tf32x3": 0,
     "flash_attention_bwd_dq": 0,
     "flash_attention_bwd_dkv": 0,
     "flash_attention_bwd_dq_tc": 0,

@@ -1,17 +1,21 @@
-"""Convolutions over NHWC tensors, and the wrapper of kernels B and B'.
+"""Convolutions over NHWC tensors, and the wrapper of kernels B' and B''.
 
 Counterpart of ``vae_tagger_tpu/ops/conv.py``.  :func:`gn_silu_conv3x3` is
 one ResnetBlock branch, ``conv3x3(silu(gn(x))) + bias [+ residual]``, with
 the residual optionally projected by the 1x1 ``conv_shortcut``.  On a CUDA
 tensor it runs kernel A's stats pass (:func:`group_norm_affine`) and then
-the fused kernel that :data:`CONV_KERNELS` names for the dtype: bf16 the
-tensor-core kernel B' (``csrc/gn_silu_conv3x3_tc.cu``, an implicit GEMM on
-wgmma that activates each input tile once; shapes it refuses named by
-:func:`check_tc_conv_shape`, weights packed K-major by
-:func:`pack_conv3x3_weight`),
-fp32 the SIMT kernel B (``csrc/gn_silu_conv3x3.cu``).  Both apply the
-GroupNorm affine and the SiLU to the input pixels they stage and add the
-residual or the shortcut product in their epilogue.  Beside them,
+the fused kernel that :data:`CONV_KERNELS` names for the dtype.  Both are
+implicit GEMMs on the tensor cores (wgmma) that activate each input tile
+once, read weights packed K-major by :func:`pack_conv3x3_weight`, and
+refuse the shapes :func:`check_tc_conv_shape` names: bf16 goes to kernel B'
+(``csrc/gn_silu_conv3x3_tc.cu``), fp32 to kernel B''
+(``csrc/gn_silu_conv3x3_tf32x3.cu``), which keeps fp32-level error with
+3xTF32 products (its weights split into hi and lo by
+:func:`~.tf32x3.split_tf32` in every call).  Both apply the GroupNorm
+affine and the SiLU to the input pixels they stage and add the residual or
+the shortcut product in their epilogue.  The SIMT kernel B
+(``csrc/gn_silu_conv3x3.cu``) that B'' replaced is no longer dispatched;
+chip_smoke.py launches it directly as a yardstick.  Beside them,
 :func:`gn_silu_conv3x3_plain` is the same function in PyTorch:
 ``group_norm`` -> SiLU -> ``F.conv2d`` -> residual or shortcut.  The op is
 a ``torch.autograd.Function`` whose backward recomputes the plain version
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 
 from . import backend
 from ._build import check, check_tma_aligned, dtype_code, lib, stream_of
+from .tf32x3 import split_tf32
 from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
     effective_affine,
     group_norm,
@@ -43,17 +48,19 @@ from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
 
 
 # dtype of a CUDA tensor -> (library, C entry, launch counter) of the
-# fused conv.  fp32 keeps the SIMT kernel B: the fp32 gates need full fp32
-# products, which the tensor cores (TF32) would not give.
+# fused conv.  fp32 takes the tensor cores too: 3xTF32 keeps the fp32
+# gates' accuracy, where single-pass TF32 (about 3 decimal digits) would not.
 CONV_KERNELS = {
     torch.bfloat16: ("gn_silu_conv3x3_tc", "vt_gn_silu_conv3x3_tc",
                      "gn_silu_conv3x3_tc"),
-    torch.float32: ("gn_silu_conv3x3", "vt_gn_silu_conv3x3",
-                    "gn_silu_conv3x3"),
+    torch.float32: ("gn_silu_conv3x3_tf32x3", "vt_gn_silu_conv3x3_tf32x3",
+                    "gn_silu_conv3x3_tf32x3"),
 }
 
-# the residual modes of kernel B''s instances (csrc/gn_silu_conv3x3_tc.cu)
+# the residual modes of the instances of kernels B' and B''
 TC_MODES = ("plain", "residual", "shortcut")
+# dtype -> the name of the kernel that takes it
+_KERNEL_NAME = {torch.bfloat16: "B'", torch.float32: "B''"}
 
 
 def conv_kernel_for(x):
@@ -66,42 +73,48 @@ def conv_kernel_for(x):
     return entry
 
 
-def check_tc_conv_shape(n, h, w, c_in, c_out, c_shortcut=0):
-    """Raise for a conv kernel B' refuses: an empty one, or channel counts
-    that are not multiples of 8 (TMA needs 16-byte strides).  The kernel
-    picks its own tiles."""
+def check_tc_conv_shape(n, h, w, c_in, c_out, c_shortcut=0,
+                        dtype=torch.bfloat16):
+    """Raise for a conv that kernel B' (bf16) or B'' (fp32) refuses: an
+    empty one, or channel counts whose rows are not a multiple of 16 bytes
+    (TMA's strides): multiples of 8 in bf16, of 4 in fp32.  The kernels
+    pick their own tiles."""
+    multiple = 16 // torch.empty(0, dtype=dtype).element_size()
     for name, c in (("Cin", c_in), ("Cout", c_out), ("Cres", c_shortcut)):
-        if c % 8:
-            raise ValueError(f"kernel B' takes channel counts that are "
-                             f"multiples of 8, got {name}={c}")
+        if c % multiple:
+            raise ValueError(f"kernel {_KERNEL_NAME[dtype]} takes channel "
+                             f"counts that are multiples of {multiple}, got "
+                             f"{name}={c}")
     if min(n, h, w, c_in, c_out) <= 0:
         raise ValueError(f"empty conv: {(n, h, w, c_in, c_out)}")
 
 
-def tc_kernel_attrs(c_out, mode):
-    """What the CUDA runtime reports for the instance of kernel B' that a
-    conv with ``c_out`` output channels and residual ``mode`` (one of
-    :data:`TC_MODES`) launches: its output-channel tile, registers a thread
-    and shared memory bytes a block.  On a machine with the card only."""
+def tc_kernel_attrs(c_out, mode, dtype=torch.bfloat16):
+    """What the CUDA runtime reports for the instance of kernel B' (bf16)
+    or B'' (fp32) that a conv with ``c_out`` output channels and residual
+    ``mode`` (one of :data:`TC_MODES`) launches: its output-channel tile,
+    registers a thread and shared memory bytes a block.  On a machine with
+    the card only."""
+    stem, fn, _ = CONV_KERNELS[dtype]
     out = (ctypes.c_int * 3)()
-    check(lib("gn_silu_conv3x3_tc").vt_gn_silu_conv3x3_tc_attrs(
-        c_out, TC_MODES.index(mode), out), "vt_gn_silu_conv3x3_tc_attrs")
+    check(getattr(lib(stem), f"{fn}_attrs")(c_out, TC_MODES.index(mode), out),
+          f"{fn}_attrs")
     return dict(bn=out[0], registers=out[1], smem_bytes=out[2])
 
 
-def pack_conv3x3_weight(kernel):
-    """HWIO (3, 3, Cin, Cout) -> (9, Cout, Cin) bf16: each tap's matrix
-    transposed, so that kernel B' reads its weight tiles K-major."""
+def pack_conv3x3_weight(kernel, dtype=torch.bfloat16):
+    """HWIO (3, 3, Cin, Cout) -> (9, Cout, Cin) in ``dtype``: each tap's
+    matrix transposed, so that kernels B' and B'' read their weight tiles
+    K-major."""
     c_in, c_out = kernel.shape[2], kernel.shape[3]
-    return (kernel.to(torch.bfloat16).permute(0, 1, 3, 2)
+    return (kernel.to(dtype).permute(0, 1, 3, 2)
             .reshape(9, c_out, c_in).contiguous())
 
 
-def pack_shortcut_weight(shortcut_kernel, c_res):
+def pack_shortcut_weight(shortcut_kernel, c_res, dtype=torch.bfloat16):
     """The 1x1 shortcut ((1, 1, Cres, Cout) or (Cres, Cout)) -> (Cout, Cres)
-    bf16, K-major for kernel B'."""
-    return (shortcut_kernel.to(torch.bfloat16).reshape(c_res, -1).t()
-            .contiguous())
+    in ``dtype``, K-major for kernels B' and B''."""
+    return shortcut_kernel.to(dtype).reshape(c_res, -1).t().contiguous()
 
 
 def conv2d_nhwc(x, weight, bias=None, stride=1, padding=0):
@@ -139,7 +152,6 @@ def _gn_silu_conv3x3_kernel(x, gn_scale, gn_bias, kernel, bias, residual,
                          f"{tuple(kernel.shape)}")
     dt = x.dtype
     stem, fn, counter = conv_kernel_for(x)
-    tc = stem.endswith("_tc")
     c_res = 0
     if residual is not None:
         if residual.shape[:3] != x.shape[:3]:
@@ -150,39 +162,43 @@ def _gn_silu_conv3x3_kernel(x, gn_scale, gn_bias, kernel, bias, residual,
                              f"{c_out}: pass the 1x1 shortcut")
     elif shortcut_kernel is not None:
         raise ValueError("a shortcut needs the residual it projects")
-    if tc:  # B' refuses what it cannot take before anything is launched
-        check_tc_conv_shape(n, h, w, c_in, c_out,
-                            0 if shortcut_kernel is None else c_res)
+    # refuse what the kernel cannot take before anything is launched
+    check_tc_conv_shape(n, h, w, c_in, c_out,
+                        0 if shortcut_kernel is None else c_res, dt)
     x = x.contiguous()
     eff_scale, eff_bias = group_norm_affine(x, gn_scale, gn_bias,
                                             num_groups=num_groups, eps=eps)
-    wmat = (pack_conv3x3_weight(kernel) if tc
-            else kernel.to(dt).reshape(9 * c_in, c_out).contiguous())
+    def operands(wmat):  # B' reads a packed bf16 weight, B'' its hi and lo
+        if dt == torch.bfloat16:
+            return [wmat]
+        return [None, None] if wmat is None else list(split_tf32(wmat))
+
+    wmats = operands(pack_conv3x3_weight(kernel, dt))
     b = bias.float().contiguous()
-    res = wsc = scb = None
-    if residual is not None:
-        res = residual.to(dt).contiguous()
-        if shortcut_kernel is not None:
-            wsc = (pack_shortcut_weight(shortcut_kernel, c_res) if tc else
-                   shortcut_kernel.to(dt).reshape(c_res, c_out).contiguous())
-            scb = shortcut_bias.float().contiguous()
+    res = None if residual is None else residual.to(dt).contiguous()
+    wsc = scb = None
+    if shortcut_kernel is not None:
+        wsc = pack_shortcut_weight(shortcut_kernel, c_res, dt)
+        scb = shortcut_bias.float().contiguous()
+    wscs = operands(wsc)
     out = torch.empty(n, h, w, c_out, dtype=dt, device=x.device)
+    check_tma_aligned(x, eff_scale, eff_bias, *wmats, res, *wscs, out)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    args = [x.data_ptr(), dtype_code(x), n, h, w, c_in, c_out,
-            eff_scale.data_ptr(), eff_bias.data_ptr(), wmat.data_ptr(),
-            b.data_ptr(), ptr(res), c_res, ptr(wsc), ptr(scb), out.data_ptr()]
-    if tc:
-        check_tma_aligned(x, eff_scale, eff_bias, wmat, res, wsc, out)
+    head = [x.data_ptr()] + ([dtype_code(x)] if dt == torch.bfloat16 else [])
+    args = [*head, n, h, w, c_in, c_out, eff_scale.data_ptr(),
+            eff_bias.data_ptr(), *(t.data_ptr() for t in wmats), b.data_ptr(),
+            ptr(res), c_res, *(ptr(t) for t in wscs), ptr(scb),
+            out.data_ptr()]
     err = getattr(lib(stem), fn)(*args, stream_of(x))
     check(err, fn)
     return out, counter
 
 
 class _GnSiluConv3x3(torch.autograd.Function):
-    """Forward: kernel A's stats pass and kernel B' (bf16) or B (fp32) on a
+    """Forward: kernel A's stats pass and kernel B' (bf16) or B'' (fp32) on a
     CUDA tensor, else the plain version; backward: the VJP of the plain
     version, recomputed (the JAX package's custom VJP), for every tensor
     input -- x, the GN scale and bias, the HWIO kernel, the bias, the

@@ -1,0 +1,40 @@
+"""The 3xTF32 split that kernels B'' and C'' multiply with.
+
+The tensor cores multiply fp32 data as TF32 (10 mantissa bits).  Kernels
+B'' (``csrc/gn_silu_conv3x3_tf32x3.cu``) and C''
+(``csrc/flash_attention_fwd_tf32x3.cu``) keep fp32-level error by splitting
+each operand x into ``hi = tf32(x)`` and ``lo = tf32(x - hi)`` and
+accumulating ``lo*hi + hi*lo + hi*hi`` in fp32.  The operands they read
+from shared memory (the conv weights, K and V^T) are split here by the
+wrappers, as a preparation pass of every call; the others are split in
+registers with ``cvt.rna.tf32.f32``, which :func:`to_tf32` emulates bit for
+bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# the 13 low mantissa bits that TF32 drops, and half of their range
+_DROP = 0x1FFF
+_HALF = 0x1000
+
+
+def to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest, ties away from zero, the low 13 mantissa bits zero.  Inf and
+    NaN pass unchanged."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"to_tf32 takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    # sign and magnitude: adding half an ulp of TF32 to the bit pattern
+    # rounds the magnitude half away from zero; a carry moves the exponent
+    rounded = ((bits + _HALF) & ~_DROP).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi), both fp32 tensors of
+    x's shape; hi + lo is x to within 2^-22 of |x|."""
+    hi = to_tf32(x)
+    return hi, to_tf32(x - hi)
