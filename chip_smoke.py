@@ -9,7 +9,8 @@ failure (non-zero exit, no ``ok`` line):
 
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel of ``vae_tagger_tpu_torch/csrc`` (one nvcc per source,
-   all at once) and print the build seconds and register use;
+   all at once) and print the build seconds and register use; no kernel
+   may spill, and no build log may report a serialized wgmma (C7512/C7514);
 3. kernel phases: each kernel against its plain PyTorch version on the card,
    at the encode path's shapes (batch 4 at 1024px), in fp32 (TF32 off) and
    bf16.  The dtype picks the kernel of the fused conv and the attention
@@ -29,16 +30,18 @@ failure (non-zero exit, no ``ok`` line):
    at the training step's B=3.  B'' and C'' get two bounds: fp32 FMA on the
    CUDA cores, and 3xTF32 on the tensor cores (three products at 495
    TFLOP/s), the one they are judged against.  The registers and shared
-   memory a block of B', B'', C', C'', D' and E' are read from the CUDA
-   runtime (cudaFuncGetAttributes).
-   The flash-attention backward (bf16: D' for dQ and E' for dK/dV, whose
-   two passes are two launches; fp32: D and E) is checked the same way at
-   the training step's shapes (B=3, S=16,384 and 4,096, D=512), D' and E'
-   twice more for bit-identical repeats, and timed beside the backward of
-   ``F.scaled_dot_product_attention``, whose backend is pinned to
-   EFFICIENT_ATTENTION (the flash and cuDNN backends refuse D=512); D and E
-   are also timed on the same bf16 inputs (their bf16 instantiation,
-   launched directly), and D' + E' must beat them;
+   memory a block of B', B'', C', C'', D', D'', E' and E'' are read from
+   the CUDA runtime (cudaFuncGetAttributes).
+   The flash-attention backward (bf16: D' for dQ and E' for dK/dV; fp32:
+   the 3xTF32 kernels D'' and E''; E' and E'' run two passes, two
+   launches) is checked the same way at the training step's shapes (B=3,
+   S=16,384 and 4,096, D=512), each kernel twice more for bit-identical
+   repeats, D'' and E'' also within 4x the error of the SIMT kernels D and
+   E that they replaced (launched directly on the same fp32 inputs), and
+   timed beside the backward of ``F.scaled_dot_product_attention``, whose
+   backend is pinned to EFFICIENT_ATTENTION (the flash and cuDNN backends
+   refuse D=512); D and E are timed on the same bf16 and fp32 inputs, and
+   D' + E' and D'' + E'' must beat them;
 4. autograd on the card: the outputs of A, B'' and C'' on tensors that require
    a gradient carry a ``grad_fn``, and each op's gradients through the
    kernel path match the torch backend in fp32 (relative error <= 1e-4);
@@ -61,21 +64,27 @@ failure (non-zero exit, no ``ok`` line):
    same exact launches, fp32 latents of the kernel path within MSE 1e-10 of
    the plain (torch-backend) path, and the bf16 gate: the bf16 kernel
    path's latents against the fp32 plain path within 4x the MSE of the
-   torch backend's own bf16 latents;
+   torch backend's own bf16 latents; then one fp32 batch and the steady
+   fp32 rate with PyTorch's default cuDNN setting (TF32 on, which this
+   script turns off elsewhere), its latents within BASELINE.json's MSE
+   1e-4 of the TF32-off plain path;
 6. training path: the same weights and images as a tagged dataset (2,000
    tags), then ``python -m vae_tagger_tpu_torch.train.train_full``'s entry
    point for one epoch at 1024px, batch 1 (a stacked triplet of 3 images),
-   bf16, no warmup.  Checks: finite losses, the exact launch counts (per
-   train step A 2, stats 20, B' 20, C' 1, D' 1, E' 2, every fp32 kernel none;
-   per validation batch the forward's), every encoder and head parameter
-   changed, the exported VAE (with the checkpoint's decoder tensor kept)
-   and head classify through ``TaggerEngine``.  Then the steady step time
-   over 10 steps, images/s and peak memory, a profiler breakdown of one
-   step by kernel, and the gradient gate: on one fp32 batch, every
-   parameter's gradient through the kernel path (A, stats, B'', C'', D and E,
-   with exact launch counts) within 1e-3 of the torch backend's, relative,
-   or absolute where the torch path's norm is below 1e-8 (gradients that
-   are zero in exact arithmetic);
+   no warmup, in bf16 and then in fp32 (``--mixed_precision no``).  Checks
+   of each: finite losses, the exact launch counts (per bf16 train step A
+   2, stats 20, B' 20, C' 1, D' 1, E' 2; per fp32 step A 2, stats 20, B''
+   20, C'' 1, D'' 1, E'' 2; every other kernel none; per validation batch
+   the forward's), every encoder and head parameter changed, the VAE
+   decoder tensor of the checkpoint kept by the export; the bf16 exports
+   classify through ``TaggerEngine``.  Then the steady step time (bf16 over
+   10 steps, fp32 over 4), images/s and peak memory, a profiler breakdown
+   of one step of each by kernel, the fp32 step again with the SIMT D and
+   E in place of D'' and E'' (over 3 steps), and the gradient gate: on one
+   fp32 batch, every parameter's gradient through the kernel path (A,
+   stats, B'', C'', D'' and E'', with exact launch counts) within 1e-3 of
+   the torch backend's, relative, or absolute where the torch path's norm
+   is below 1e-8 (gradients that are zero in exact arithmetic);
 7. one JSON line ``{"kernels": [...]}``, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -158,9 +167,9 @@ KERNELS = {
         source="vae_tagger_tpu_torch/csrc/flash_attention_fwd_tc.cu",
         replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:87 (bf16 "
                  "path, pallas_call at :112)"),
-    "flash_attention_bwd_dq": dict(
+    "flash_attention_bwd_dq_tf32x3": dict(
         route="cuda",
-        source="vae_tagger_tpu_torch/csrc/flash_attention_bwd.cu",
+        source="vae_tagger_tpu_torch/csrc/flash_attention_bwd_tf32x3.cu",
         replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:154 "
                  "(_bwd_dq_kernel, pallas_call at :265; fp32 path)"),
     "flash_attention_bwd_dq_tc": dict(
@@ -168,9 +177,9 @@ KERNELS = {
         source="vae_tagger_tpu_torch/csrc/flash_attention_bwd_tc.cu",
         replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:154 "
                  "(_bwd_dq_kernel, pallas_call at :265; bf16 path)"),
-    "flash_attention_bwd_dkv": dict(
+    "flash_attention_bwd_dkv_tf32x3": dict(
         route="cuda",
-        source="vae_tagger_tpu_torch/csrc/flash_attention_bwd.cu",
+        source="vae_tagger_tpu_torch/csrc/flash_attention_bwd_tf32x3.cu",
         replaces="vae_tagger_tpu/ops/pallas/flash_attention.py:187 "
                  "(_bwd_dkv_kernel, pallas_call at :296; fp32 path)"),
     "flash_attention_bwd_dkv_tc": dict(
@@ -181,27 +190,21 @@ KERNELS = {
 }
 # the path whose launches a kernel's line reports: the fp32 kernels run on
 # fp32 paths only (bf16 paths run B', C', D' and E'): B'' and C'' on the
-# infer CLI at its default precision, D and E in the fp32 gradient gate
+# infer CLI at its default precision, D'' and E'' in fp32 training
 KERNEL_PATH = {"gn_silu_conv3x3_tf32x3": "infer_fp32",
                "flash_attention_fwd_tf32x3": "infer_fp32",
-               "flash_attention_bwd_dq": "grad_gate_fp32",
-               "flash_attention_bwd_dkv": "grad_gate_fp32"}
-# the SIMT kernels that B'' and C'' replaced: no longer dispatched, launched
-# directly (_simt_conv, _simt_fwd) on the same fp32 inputs as yardsticks
+               "flash_attention_bwd_dq_tf32x3": "train_fp32",
+               "flash_attention_bwd_dkv_tf32x3": "train_fp32"}
+# the SIMT kernels that B'', C'', D'' and E'' replaced: no longer
+# dispatched, launched directly (_simt_conv, _simt_fwd, _simt_bwd) on the
+# same fp32 inputs as yardsticks
 SIMT_PREDECESSOR = {"gn_silu_conv3x3_tf32x3": "B (csrc/gn_silu_conv3x3.cu)",
                     "flash_attention_fwd_tf32x3":
-                        "C (csrc/flash_attention_fwd.cu)"}
-# launches of one bf16 train step and of one validation (forward-only) batch
-TRAIN_STEP_LAUNCHES = {"group_norm_silu": 2, "group_stats": 20,
-                       "gn_silu_conv3x3_tc": 20,
-                       "flash_attention_fwd_tc": 1,
-                       "flash_attention_bwd_dq": 0,
-                       "flash_attention_bwd_dkv": 0,
-                       "flash_attention_bwd_dq_tc": 1,
-                       # E' runs a dV pass and a dK pass
-                       "flash_attention_bwd_dkv_tc": 2}
-EVAL_LAUNCHES = dict(TRAIN_STEP_LAUNCHES, flash_attention_bwd_dq_tc=0,
-                     flash_attention_bwd_dkv_tc=0)
+                        "C (csrc/flash_attention_fwd.cu)",
+                    "flash_attention_bwd_dq_tf32x3":
+                        "D (csrc/flash_attention_bwd.cu)",
+                    "flash_attention_bwd_dkv_tf32x3":
+                        "E (csrc/flash_attention_bwd.cu)"}
 # launches of one encode batch, bf16 and fp32
 ENCODE_LAUNCHES = {
     "bf16": {"group_norm_silu": 2, "group_stats": 20, "gn_silu_conv3x3_tc": 20,
@@ -209,9 +212,17 @@ ENCODE_LAUNCHES = {
     "fp32": {"group_norm_silu": 2, "group_stats": 20,
              "gn_silu_conv3x3_tf32x3": 20, "flash_attention_fwd_tf32x3": 1},
 }
+# launches of one train step: the encode's, then the attention backward (E'
+# and E'' each run a dV pass and a dK pass); a validation batch runs the
+# encode's alone
+TRAIN_STEP_LAUNCHES = {
+    "bf16": dict(ENCODE_LAUNCHES["bf16"], flash_attention_bwd_dq_tc=1,
+                 flash_attention_bwd_dkv_tc=2),
+    "fp32": dict(ENCODE_LAUNCHES["fp32"], flash_attention_bwd_dq_tf32x3=1,
+                 flash_attention_bwd_dkv_tf32x3=2),
+}
 # launches of the fp32 gradient gate's kernel-path forward and backward
-GATE_LAUNCHES = dict(ENCODE_LAUNCHES["fp32"], flash_attention_bwd_dq=1,
-                     flash_attention_bwd_dkv=1)
+GATE_LAUNCHES = TRAIN_STEP_LAUNCHES["fp32"]
 
 
 def log(*a):
@@ -247,8 +258,12 @@ def time_ms(fn, window_ms=100.0, max_iters=50):
 
 
 def rel_err(a, ref):
-    ref = ref.float()
-    return ((a.float() - ref).abs().max()
+    """max |a - ref| over max |ref|, in fp64 where ref is fp64, else fp32."""
+    import torch
+
+    dt = torch.float64 if ref.dtype == torch.float64 else torch.float32
+    ref = ref.to(dt)
+    return ((a.to(dt) - ref).abs().max()
             / ref.abs().max().clamp_min(1e-30)).item()
 
 
@@ -437,6 +452,13 @@ def phase_build():
                 log(f"    {fn}: {m.group(1)} registers, "
                     f"{resources[fn].get('spill_stores', 0)} bytes spill "
                     f"stores")
+    # every kernel without spills, and no wgmma serialized by ptxas
+    spilled = {fn: r["spill_stores"] for fn, r in resources.items()
+               if r.get("spill_stores")}
+    serialized = [ln.strip() for rec in built.values()
+                  for ln in rec["log"].splitlines()
+                  if re.search(r"C751[24]", ln)]
+    assert not spilled and not serialized, (spilled, serialized)
     for stem in _build.SIGNATURES:
         _build.lib(stem)  # loads, raises if a library is missing
     return {"wall_s": wall,
@@ -837,27 +859,86 @@ def _simt_fp32_forward():
         attention._flash_attention_fwd_kernel = fwd_kernel
 
 
-def _simt_bwd(q, k, v, do, lse, delta):
-    """Kernels D and E launched directly in q's dtype: on bf16 tensors,
-    which the port sends to D' and E', they are the yardstick D' + E' must
-    beat on the same inputs."""
-    from vae_tagger_tpu_torch.ops import _build, attention
+def _bwd_fp64(q, k, v, do, lse, delta):
+    """(dq, dk, dv) of the attention backward computed in fp64 from the
+    same inputs, the same L and the same Dl, one batch element at a time:
+    the reference against which D'' and E'' and the SIMT D and E are both
+    held."""
+    import torch
 
-    keep, args = attention._bwd_args(q, k, v, do, lse, delta)
-    dq, dk, dv = (t.new_empty(t.shape) for t in keep[:3])
-    simt, st = _build.lib("flash_attention_bwd"), _build.stream_of(q)
-    _build.check(simt.vt_flash_attn_bwd_dq(*args, dq.data_ptr(), st),
-                 "vt_flash_attn_bwd_dq")
+    scale = 1.0 / q.shape[-1] ** 0.5
+    outs = []
+    for i in range(q.shape[0]):
+        qq, kk, vv, dd = (t[i].double() for t in (q, k, v, do))
+        p = torch.exp(qq @ kk.T * scale - lse[i].double()[:, None])
+        ds = p * (dd @ vv.T - delta[i].double()[:, None])
+        outs.append((ds @ kk * scale, ds.T @ qq * scale, p.T @ dd))
+        del p, ds
+    return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+
+
+def _simt_part(part, keep, args):
+    """Kernel D (``part`` "dq") or E ("dkv") launched directly in the
+    inputs' dtype, on the checked arguments of ``attention._bwd_args``
+    (kept tensors, C arguments); returns its outputs."""
+    from vae_tagger_tpu_torch.ops import _build
+
+    simt, st = _build.lib("flash_attention_bwd"), _build.stream_of(keep[0])
+    if part == "dq":
+        dq = keep[0].new_empty(keep[0].shape)
+        _build.check(simt.vt_flash_attn_bwd_dq(*args, dq.data_ptr(), st),
+                     "vt_flash_attn_bwd_dq")
+        return (dq,)
+    dk, dv = (t.new_empty(t.shape) for t in keep[1:3])
     _build.check(simt.vt_flash_attn_bwd_dkv(*args, dk.data_ptr(),
                                             dv.data_ptr(), st),
                  "vt_flash_attn_bwd_dkv")
-    return dq, dk, dv
+    return dk, dv
+
+
+def _simt_bwd(q, k, v, do, lse, delta):
+    """Kernels D and E launched directly in q's dtype: on fp32 tensors,
+    which the port sends to D'' and E'', and on bf16 tensors (D' and E'),
+    they are the yardstick the tensor-core kernels must beat on the same
+    inputs."""
+    from vae_tagger_tpu_torch.ops import attention
+
+    keep, args = attention._bwd_args(q, k, v, do, lse, delta)
+    return _simt_part("dq", keep, args) + _simt_part("dkv", keep, args)
+
+
+@contextlib.contextmanager
+def _simt_fp32_backward():
+    """Inside: the fp32 attention backward runs the SIMT kernels D and E in
+    place of D'' and E'' (counted as ``flash_attention_bwd_dq`` and
+    ``flash_attention_bwd_dkv``), the fp32 backward as the port ran it
+    before them; bf16 is untouched.  A yardstick for the steady fp32 train
+    step, measured in the same run."""
+    import torch
+    from vae_tagger_tpu_torch.ops import attention, backend
+
+    bwd_kernel = attention._bwd_kernel
+
+    def simt_bwd_kernel(part, q, k, v, do, lse, delta):
+        if q.dtype != torch.float32:
+            return bwd_kernel(part, q, k, v, do, lse, delta)
+        outs = _simt_part(part, *attention._bwd_args(q, k, v, do, lse,
+                                                     delta))
+        backend.count_launch(f"flash_attention_bwd_{part}")
+        return outs
+
+    attention._bwd_kernel = simt_bwd_kernel
+    try:
+        yield
+    finally:
+        attention._bwd_kernel = bwd_kernel
 
 
 def phase_kernel_de(g, results):
     import torch
     from vae_tagger_tpu_torch.ops import backend
     from vae_tagger_tpu_torch.ops.attention import (
+        _bwd_args,
         bwd_delta,
         bwd_tc_kernel_attrs,
         flash_attention_bwd_dkv,
@@ -865,21 +946,24 @@ def phase_kernel_de(g, results):
         flash_attention_fwd,
     )
 
-    log(f"kernels D' and E' (bf16) and D and E (fp32): the flash-attention "
-        f"backward, one head, D=512, B={TRAIN_ROWS} (one train step at "
-        f"batch 1)")
+    log(f"kernels D' and E' (bf16) and D'' and E'' (fp32): the "
+        f"flash-attention backward, one head, D=512, B={TRAIN_ROWS} (one "
+        f"train step at batch 1); the SIMT kernels D and E on the same fp32 "
+        f"inputs")
     d, b, full = 512, TRAIN_ROWS, (RES // 8) ** 2
     parts = {"dq": flash_attention_bwd_dq, "dkv": flash_attention_bwd_dkv}
     # kernel -> (its part of the backward, the dtype it runs)
     kinds = {"flash_attention_bwd_dq_tc": ("dq", torch.bfloat16),
              "flash_attention_bwd_dkv_tc": ("dkv", torch.bfloat16),
-             "flash_attention_bwd_dq": ("dq", torch.float32),
-             "flash_attention_bwd_dkv": ("dkv", torch.float32)}
+             "flash_attention_bwd_dq_tf32x3": ("dq", torch.float32),
+             "flash_attention_bwd_dkv_tf32x3": ("dkv", torch.float32)}
     chk = {name: Check(name, ("bf16",) if dt == torch.bfloat16 else ("fp32",))
            for name, (_, dt) in kinds.items()}
-    attrs = bwd_tc_kernel_attrs()
-    log(f"  D' and E' (cudaFuncGetAttributes): {attrs}")
-    timed, repeats = {}, {}
+    attrs = {dt: bwd_tc_kernel_attrs(dt)
+             for dt in (torch.bfloat16, torch.float32)}
+    log(f"  D' and E' (cudaFuncGetAttributes): {attrs[torch.bfloat16]}")
+    log(f"  D'' and E'' (cudaFuncGetAttributes): {attrs[torch.float32]}")
+    timed, repeats, simt_errs = {}, {}, {"dq": {}, "dkv": {}}
     for s in ((RES // 16) ** 2, full):
         q, k, v, do = (_rnd(g, b, s, d) for _ in range(4))
         with backend.backend("torch"):
@@ -887,19 +971,56 @@ def phase_kernel_de(g, results):
         delta = bwd_delta(o, do)
         ins = {dt: tuple(t.to(dt) for t in (q, k, v, do))
                for dt in (torch.float32, torch.bfloat16)}
+        f32 = ins[torch.float32]
 
         def call(name, dt=None):
             part, own = kinds[name]
             out = parts[part](*ins[dt or own], lse, delta)
             return out if isinstance(out, tuple) else (out,)
 
-        for name in kinds:
-            chk[name].run(f"B={b} S={s}", lambda dt, name=name: call(name, dt))
+        label = f"B={b} S={s}"
+        refs = {}
+        for name, (part, dt) in kinds.items():
+            ref = chk[name].run(label, lambda dt, name=name: call(name, dt))
+            if dt == torch.float32:
+                refs[part] = ref
+        # the SIMT D and E on the same fp32 inputs: D'' and E'' must not be
+        # less accurate than 4x theirs, both measured against the function
+        # in fp64 on the same inputs.  (Against the plain fp32 version the
+        # SIMT kernels look more accurate than they are: they round their
+        # fp32 intermediates S, P and dP as it does, and so share its own
+        # error, about 1e-6 at these shapes; both numbers are reported.)
+        ref64 = _bwd_fp64(*f32, lse, delta)
+        simt = _simt_bwd(*f32, lse, delta)
+        for part, sl in (("dq", slice(0, 1)), ("dkv", slice(1, 3))):
+            name = f"flash_attention_bwd_{part}_tf32x3"
+            new = call(name)
+            err = {
+                "new": max(r["rel_err_fp32"]
+                           for r in chk[name].rows[-len(new):]),
+                "simt": max(rel_err(o_, r)
+                            for o_, r in zip(simt[sl], refs[part])),
+                "new64": max(rel_err(o_, r) for o_, r in zip(new, ref64[sl])),
+                "simt64": max(rel_err(o_, r)
+                              for o_, r in zip(simt[sl], ref64[sl])),
+                "plain64": max(rel_err(o_, r)
+                               for o_, r in zip(refs[part], ref64[sl]))}
+            log(f"  {name} {label}: against the plain fp32 version "
+                f"{err['new']:.3e}, the SIMT kernel "
+                f"{'D' if part == 'dq' else 'E'}'s {err['simt']:.3e}; "
+                f"against fp64 {err['new64']:.3e}, the SIMT kernel's "
+                f"{err['simt64']:.3e} (gate 4x), the plain fp32 version's "
+                f"{err['plain64']:.3e}")
+            assert err["new64"] <= 4 * err["simt64"], (name, label, err)
+            for key, val in err.items():
+                simt_errs[part].setdefault(key, []).append(val)
+            del new
+        del simt, refs, ref64
         # no float atomics: a second launch repeats the first bit for bit
-        for name in ("flash_attention_bwd_dq_tc", "flash_attention_bwd_dkv_tc"):
+        for name in kinds:
             first, second = call(name), call(name)
             same = all(torch.equal(x, y) for x, y in zip(first, second))
-            log(f"  {name} B={b} S={s}: two launches bit-identical: {same}")
+            log(f"  {name} {label}: two launches bit-identical: {same}")
             assert same, f"{name}: two launches differ"
             repeats.setdefault(name, []).append(f"S={s}")
             del first, second
@@ -910,7 +1031,13 @@ def phase_kernel_de(g, results):
                 with backend.backend("torch"):
                     timed[name]["plain_ms"] = time_ms(fn)
             bf = ins[torch.bfloat16]
-            simt_bf16_ms = time_ms(lambda: _simt_bwd(*bf, lse, delta))
+            simt_bf16_ms = time_ms(lambda: _simt_bwd(*bf, lse, delta),
+                                   max_iters=5)
+            # the SIMT D and E apart, on the fp32 inputs
+            keep, args = _bwd_args(*f32, lse, delta)
+            simt_ms = {p_: time_ms(lambda p_=p_: _simt_part(p_, keep, args),
+                                   max_iters=3) for p_ in ("dq", "dkv")}
+            del keep, args
             lib_ms = {}
             for dt in (torch.bfloat16, torch.float32):
                 with torch.enable_grad():
@@ -927,27 +1054,53 @@ def phase_kernel_de(g, results):
                 f"{simt_bf16_ms:.3f} ms, SDPA's backward "
                 f"{lib_ms[torch.bfloat16]:.3f} ms")
             assert tc_ms < simt_bf16_ms, (tc_ms, simt_bf16_ms)
+            x3_ms = (timed["flash_attention_bwd_dq_tf32x3"]["ms"]
+                     + timed["flash_attention_bwd_dkv_tf32x3"]["ms"])
+            simt32_ms = simt_ms["dq"] + simt_ms["dkv"]
+            log(f"  on the same fp32 inputs: D'' + E'' {x3_ms:.3f} ms "
+                f"(D'' {timed['flash_attention_bwd_dq_tf32x3']['ms']:.3f}, "
+                f"E'' {timed['flash_attention_bwd_dkv_tf32x3']['ms']:.3f}), "
+                f"D + E {simt32_ms:.3f} ms (D {simt_ms['dq']:.3f}, E "
+                f"{simt_ms['dkv']:.3f}), SDPA's fp32 backward "
+                f"{lib_ms[torch.float32]:.3f} ms")
+            assert x3_ms < simt32_ms, (x3_ms, simt32_ms)
             for name, (part, dt) in kinds.items():
                 esize = 2.0 if dt == torch.bfloat16 else 4.0
-                dname = "bfloat16" if dt == torch.bfloat16 else "float32"
                 # q k v dO read, L and Dl read, dq or dk and dv written
                 nbytes = (esize * 4 * b * s * d + 4.0 * 2 * b * s
                           + esize * (1 if part == "dq" else 2) * b * s * d)
                 flops = (6.0 if part == "dq" else 8.0) * b * s * s * d
-                b_ms, b_by = bound(nbytes, flops, dname)
+                if dt == torch.bfloat16:
+                    b_ms, b_by = bound(nbytes, flops)
+                else:
+                    (c_ms, c_by), (b_ms, b_by) = _fp32_bounds(nbytes, flops)
+                    timed[name].update(bound_ms_cuda_cores=c_ms,
+                                       bound_by_cuda_cores=c_by,
+                                       simt_ms=simt_ms[part])
+                    log(f"  {name}: {timed[name]['ms']:.3f} ms, bound "
+                        f"{b_ms:.3f} ms as 3xTF32 "
+                        f"({b_ms / timed[name]['ms']:.1%}), {c_ms:.3f} ms on "
+                        f"the CUDA cores")
                 timed[name].update(library_ms=lib_ms[dt], bound_ms=b_ms,
                                    bound_by=b_by, flops=flops)
-            # E' computes S^T in both passes: 10 B S^2 D of its own
+            # E' and E'' compute S^T in both passes: 10 B S^2 D of their own
             own = 10.0 * b * s * s * d
-            timed["flash_attention_bwd_dkv_tc"].update(
-                kernel_flops=own, bound_ms_kernel_flops=bound(
-                    4.0 * b * s * d * 2 + 8.0 * b * s + 4.0 * b * s * d,
-                    own)[0])
+            for name, dname in (("flash_attention_bwd_dkv_tc", "bfloat16"),
+                                ("flash_attention_bwd_dkv_tf32x3",
+                                 "tf32x3")):
+                esize = 2.0 if dname == "bfloat16" else 4.0
+                timed[name].update(
+                    kernel_flops=own, bound_ms_kernel_flops=bound(
+                        esize * 6 * b * s * d + 8.0 * b * s, own, dname)[0])
             for name in ("flash_attention_bwd_dq_tc",
                          "flash_attention_bwd_dkv_tc"):
                 timed[name]["simt_on_bf16_ms_dq_plus_dkv"] = simt_bf16_ms
                 timed[name]["tc_ms_dq_plus_dkv"] = tc_ms
-        del q, k, v, do, o, lse, delta, ins
+            for name in ("flash_attention_bwd_dq_tf32x3",
+                         "flash_attention_bwd_dkv_tf32x3"):
+                timed[name]["simt_ms_dq_plus_dkv"] = simt32_ms
+                timed[name]["tf32x3_ms_dq_plus_dkv"] = x3_ms
+        del q, k, v, do, o, lse, delta, ins, f32
         torch.cuda.empty_cache()
     for name, (part, dt) in kinds.items():
         tc = dt == torch.bfloat16
@@ -955,12 +1108,17 @@ def phase_kernel_de(g, results):
             chk[name].summary(), **timed[name],
             library=f"backward of {SDPA_NAME} (dq, dk and dv in one "
                     f"call), {'bf16' if tc else 'fp32'}",
-            per=f"{2 if part == 'dkv' and tc else 1} launch(es): one train "
-                f"step at batch 1, {RES}px (B={TRAIN_ROWS} stacked, "
-                f"S={full}), {'bf16' if tc else 'fp32'}")
-        if tc:
-            results[name].update(runtime_attrs=attrs,
-                                 bit_identical_repeats=repeats[name])
+            runtime_attrs=attrs[dt], bit_identical_repeats=repeats[name],
+            per=f"{2 if part == 'dkv' else 1} launch(es): one train step at "
+                f"batch 1, {RES}px (B={TRAIN_ROWS} stacked, S={full}), "
+                f"{'bf16' if tc else 'fp32'}")
+        if not tc:
+            errs = {key: max(vals) for key, vals in simt_errs[part].items()}
+            results[name].update(
+                simt_max_rel_err_fp32=errs["simt"],
+                max_rel_err_fp64=errs["new64"],
+                simt_max_rel_err_fp64=errs["simt64"],
+                plain_max_rel_err_fp64=errs["plain64"])
 
 
 def phase_autograd(g):
@@ -1231,6 +1389,28 @@ def phase_main_path():
     assert np.isfinite(lat_k).all() and mse < 1e-10, mse
     assert np.isfinite(lat16).all() and mse16 <= 4 * mse16_t, \
         (mse16, mse16_t)
+    # one fp32 batch with PyTorch's default for cuDNN (TF32 on), as a
+    # user's process has it: the convs outside B'' (conv_in, the
+    # downsamples, conv_out, quant_conv, the head's) then run in TF32.
+    # Its latents against the TF32-off plain path, and its steady rate.
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        eng32.classify(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters32):
+            eng32.classify(batch)
+        steady32_tf32 = iters32 * BATCH / (time.perf_counter() - t0)
+        lat_tf32 = eng32.encode(batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    mse_tf32 = float(np.mean((lat_tf32 - lat_t) ** 2))
+    log(f"  fp32 with PyTorch's default cuDNN TF32 on: latent MSE "
+        f"{mse_tf32:.3e} against the TF32-off torch path (BASELINE.json's "
+        f"latent gate 1e-4); steady classify {steady32_tf32:.3f} images/s "
+        f"(host clock, {iters32} batches; TF32 off: {steady32:.3f})")
+    assert np.isfinite(lat_tf32).all() and mse_tf32 < 1e-4, mse_tf32
     del eng32
     torch.cuda.empty_cache()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1245,6 +1425,8 @@ def phase_main_path():
                 expected_launches_cli_fp32=expect_cli32,
                 steady_images_per_s_fp32=steady32,
                 steady_images_per_s_fp32_simt=steady32_simt,
+                steady_images_per_s_fp32_cudnn_tf32=steady32_tf32,
+                latent_mse_fp32_cudnn_tf32_vs_torch=mse_tf32,
                 launches_fp32=counts32, expected_launches_fp32=expect32,
                 latent_mse_fp32_kernel_vs_torch=mse,
                 latent_mse_bf16_torch_vs_fp32_torch=mse16_t,
@@ -1292,7 +1474,12 @@ def _kernel_breakdown(prof):
              "flash_bwd_dkv_kernel": "flash_attention_bwd_dkv",
              "flash_bwd_dq_tc_kernel": "flash_attention_bwd_dq_tc",
              "flash_bwd_dv_tc_kernel": "flash_attention_bwd_dkv_tc (dV pass)",
-             "flash_bwd_dk_tc_kernel": "flash_attention_bwd_dkv_tc (dK pass)"}
+             "flash_bwd_dk_tc_kernel": "flash_attention_bwd_dkv_tc (dK pass)",
+             "flash_bwd_tf32x3_kernel<0>": "flash_attention_bwd_dq_tf32x3",
+             "flash_bwd_tf32x3_kernel<1>":
+                 "flash_attention_bwd_dkv_tf32x3 (dK pass)",
+             "flash_bwd_tf32x3_kernel<2>":
+                 "flash_attention_bwd_dkv_tf32x3 (dV pass)"}
     # a name that is part of another would take its time
     assert not [a for a in names for b_ in names if a != b_ and a in b_]
     from torch.autograd import DeviceType
@@ -1359,7 +1546,7 @@ def _gradient_gate(art, batch):
                 state, dev_batch, step_generator(dev, SEED, 7), train=False)
             total.backward()
         torch.cuda.synchronize()
-        if be == "kernel":  # A, stats, B'', C'', D and E, exactly
+        if be == "kernel":  # A, stats, B'', C'', D'' and E'', exactly
             launches = backend.launch_counts()
             expect = _expected(GATE_LAUNCHES, 1)
             log(f"  launches in the gate's kernel path: "
@@ -1401,30 +1588,28 @@ def _gradient_gate(art, batch):
                 smallest_relative_norm=min(norms))
 
 
-def phase_training():
+def _train_cli(art, json_path, extra, precision):
+    """One epoch of ``python -m vae_tagger_tpu_torch.train.train_full``'s
+    entry point at ``--mixed_precision precision`` ("bf16" or "no"), with
+    the launch counts reset just before it and read just after.  Checks the
+    exact launches, finite losses, every encoder and head parameter
+    changed, and the VAE decoder tensor kept by the export.  Returns the
+    trained state, the output directory and a report."""
     import numpy as np
     import torch
     from safetensors.torch import load_file
-    from vae_tagger_tpu_torch.data.dataset import TaggedImageDataset
-    from vae_tagger_tpu_torch.data.loader import DataLoader, train_val_split
-    from vae_tagger_tpu_torch.infer.engine import TaggerEngine
-    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.data.loader import train_val_split
     from vae_tagger_tpu_torch.ops import backend
-    from vae_tagger_tpu_torch.train.steps import FullSteps
     from vae_tagger_tpu_torch.train.train_full import main as train_main
 
-    log(f"training path: python -m vae_tagger_tpu_torch.train.train_full, "
-        f"full FLUX VAE + attention head, {N_IMAGES} seeded {RES}px images "
-        f"with {NUM_TAGS} tags, batch 1 (B={TRAIN_ROWS} stacked), bf16")
-    art = _write_artifacts(NUM_TAGS)
-    json_path, extra = _write_training_data(art)
-    out = WORK / "train_out"
+    key = "bf16" if precision == "bf16" else "fp32"
+    out = WORK / f"train_out_{key}"
     argv = ["--json_path", json_path, "--tags_csv_path", art["tags"],
             "--vae_checkpoint", art["vae"], "--vae_config_path",
             art["config"], "--decoder_checkpoint", art["decoder"],
             "--output_dir", str(out), "--resolution", str(RES),
             "--train_batch_size", "1", "--num_epochs", "1",
-            "--mixed_precision", "bf16", "--lr_warmup_steps", "0",
+            "--mixed_precision", precision, "--lr_warmup_steps", "0",
             "--save_steps", "1", "--logging_steps", "1", "--num_workers", "4",
             "--seed", str(SEED)]
     n_train, n_val = (len(ix) for ix in train_val_split(N_IMAGES, 0.1,
@@ -1438,20 +1623,20 @@ def phase_training():
     wall = time.perf_counter() - t0
     counts = backend.launch_counts()
     cli_peak = torch.cuda.max_memory_allocated()
-    log(f"  CLI: {n_train} train steps + {n_val} validation batch in "
+    log(f"  CLI, {key}: {n_train} train steps + {n_val} validation batch in "
         f"{wall:.2f} s (load, exports and checkpoints included), peak "
         f"device memory {cli_peak / 2**30:.2f} GiB")
-    log(f"  launches in the training path: {counts}")
-    expect = {k: n_train * TRAIN_STEP_LAUNCHES.get(k, 0)
-              + n_val * EVAL_LAUNCHES.get(k, 0) for k in counts}
+    log(f"  launches in the training path, {key}: {counts}")
+    expect = {k: n_train * TRAIN_STEP_LAUNCHES[key].get(k, 0)
+              + n_val * ENCODE_LAUNCHES[key].get(k, 0) for k in counts}
     for name, want in expect.items():
-        assert counts[name] == want, (name, counts[name], want)
+        assert counts[name] == want, (key, name, counts[name], want)
 
     history = json.loads((out / "training_history.json").read_text())
     values = (history["train_loss"] + history["val_loss"]
               + [v for vs in history["train_metrics"].values() for v in vs])
     assert values and all(np.isfinite(values)), history
-    log(f"  losses: train {history['train_loss']}, val "
+    log(f"  losses, {key}: train {history['train_loss']}, val "
         f"{history['val_loss']}, terms "
         f"{ {k: v for k, v in history['train_metrics'].items()} }")
 
@@ -1465,12 +1650,72 @@ def phase_training():
     head_params = [n for n, _ in state.decoder.named_parameters()]
     same_head = [k for k in head_params
                  if torch.equal(before_head[k], after_head[k])]
-    log(f"  parameters changed: encoder {len(enc) - len(same_vae)}/"
+    log(f"  parameters changed, {key}: encoder {len(enc) - len(same_vae)}/"
         f"{len(enc)}, head {len(head_params) - len(same_head)}/"
         f"{len(head_params)}")
     assert not same_vae and not same_head, (same_vae[:5], same_head[:5])
     assert torch.equal(after_vae["decoder.conv_in.weight"], extra), \
         "the export lost the VAE decoder tensor"
+    return state, out, dict(train_steps=n_train, val_batches=n_val,
+                            cli_wall_s=wall, cli_peak_mem_bytes=cli_peak,
+                            launches=counts, expected_launches=expect,
+                            history=history)
+
+
+def _steady_step(state, batch, dtype, iters, first_index):
+    """Mean host-clock time of ``iters`` train steps on one batch after one
+    warm-up step, and the peak device memory over them."""
+    import torch
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.train.steps import FullSteps
+
+    steps = FullSteps(LossConfig(triplet_weight=1.0, use_focal_loss=False),
+                      compute_dtype=dtype, seed=SEED)
+    steps.train_step(state, batch, first_index)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        steps.train_step(state, batch, first_index + 1 + i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters, \
+        torch.cuda.max_memory_allocated(), steps
+
+
+def _profiled_step(steps, state, batch, index):
+    """Device time of one profiled train step, by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps.train_step(state, batch, index)
+        torch.cuda.synchronize()
+    by_kernel, top = _kernel_breakdown(prof)
+    total_ms = sum(by_kernel.values())
+    log(f"  one profiled step: {total_ms:.1f} ms of device time")
+    for label, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        log(f"    {label}: {ms:.2f} ms")
+    for ms, key in top:
+        log(f"    top kernel {ms:.2f} ms: {key}")
+    return total_ms, by_kernel, top
+
+
+def phase_training():
+    import numpy as np
+    import torch
+    from vae_tagger_tpu_torch.data.dataset import TaggedImageDataset
+    from vae_tagger_tpu_torch.data.loader import DataLoader
+    from vae_tagger_tpu_torch.infer.engine import TaggerEngine
+    from vae_tagger_tpu_torch.ops import backend
+
+    log(f"training path: python -m vae_tagger_tpu_torch.train.train_full, "
+        f"full FLUX VAE + attention head, {N_IMAGES} seeded {RES}px images "
+        f"with {NUM_TAGS} tags, batch 1 (B={TRAIN_ROWS} stacked), bf16, then "
+        f"fp32 (--mixed_precision no)")
+    art = _write_artifacts(NUM_TAGS)
+    json_path, extra = _write_training_data(art)
+    state, out, rep16 = _train_cli(art, json_path, extra, "bf16")
 
     eng = TaggerEngine.load(
         vae_checkpoint=str(out / "vae" / "diffusion_pytorch_model.safetensors"),
@@ -1486,46 +1731,61 @@ def phase_training():
         f"{probs.max():.4f}")
     del eng
 
-    # steady step time on one batch, then one profiled step
-    steps = FullSteps(LossConfig(triplet_weight=1.0, use_focal_loss=False),
-                      compute_dtype=torch.bfloat16, seed=SEED)
-    steps.train_step(state, batch, 1000)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    # steady bf16 step time on one batch, then one profiled step
     iters = 10
-    t0 = time.perf_counter()
-    for i in range(iters):
-        steps.train_step(state, batch, 1001 + i)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / iters
-    peak = torch.cuda.max_memory_allocated()
+    step_s, peak, steps = _steady_step(state, batch, torch.bfloat16, iters,
+                                       1000)
     log(f"  steady train step, bf16: {step_s * 1e3:.1f} ms, "
         f"{TRAIN_ROWS / step_s:.3f} images/s ({TRAIN_ROWS} per step; host "
         f"clock, {iters} steps), peak device memory {peak / 2**30:.2f} GiB")
-    from torch.profiler import ProfilerActivity, profile
+    total_ms, by_kernel, top = _profiled_step(steps, state, batch, 2000)
+    del state, steps
+    torch.cuda.empty_cache()
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        steps.train_step(state, batch, 2000)
+    # fp32 (--mixed_precision no): D'' and E'' carry the attention backward
+    state32, _, rep32 = _train_cli(art, json_path, extra, "no")
+    iters32 = 4
+    step32_s, peak32, steps32 = _steady_step(state32, batch, torch.float32,
+                                             iters32, 3000)
+    log(f"  steady train step, fp32: {step32_s * 1e3:.1f} ms, "
+        f"{TRAIN_ROWS / step32_s:.3f} images/s (host clock, {iters32} "
+        f"steps), peak device memory {peak32 / 2**30:.2f} GiB")
+    total32_ms, by_kernel32, top32 = _profiled_step(steps32, state32, batch,
+                                                    4000)
+    # the same steady step with the SIMT D and E in place of D'' and E''
+    iters_simt = 3
+    with _simt_fp32_backward():
+        steps32.train_step(state32, batch, 5000)
         torch.cuda.synchronize()
-    by_kernel, top = _kernel_breakdown(prof)
-    total_ms = sum(by_kernel.values())
-    log(f"  one profiled step: {total_ms:.1f} ms of device time")
-    for label, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
-        log(f"    {label}: {ms:.2f} ms")
-    for ms, key in top:
-        log(f"    top kernel {ms:.2f} ms: {key}")
-    del state, steps, prof
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(iters_simt):
+            steps32.train_step(state32, batch, 5001 + i)
+        torch.cuda.synchronize()
+        step32_simt_s = (time.perf_counter() - t0) / iters_simt
+        counts_simt = backend.launch_counts()
+    want = dict(ENCODE_LAUNCHES["fp32"], flash_attention_bwd_dq=1,
+                flash_attention_bwd_dkv=1)
+    assert counts_simt == _expected(want, iters_simt), counts_simt
+    log(f"  steady train step, fp32 with the SIMT D and E: "
+        f"{step32_simt_s * 1e3:.1f} ms (host clock, {iters_simt} steps); "
+        f"with D'' and E'': {step32_s * 1e3:.1f} ms")
+    del state32, steps32
     torch.cuda.empty_cache()
 
     gate = _gradient_gate(art, batch)
     shutil.rmtree(WORK, ignore_errors=True)
-    return dict(train_steps=n_train, val_batches=n_val, cli_wall_s=wall,
-                cli_peak_mem_bytes=cli_peak, launches=counts,
-                expected_launches=expect, history=history,
-                step_s_bf16=step_s, images_per_s_bf16=TRAIN_ROWS / step_s,
+    return dict(rep16, step_s_bf16=step_s,
+                images_per_s_bf16=TRAIN_ROWS / step_s,
                 step_peak_mem_bytes=peak, profiled_step_ms=total_ms,
                 device_ms_by_kernel=by_kernel, top_kernels=top,
+                fp32=dict(rep32, step_s=step32_s,
+                          images_per_s=TRAIN_ROWS / step32_s,
+                          step_peak_mem_bytes=peak32,
+                          step_s_simt_d_e=step32_simt_s,
+                          profiled_step_ms=total32_ms,
+                          device_ms_by_kernel=by_kernel32,
+                          top_kernels=top32),
                 gradient_gate=gate)
 
 
@@ -1561,9 +1821,11 @@ def main():
 
     # launches: bf16 training runs A, its stats pass, B', C', D' and E';
     # the infer CLI at its default precision (fp32) runs A, stats, B'' and
-    # C''; the fp32 gradient gate runs those and D and E.  Each path's
-    # counts were reset just before it ran and read just after.
+    # C''; fp32 training and the fp32 gradient gate run those and D'' and
+    # E''.  Each path's counts were reset just before it ran and read just
+    # after.
     by_path = {"train_bf16": report["training"]["launches"],
+               "train_fp32": report["training"]["fp32"]["launches"],
                "infer_bf16": report["main_path"]["launches"],
                "infer_fp32": report["main_path"]["launches_cli_fp32"],
                "infer_fp32_engine": report["main_path"]["launches_fp32"],
@@ -1589,7 +1851,9 @@ def main():
                 "predecessor_ms": r["simt_ms"],
                 "predecessor_max_rel_err_fp32": r["simt_max_rel_err_fp32"],
                 "bound_ms_cuda_cores": r["bound_ms_cuda_cores"]}
-               if name in SIMT_PREDECESSOR else {})))
+               if name in SIMT_PREDECESSOR else {}),
+            **{k: r[k] for k in ("max_rel_err_fp64", "simt_max_rel_err_fp64",
+                                 "plain_max_rel_err_fp64") if k in r}))
     report["kernel_line"] = kernels
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -179,24 +179,25 @@ def test_tile_plan_matches_the_plain_versions(b, sq, skv):
 
 
 def test_backward_dispatch_table():
-    """bf16 -> D' and E' (one library, E' two launches a call), fp32 -> D
-    and E; each entry names a built library, its C function and its own
-    launch counter."""
+    """bf16 -> D' and E', fp32 -> D'' and E'' (one library each, E' and E''
+    two launches a call); each entry names a built library, its C function
+    and its own launch counter."""
     table = attention.BWD_KERNELS
     assert set(table) == {torch.bfloat16, torch.float32}
     counters = set()
     for dt, parts in table.items():
         assert set(parts) == {"dq", "dkv"}
-        tc = dt == torch.bfloat16
+        suffix = "_tc" if dt == torch.bfloat16 else "_tf32x3"
         assert attention.bwd_kernels_for(torch.zeros(1, 4, D, dtype=dt)) \
             == parts
         for stem, fn, counter in parts.values():
-            assert stem.endswith("_tc") == tc and counter.endswith("_tc") == tc
+            assert stem.endswith(suffix) and counter.endswith(suffix)
             assert fn in _build.SIGNATURES[stem]
             assert counter in backend.LAUNCHES
             counters.add(counter)
     assert len(counters) == 4
-    assert attention.LAUNCHES_PER_CALL == {"vt_flash_attn_bwd_dkv_tc": 2}
+    assert attention.LAUNCHES_PER_CALL == {"vt_flash_attn_bwd_dkv_tc": 2,
+                                           "vt_flash_attn_bwd_dkv_tf32x3": 2}
     with pytest.raises(TypeError):
         attention.bwd_kernels_for(torch.zeros(1, 4, D, dtype=torch.float16))
 
@@ -205,9 +206,9 @@ def test_backward_dispatch_table():
 def test_tc_backward_refuses_head_widths(d):
     with pytest.raises(ValueError, match="head width"):
         attention.bwd_kernels_for(torch.zeros(1, 4, d, dtype=torch.bfloat16))
-    # fp32 keeps the SIMT kernels whatever the width (they check their own)
-    assert attention.bwd_kernels_for(torch.zeros(1, 4, d))["dq"][0] == \
-        "flash_attention_bwd"
+    # fp32 goes to D'' and E'', which take 512 alone too
+    with pytest.raises(ValueError, match="head width"):
+        attention.bwd_kernels_for(torch.zeros(1, 4, d))
 
 
 def test_count_launch_adds_the_kernels_of_one_call():

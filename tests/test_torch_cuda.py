@@ -9,10 +9,9 @@ Shapes here are small and deliberately ragged (channel counts that are not
 multiples of the kernels' tiles, sequences that are not multiples of the
 key tile, images narrower or wider than one pixel tile); chip_smoke.py
 covers the encode path's full shapes.  Each check runs both dtypes (the
-attention backward at head widths other than 512 fp32 only; the forward
-takes 512 alone): bf16 goes to the tensor-core kernels B', C', D' and E',
-fp32 to the 3xTF32 tensor-core kernels B'' and C'' and the SIMT kernels D
-and E.
+attention kernels take head width 512 alone, other widths raise): bf16
+goes to the tensor-core kernels B', C', D' and E', fp32 to the 3xTF32
+tensor-core kernels B'', C'', D'' and E''.
 Tolerances: fp32 max relative error 1e-4 (1e-5 for B'' and C''); bf16
 error against the plain fp32 result within 4x the plain version's own bf16
 error, floored at 1e-4.
@@ -214,9 +213,10 @@ def test_tc_kernels_refuse_what_they_do_not_take(gen):
                                         (1, 4096, 4096, 512)])
 def test_flash_attention_bwd_kernels(gen, b, sq, skv, d):
     """The backward kernels at ragged shapes, from the plain forward's O
-    and logsumexp: fp32 runs D and E (rows past their 32-row and 16-row
-    tiles), bf16 runs D' and E' (D = 512 only; rows past the 64-row block
-    and the 32-row tile, on both sides)."""
+    and logsumexp: fp32 runs D'' and E'', bf16 D' and E' (rows past the
+    64-row block and the 32-row tile, on both sides; Sq and Skv that are
+    not multiples of 8, the padding of the transposes of D'' and E'').
+    Both take D = 512 alone: other widths raise in either dtype."""
     q, k, v = _rnd(gen, b, sq, d), _rnd(gen, b, skv, d), _rnd(gen, b, skv, d)
     do = _rnd(gen, b, sq, d)
 
@@ -226,26 +226,32 @@ def test_flash_attention_bwd_kernels(gen, b, sq, skv, d):
         return flash_attention_bwd(q.to(dt), k.to(dt), v.to(dt), o.to(dt),
                                    lse, do.to(dt))
 
-    tc = d == 512
-    _check(op, (torch.float32, torch.bfloat16) if tc else (torch.float32,))
+    if d != 512:
+        for dt in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="head width"):
+                op(dt)
+        return
+    _check(op)
     counts = backend.launch_counts()
-    assert counts["flash_attention_bwd_dq"] == 1
-    assert counts["flash_attention_bwd_dkv"] == 1
-    assert counts["flash_attention_bwd_dq_tc"] == int(tc)
-    assert counts["flash_attention_bwd_dkv_tc"] == 2 * int(tc)  # two passes
+    assert counts["flash_attention_bwd_dq_tf32x3"] == 1
+    assert counts["flash_attention_bwd_dkv_tf32x3"] == 2  # two passes
+    assert counts["flash_attention_bwd_dq_tc"] == 1
+    assert counts["flash_attention_bwd_dkv_tc"] == 2
+    assert counts["flash_attention_bwd_dq"] == 0
+    assert counts["flash_attention_bwd_dkv"] == 0
 
 
 def test_dtype_picks_the_backward_kernel(gen):
     """Through the launch counters: bf16 runs D' once and E''s two passes,
-    fp32 runs D and E, and nothing else."""
+    fp32 runs D'' once and the two passes of E'', and nothing else."""
     q, do = _rnd(gen, 2, 70, 512), _rnd(gen, 2, 70, 512)
     k, v = _rnd(gen, 2, 45, 512), _rnd(gen, 2, 45, 512)
     with backend.backend("torch"):
         o, lse = flash_attention_fwd(q, k, v)
     for dt, want in ((torch.bfloat16, {"flash_attention_bwd_dq_tc": 1,
                                        "flash_attention_bwd_dkv_tc": 2}),
-                     (torch.float32, {"flash_attention_bwd_dq": 1,
-                                      "flash_attention_bwd_dkv": 1})):
+                     (torch.float32, {"flash_attention_bwd_dq_tf32x3": 1,
+                                      "flash_attention_bwd_dkv_tf32x3": 2})):
         backend.reset_launch_counts()
         flash_attention_bwd(q.to(dt), k.to(dt), v.to(dt), o.to(dt), lse,
                             do.to(dt))
@@ -255,40 +261,50 @@ def test_dtype_picks_the_backward_kernel(gen):
 
 
 def test_tc_backward_refuses_what_it_does_not_take(gen):
-    """A bf16 backward at a head width other than 512 raises, and so does
-    an operand off the 16-byte alignment a TMA tensor map needs; neither
-    falls back to D, E or the plain version."""
+    """A backward at a head width other than 512 raises, in bf16 and in
+    fp32, and so does an operand off the 16-byte alignment a TMA tensor
+    map needs; none falls back to the SIMT kernels or the plain version.
+    D'' reads q and do as they stand and E'' k and v (the operands the
+    wrapper lays out are its own, aligned); D' and E' read all four."""
     backend.reset_launch_counts()
-    q = _rnd(gen, 1, 40, 128).bfloat16()
     lse = torch.zeros(1, 40, device="cuda")
-    for fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
-        with pytest.raises(ValueError, match="head width"):
-            fn(q, q, q, q, lse, lse)
-    flat = torch.zeros(1 + 40 * 512, dtype=torch.bfloat16, device="cuda")
-    bad = flat[1:].view(1, 40, 512)  # contiguous, 2 bytes off
-    good = torch.zeros(1, 40, 512, dtype=torch.bfloat16, device="cuda")
-    for args in ((bad, good, good, good), (good, good, good, bad)):
+    for dt in (torch.bfloat16, torch.float32):
+        q = _rnd(gen, 1, 40, 128).to(dt)
         for fn in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+            with pytest.raises(ValueError, match="head width"):
+                fn(q, q, q, q, lse, lse)
+        flat = torch.zeros(1 + 40 * 512, dtype=dt, device="cuda")
+        bad = flat[1:].view(1, 40, 512)  # contiguous, 2 or 4 bytes off
+        good = torch.zeros(1, 40, 512, dtype=dt, device="cuda")
+        for args, fn in (((bad, good, good, good), flash_attention_bwd_dq),
+                         ((good, good, good, bad), flash_attention_bwd_dq),
+                         ((good, bad, good, good), flash_attention_bwd_dkv),
+                         ((good, good, bad, good), flash_attention_bwd_dkv)):
             with pytest.raises(ValueError, match="16-byte aligned"):
                 fn(*args, lse, lse)
     assert not any(backend.launch_counts().values())
 
 
 def test_tc_backward_repeats_bit_for_bit(gen):
-    """No float atomics: two launches of D' and of E' on the same inputs
-    give bit-identical outputs."""
+    """No float atomics: two launches of D' and of E' (bf16), and of D''
+    and E'' (fp32), on the same inputs give bit-identical outputs."""
     q, do = _rnd(gen, 2, 300, 512), _rnd(gen, 2, 300, 512)
     k, v = _rnd(gen, 2, 260, 512), _rnd(gen, 2, 260, 512)
     with backend.backend("torch"):
         o, lse = flash_attention_fwd(q, k, v)
-    args = tuple(t.bfloat16() for t in (q, k, v, do))
     delta = bwd_delta(o, do)
-    first = (flash_attention_bwd_dq(*args, lse, delta),
-             *flash_attention_bwd_dkv(*args, lse, delta))
-    second = (flash_attention_bwd_dq(*args, lse, delta),
-              *flash_attention_bwd_dkv(*args, lse, delta))
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+    backend.reset_launch_counts()
+    for dt in (torch.bfloat16, torch.float32):
+        args = tuple(t.to(dt) for t in (q, k, v, do))
+        first = (flash_attention_bwd_dq(*args, lse, delta),
+                 *flash_attention_bwd_dkv(*args, lse, delta))
+        second = (flash_attention_bwd_dq(*args, lse, delta),
+                  *flash_attention_bwd_dkv(*args, lse, delta))
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+    counts = backend.launch_counts()
+    assert counts["flash_attention_bwd_dq_tc"] == 2
+    assert counts["flash_attention_bwd_dq_tf32x3"] == 2
 
 
 def test_bf16_attention_gradients(gen):

@@ -56,7 +56,7 @@ def test_no_source_names_jax_or_the_jax_package(pattern):
 def test_cuda_sources_ship_as_package_data():
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
         "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
-        "flash_attention_fwd.cu",
+        "flash_attention_bwd_tf32x3.cu", "flash_attention_fwd.cu",
         "flash_attention_fwd_tc.cu", "flash_attention_fwd_tf32x3.cu",
         "gn_silu_conv3x3.cu", "gn_silu_conv3x3_tc.cu",
         "gn_silu_conv3x3_tf32x3.cu", "groupnorm_silu.cu"]

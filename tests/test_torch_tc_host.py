@@ -187,7 +187,7 @@ def test_tc_attention_refuses_head_widths(d):
     for dt in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="head width"):
             attention.fwd_kernel_for(torch.zeros(1, 4, d, dtype=dt))
-    # the fp32 backward keeps the SIMT kernels whatever the width (they
-    # check their own)
-    assert attention.bwd_kernels_for(torch.zeros(1, 4, d))["dq"][0] == \
-        "flash_attention_bwd"
+    # and so do the backward's, D'' and E'' (fp32) among them
+    for dt in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="head width"):
+            attention.bwd_kernels_for(torch.zeros(1, 4, d, dtype=dt))

@@ -276,7 +276,7 @@ def test_vt_layout(skv):
 def test_fp32_goes_to_b2_and_c2():
     """fp32 CUDA tensors go to B'' and C''; the SIMT B and C have left the
     dispatch tables (their libraries stay built for chip_smoke.py's
-    yardsticks), and the fp32 backward keeps the SIMT D and E."""
+    yardsticks), and the fp32 backward goes to D'' and E''."""
     q = torch.zeros(1, 4, 512)
     assert attention.fwd_kernel_for(q) == (
         "flash_attention_fwd_tf32x3", "vt_flash_attn_fwd_tf32x3",
@@ -284,7 +284,8 @@ def test_fp32_goes_to_b2_and_c2():
     assert conv.conv_kernel_for(torch.zeros(1, 4, 4, 64)) == (
         "gn_silu_conv3x3_tf32x3", "vt_gn_silu_conv3x3_tf32x3",
         "gn_silu_conv3x3_tf32x3")
-    assert attention.bwd_kernels_for(q)["dq"][0] == "flash_attention_bwd"
+    assert attention.bwd_kernels_for(q)["dq"][0] == \
+        "flash_attention_bwd_tf32x3"
     stems = {t[0] for t in (*attention.FWD_KERNELS.values(),
                             *conv.CONV_KERNELS.values())}
     assert not stems & {"gn_silu_conv3x3", "flash_attention_fwd"}

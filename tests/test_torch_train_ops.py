@@ -119,21 +119,57 @@ def test_attention_backward_matches_pallas(sq, skv, d):
 # (b) the VJPs of the GroupNorm and fused-conv ops
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("apply_silu", [True, False])
-def test_group_norm_silu_vjp_matches_jax(apply_silu):
+def _rel_bf16(got, want):
+    got = got.detach().float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+# bf16 tolerances, relative to the largest magnitude (bf16's step is 2^-8
+# of a value, 3.9e-3): the forward, where the port's CPU path is kernel A's
+# form (fp32 affine and SiLU, one cast) and the JAX one the reference (the
+# affine in bf16), and the scale and bias gradients, which sum 60 bf16
+# products per channel in another order and precision (up to 2.8e-2 over 8
+# seeds and shapes); dx, where both take the VJP of the same bf16
+# arithmetic, to a quarter of a step (the VJP of kernel A's fp32 form
+# misses it: 4.0e-3 and 7.2e-3).
+TOL_BF16 = 3e-2
+TOL_BF16_DX = 1e-3
+
+
+@pytest.mark.parametrize("apply_silu,dtype", [
+    pytest.param(True, "float32", id="True"),
+    pytest.param(False, "float32", id="False"),
+    pytest.param(True, "bfloat16", id="True-bfloat16"),
+    pytest.param(False, "bfloat16", id="False-bfloat16")])
+def test_group_norm_silu_vjp_matches_jax(apply_silu, dtype):
+    """The gradients are jax.vjp of the JAX op on the same inputs, in fp32
+    and in bf16, where the backward must take the VJP of the JAX reference
+    form (two-pass variance, the affine and SiLU's product in bf16)."""
     rng = np.random.default_rng(11)
     x = (rng.normal(size=(2, 6, 5, 64)) + 0.3).astype(np.float32)
     sc = (rng.normal(size=(64,)) * 0.2 + 1).astype(np.float32)
     bi = (rng.normal(size=(64,)) * 0.1).astype(np.float32)
     g = rng.normal(size=x.shape).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     out, vjp = jax.vjp(lambda *a: jax_group_norm_silu(
-        *a, num_groups=8, apply_silu=apply_silu), *map(jnp.asarray,
-                                                       (x, sc, bi)))
-    ins = (_t(x, True), _t(sc, True), _t(bi, True))
+        *a, num_groups=8, apply_silu=apply_silu),
+        *(jnp.asarray(a, jdt) for a in (x, sc, bi)))
+    want = vjp(jnp.asarray(g, jdt))
+    ins = tuple(_t(a).to(tdt).requires_grad_() for a in (x, sc, bi))
     y = group_norm_silu(*ins, num_groups=8, apply_silu=apply_silu)
-    _close(y, out)
-    for a, b in zip(torch.autograd.grad(y, ins, _t(g)), vjp(jnp.asarray(g))):
-        _close(a, b)
+    got = torch.autograd.grad(y, ins, _t(g).to(tdt))
+    if dtype == "float32":
+        _close(y, out)
+        for a, b in zip(got, want):
+            _close(a, b)
+        return
+    assert y.dtype == torch.bfloat16 and all(
+        a.dtype == torch.bfloat16 for a in got)
+    assert _rel_bf16(y, out) <= TOL_BF16
+    assert _rel_bf16(got[0], want[0]) <= TOL_BF16_DX
+    for a, b in zip(got[1:], want[1:]):
+        assert _rel_bf16(a, b) <= TOL_BF16
 
 
 @pytest.mark.parametrize("variant", ["plain", "residual", "shortcut"])

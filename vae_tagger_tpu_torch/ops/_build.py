@@ -86,6 +86,15 @@ SIGNATURES = {
         "vt_flash_attn_bwd_dq_tc_attrs": [_P],
         "vt_flash_attn_bwd_dkv_tc_attrs": [_P],
     },
+    "flash_attention_bwd_tf32x3": {
+        "vt_flash_attn_bwd_dq_tf32x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _I, _I, _I, _I, _I, _F, _P, _P],
+        "vt_flash_attn_bwd_dkv_tf32x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                         _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                         _P, _P, _P],
+        "vt_flash_attn_bwd_dq_tf32x3_attrs": [_P],
+        "vt_flash_attn_bwd_dkv_tf32x3_attrs": [_P],
+    },
 }
 
 _LIBS: dict = {}

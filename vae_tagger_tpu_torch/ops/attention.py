@@ -19,11 +19,16 @@ directly as a yardstick.  The forward saves q, k, v, O and the logsumexp
 L.  Its backward is :func:`flash_attention_bwd`: Dl = rowsum(dO * O) in
 fp32 with plain torch, as the JAX package takes it in XLA, then the dQ kernel
 (:func:`flash_attention_bwd_dq`) and the dK/dV kernel
-(:func:`flash_attention_bwd_dkv`) that :data:`BWD_KERNELS` names: bf16 goes
-to the tensor-core kernels D' and E' (``csrc/flash_attention_bwd_tc.cu``,
-head width 512; E' runs a dV pass and a dK pass, two launches), fp32 to the
-SIMT kernels D and E (``csrc/flash_attention_bwd.cu``).  Neither direction
-materializes the (S, S) scores on the card.  Beside each wrapper stands its
+(:func:`flash_attention_bwd_dkv`) that :data:`BWD_KERNELS` names, all on
+the tensor cores for head width 512: bf16 goes to D' and E'
+(``csrc/flash_attention_bwd_tc.cu``), fp32 to D'' and E''
+(``csrc/flash_attention_bwd_tf32x3.cu``, 3xTF32 products; the wrapper lays
+out and splits their shared-memory operands in every call,
+:func:`tf32x3_bwd_operands`).  E' and E'' each run a dV pass and a dK pass,
+two launches.  The SIMT kernels D and E (``csrc/flash_attention_bwd.cu``)
+that D'' and E'' replaced are no longer dispatched; chip_smoke.py launches
+them directly as yardsticks.  Neither direction materializes the (S, S)
+scores on the card.  Beside each wrapper stands its
 plain version: :func:`flash_attention_fwd_plain` (einsum, fp32 softmax,
 einsum), :func:`flash_attention_bwd_dq_plain` and
 :func:`flash_attention_bwd_dkv_plain` (the recurrences written out in fp32,
@@ -44,7 +49,7 @@ import torch
 
 from . import backend
 from ._build import check, check_tma_aligned, dtype_code, lib, stream_of
-from .tf32x3 import split_tf32
+from .tf32x3 import split_tf32, transpose_permuted
 
 # dtype of a CUDA tensor -> (library, C entry, launch counter) of the
 # forward kernel.  fp32 takes the tensor cores too: 3xTF32 keeps the fp32
@@ -57,8 +62,7 @@ FWD_KERNELS = {
 }
 # dtype of a CUDA tensor -> {"dq": ..., "dkv": ...}, each the (library, C
 # entry, launch counter) of a backward kernel: bf16 D' and E', fp32 the
-# SIMT kernels D and E (any head width that is a multiple of 32 up to 512;
-# their 3xTF32 redesign is still to come).
+# 3xTF32 kernels D'' and E''.
 BWD_KERNELS = {
     torch.bfloat16: {
         "dq": ("flash_attention_bwd_tc", "vt_flash_attn_bwd_dq_tc",
@@ -67,19 +71,22 @@ BWD_KERNELS = {
                 "flash_attention_bwd_dkv_tc"),
     },
     torch.float32: {
-        "dq": ("flash_attention_bwd", "vt_flash_attn_bwd_dq",
-               "flash_attention_bwd_dq"),
-        "dkv": ("flash_attention_bwd", "vt_flash_attn_bwd_dkv",
-                "flash_attention_bwd_dkv"),
+        "dq": ("flash_attention_bwd_tf32x3", "vt_flash_attn_bwd_dq_tf32x3",
+               "flash_attention_bwd_dq_tf32x3"),
+        "dkv": ("flash_attention_bwd_tf32x3", "vt_flash_attn_bwd_dkv_tf32x3",
+                "flash_attention_bwd_dkv_tf32x3"),
     },
 }
 # the dtypes whose kernels are tensor-core kernels that take head width
-# TC_HEAD_DIM only: both of the forward's, the backward's bf16 ones
-TC_DTYPES = {"fwd": {torch.bfloat16, torch.float32}, "bwd": {torch.bfloat16}}
-# kernels a C entry launches a call: E' runs its dV pass, then its dK pass
-LAUNCHES_PER_CALL = {"vt_flash_attn_bwd_dkv_tc": 2}
-# the head width the tensor-core kernels C', C'', D' and E' are built for:
-# the VAE mid-block's channels
+# TC_HEAD_DIM only: all of them
+TC_DTYPES = {"fwd": {torch.bfloat16, torch.float32},
+             "bwd": {torch.bfloat16, torch.float32}}
+# kernels a C entry launches a call: E' and E'' run their dV pass, then
+# their dK pass
+LAUNCHES_PER_CALL = {"vt_flash_attn_bwd_dkv_tc": 2,
+                     "vt_flash_attn_bwd_dkv_tf32x3": 2}
+# the head width the tensor-core kernels C', C'', D', D'', E' and E'' are
+# built for: the VAE mid-block's channels
 TC_HEAD_DIM = 512
 
 
@@ -87,7 +94,8 @@ def check_tc_head_width(d):
     """Raise for a head width the tensor-core kernels are not built for."""
     if d != TC_HEAD_DIM:
         raise ValueError(f"the tensor-core attention kernels (C', C'', D', "
-                         f"E') take head width {TC_HEAD_DIM}, got {d}")
+                         f"D'', E', E'') take head width {TC_HEAD_DIM}, "
+                         f"got {d}")
 
 
 def fwd_tc_kernel_attrs(dtype=torch.bfloat16):
@@ -103,28 +111,40 @@ def fwd_tc_kernel_attrs(dtype=torch.bfloat16):
 def tf32x3_kv(k, v):
     """The shared-memory operands of kernel C'' from fp32 k and v (B, Skv,
     D): (k_hi, k_lo, vt_hi, vt_lo, skv_pad).  K is split as it stands.  V^T
-    is (B, D, skv_pad), Skv rounded up to a multiple of 8 with zeros, the
-    keys of each group of 8 in the order 0 2 4 6 1 3 5 7 (the order in
-    which the kernel's P fragments hold them), then split."""
-    b, skv, d = k.shape
-    skv_pad = -(-skv // 8) * 8
-    vp = v.new_zeros(b, skv_pad, d)
-    vp[:, :skv] = v
-    vt = (vp.view(b, skv_pad // 8, 4, 2, d).transpose(2, 3)
-          .reshape(b, skv_pad, d).transpose(1, 2).contiguous())
+    is :func:`transpose_permuted` of V, (B, D, skv_pad), then split."""
+    vt, skv_pad = transpose_permuted(v)
     return (*split_tf32(k.contiguous()), *split_tf32(vt), skv_pad)
 
 
-def bwd_tc_kernel_attrs():
-    """What the CUDA runtime reports for kernel D' and for E''s two passes:
-    registers a thread and shared memory bytes a block.  On a machine with
-    the card only."""
-    bwd = lib("flash_attention_bwd_tc")
+def tf32x3_bwd_operands(part, q, k, v, do):
+    """The operands of kernel D'' (``part`` "dq") or E'' ("dkv") from fp32
+    q, do (B, Sq, D) and k, v (B, Skv, D), in the order of the C entry,
+    then the padded length of the transposed operands.  The block's own
+    rows stay raw (the kernels split them in registers): q and do for D'',
+    k and v for E''.  The streamed operands are split as they stand (D'':
+    K, V; E'': Q, dO), and the output products' B operands are
+    :func:`transpose_permuted` and split (D'': K^T; E'': Q^T, dO^T)."""
+    if part == "dq":
+        kt, pad = transpose_permuted(k)
+        return (q, do, *split_tf32(k), *split_tf32(v), *split_tf32(kt),
+                pad)
+    qt, pad = transpose_permuted(q)
+    dot, _ = transpose_permuted(do)
+    return (k, v, *split_tf32(q), *split_tf32(do), *split_tf32(qt),
+            *split_tf32(dot), pad)
+
+
+def bwd_tc_kernel_attrs(dtype=torch.bfloat16):
+    """What the CUDA runtime reports for kernel D' (bf16) or D'' (fp32) and
+    for the two passes of E' or E'': registers a thread and shared memory
+    bytes a block.  On a machine with the card only."""
+    parts = BWD_KERNELS[dtype]
+    stem, dq_fn, _ = parts["dq"]
+    dkv_fn = parts["dkv"][1]
+    bwd = lib(stem)
     dq, dkv = (ctypes.c_int * 2)(), (ctypes.c_int * 4)()
-    check(bwd.vt_flash_attn_bwd_dq_tc_attrs(dq),
-          "vt_flash_attn_bwd_dq_tc_attrs")
-    check(bwd.vt_flash_attn_bwd_dkv_tc_attrs(dkv),
-          "vt_flash_attn_bwd_dkv_tc_attrs")
+    check(getattr(bwd, f"{dq_fn}_attrs")(dq), f"{dq_fn}_attrs")
+    check(getattr(bwd, f"{dkv_fn}_attrs")(dkv), f"{dkv_fn}_attrs")
     return {"dq": dict(registers=dq[0], smem_bytes=dq[1]),
             "dkv_dv_pass": dict(registers=dkv[0], smem_bytes=dkv[1]),
             "dkv_dk_pass": dict(registers=dkv[2], smem_bytes=dkv[3])}
@@ -258,7 +278,9 @@ def flash_attention_fwd(q, k, v):
 
 
 def _bwd_args(q, k, v, do, lse, delta):
-    """Checked, contiguous kernel arguments shared by kernels D and E."""
+    """Checked, contiguous kernel arguments shared by kernels D, D', E and
+    E' (D'' and E'' take :func:`tf32x3_bwd_operands` in place of the
+    pointers of q, k, v and do)."""
     _check_qkv(q, k, v)
     b, sq, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
@@ -281,7 +303,13 @@ def _bwd_kernel(part, q, k, v, do, lse, delta):
     keep, args = _bwd_args(q, k, v, do, lse, delta)
     outs = ((torch.empty_like(keep[0]),) if part == "dq"
             else (torch.empty_like(keep[1]), torch.empty_like(keep[2])))
-    if stem.endswith("_tc"):
+    if q.dtype == torch.float32:  # D'' and E'': this call's operands
+        *ops, pad = tf32x3_bwd_operands(part, *keep[:4])
+        check_tma_aligned(*ops, *outs)
+        b, sq, d = q.shape
+        args = (*(t.data_ptr() for t in ops), keep[4].data_ptr(),
+                keep[5].data_ptr(), b, sq, k.shape[1], pad, d, args[-1])
+    else:
         check_tma_aligned(*keep[:4], *outs)
     check(getattr(lib(stem), fn)(*args, *(t.data_ptr() for t in outs),
                                  stream_of(q)), fn)
@@ -291,15 +319,15 @@ def _bwd_kernel(part, q, k, v, do, lse, delta):
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta):
     """dQ (B, Sq, D) from dO, L and Dl = rowsum(dO O); kernel D' (bf16) or
-    D (fp32) on a CUDA tensor."""
+    D'' (fp32) on a CUDA tensor."""
     if not backend.use_kernel(q):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta)
     return _bwd_kernel("dq", q, k, v, do, lse, delta)[0]
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
-    """(dK, dV) (B, Skv, D) from dO, L and Dl; kernel E' (bf16, two
-    launches) or E (fp32) on a CUDA tensor."""
+    """(dK, dV) (B, Skv, D) from dO, L and Dl; kernel E' (bf16) or E''
+    (fp32), two launches each, on a CUDA tensor."""
     if not backend.use_kernel(q):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta)
     return _bwd_kernel("dkv", q, k, v, do, lse, delta)
@@ -307,8 +335,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta):
 
 def flash_attention_bwd(q, k, v, o, lse, do):
     """(dq, dk, dv) of single-head attention from the forward's O and
-    logsumexp: Dl in torch, then kernels D' and E' (bf16) or D and E (fp32)
-    on a CUDA tensor."""
+    logsumexp: Dl in torch, then kernels D' and E' (bf16) or D'' and E''
+    (fp32) on a CUDA tensor."""
     do = do.to(q.dtype)
     delta = bwd_delta(o, do)
     return (flash_attention_bwd_dq(q, k, v, do, lse, delta),
@@ -329,8 +357,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v):
     """Single-head attention (B, Sq, D) x (B, Skv, D) -> (B, Sq, D) with the
-    flash backward: kernels C', D' and E' (bf16) or C'', D and E (fp32)
-    on the card."""
+    flash backward: kernels C', D' and E' (bf16) or C'', D'' and E''
+    (fp32) on the card."""
     return _FlashAttention.apply(q, k, v)
 
 

@@ -7,9 +7,8 @@ has a plain PyTorch version beside it in the same module.  The policy:
   a CPU tensor to the plain version -- the plain version is taken only
   because the tensor lies on the CPU.  Where an op has two kernels, the
   dtype picks one (its module's dispatch table): bf16 the tensor-core
-  kernel, fp32 the 3xTF32 tensor-core kernel (the fused conv and the
-  attention forward) or the SIMT kernel (the attention backward), and a
-  shape the chosen kernel refuses raises;
+  kernel, fp32 the 3xTF32 tensor-core kernel, and a shape the chosen
+  kernel refuses raises;
 - backend ``torch``: the plain version on every device.  On the card this
   is the yardstick the kernels are checked against (chip_smoke.py).
 
@@ -47,6 +46,8 @@ LAUNCHES = {
     "flash_attention_bwd_dkv": 0,
     "flash_attention_bwd_dq_tc": 0,
     "flash_attention_bwd_dkv_tc": 0,
+    "flash_attention_bwd_dq_tf32x3": 0,
+    "flash_attention_bwd_dkv_tf32x3": 0,
 }
 
 
@@ -79,7 +80,7 @@ def backend(name: str):
 
 
 def count_launch(name: str, n: int = 1) -> None:
-    """Add the n kernels one call launched (E' runs two passes)."""
+    """Add the n kernels one call launched (E' and E'' run two passes)."""
     LAUNCHES[name] += n
 
 

@@ -12,9 +12,10 @@ Kernel A (``csrc/groupnorm_silu.cu``) serves two wrappers here:
   ``eff_scale``/``eff_bias`` for the fused conv (ops/conv.py).
 
 :func:`group_norm_silu` is a ``torch.autograd.Function`` on both paths:
-its backward recomputes the plain version under ``enable_grad`` and takes
-its VJP (:func:`vjp_of_plain`), as the JAX package's custom VJP does, so
-the forward saves only its inputs.  The stats pass is forward-only (the
+its backward recomputes the JAX package's reference form under
+``enable_grad`` and takes its VJP (:func:`vjp_of_plain` of
+:func:`group_norm_silu_reference`), as the JAX package's custom VJP does,
+so the forward saves only its inputs.  The stats pass is forward-only (the
 fused conv's Function owns its gradient).
 
 Beside them, the plain versions compute the same function in PyTorch: the
@@ -45,6 +46,18 @@ def group_norm(x, scale, bias, *, num_groups: int, eps: float = 1e-6):
     xg = (xg - mean) * torch.rsqrt(var + eps)
     y = xg.reshape(n, h, w, c).to(orig)
     return y * scale.to(orig) + bias.to(orig)
+
+
+def group_norm_silu_reference(x, scale, bias, *, num_groups: int,
+                              eps: float = 1e-6, apply_silu: bool = True):
+    """The JAX package's reference form of GroupNorm(+SiLU), whose VJP is
+    the op's backward there: :func:`group_norm` (two-pass variance, the
+    affine in the input dtype), then ``y * sigmoid(y in fp32)`` cast back
+    to the input dtype."""
+    y = group_norm(x, scale, bias, num_groups=num_groups, eps=eps)
+    if apply_silu:
+        y = y * torch.sigmoid(y.float()).to(y.dtype)
+    return y
 
 
 def layer_norm(x, scale, bias, *, eps: float = 1e-5):
@@ -186,8 +199,8 @@ def vjp_of_plain(plain, inputs, grads):
 
 class _GroupNormSiLU(torch.autograd.Function):
     """Forward: kernel A on a CUDA tensor, else the plain version; backward:
-    the VJP of the plain version (GroupNorm's backward is cheap next to the
-    convs around it)."""
+    the VJP of the JAX package's reference form (GroupNorm's backward is
+    cheap next to the convs around it)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
@@ -206,9 +219,9 @@ class _GroupNormSiLU(torch.autograd.Function):
         num_groups, eps, apply_silu = ctx.args
 
         def plain(x, scale, bias):
-            return group_norm_silu_plain(x, scale, bias,
-                                         num_groups=num_groups, eps=eps,
-                                         apply_silu=apply_silu)
+            return group_norm_silu_reference(x, scale, bias,
+                                             num_groups=num_groups, eps=eps,
+                                             apply_silu=apply_silu)
 
         return vjp_of_plain(plain, ctx.saved_tensors, g) + (None,) * 3
 
