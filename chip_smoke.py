@@ -24,9 +24,14 @@ failure (non-zero exit, no ``ok`` line):
    the plain fp32 result within 4x the plain version's own bf16 error (with a
    floor of 1e-4 where the plain version's arithmetic is fp32 whatever the
    input dtype).  Each kernel is timed with CUDA events in the dtype it
-   runs (A and its stats pass in bf16), over about 100 ms of calls, beside
+   runs (A and its stats pass in both), over about 100 ms of calls, beside
    its plain version and one PyTorch library call computing the same
-   function (a yardstick only; the port never calls it).  C' is also timed
+   function (a yardstick only; the port never calls it).  A and its stats
+   pass are also timed beside PR 1's SIMT kernels of csrc/groupnorm_silu.cu
+   (launched directly on the same inputs; both passes must beat them), the
+   stats pass site by site at the 20 stats sites of a forward, and both
+   passes launch twice bit for bit at a 1024^2 C=128 and a 128^2 C=512
+   site.  C' is also timed
    at the training step's B=3.  B'' and C'' get two bounds: fp32 FMA on the
    CUDA cores, and 3xTF32 on the tensor cores (three products at 495
    TFLOP/s), the one they are judged against.  The registers and shared
@@ -85,7 +90,10 @@ failure (non-zero exit, no ``ok`` line):
    stats, B'', C'', D'' and E'', with exact launch counts) within 1e-3 of
    the torch backend's, relative, or absolute where the torch path's norm
    is below 1e-8 (gradients that are zero in exact arithmetic);
-7. one JSON line ``{"kernels": [...]}``, then as the last line
+7. kernel A's device time by kernel (torch.profiler), new and PR 1's, at
+   each stats site with its bandwidth, and of A's two passes: last, since a
+   profiler session may slow the host's launches after it;
+8. one JSON line ``{"kernels": [...]}``, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 With ``--report PATH`` the full report is also written there as JSON.
@@ -141,12 +149,15 @@ B_PER_FORWARD = sum(c[-1] for c in B_CASES)
 
 KERNELS = {
     "group_norm_silu": dict(
-        route="cuda", source="vae_tagger_tpu_torch/csrc/groupnorm_silu.cu",
+        route="cuda",
+        source="vae_tagger_tpu_torch/csrc/groupnorm_silu_vec.cu",
         replaces="vae_tagger_tpu/ops/pallas/groupnorm_silu.py:122 and :213"),
     "group_stats": dict(
-        route="cuda", source="vae_tagger_tpu_torch/csrc/groupnorm_silu.cu",
-        replaces="vae_tagger_tpu/ops/pallas/groupnorm_silu.py:48 (stats "
-                 "pass of kernel A, fed to the fused conv)"),
+        route="cuda",
+        source="vae_tagger_tpu_torch/csrc/groupnorm_silu_vec.cu",
+        replaces="vae_tagger_tpu/ops/conv.py:235 and :244 (group_stats and "
+                 "effective_affine, fed to the fused conv; kernel A's stats "
+                 "pass)"),
     "gn_silu_conv3x3_tf32x3": dict(
         route="cuda",
         source="vae_tagger_tpu_torch/csrc/gn_silu_conv3x3_tf32x3.cu",
@@ -421,11 +432,12 @@ def _ptxas_function(line):
     ints = re.match(r"I((?:Li\d+E)+)E", args)
     if ints:  # e.g. <512> or <256, 2>: tile widths and variants
         return f"{name}<{', '.join(re.findall(r'Li(\d+)E', ints.group(1)))}>"
-    t = re.match(r"I(13__nv_bfloat16|f)(L[bi](\d))?", args)
+    t = re.match(r"I(13__nv_bfloat16|f)((?:L[bi]\d+E)*)", args)
     if not t:
         return name
     dtype = "bf16" if t.group(1) != "f" else "f32"
-    return f"{name}<{dtype}{', ' + t.group(3) if t.group(3) else ''}>"
+    params = re.findall(r"L[bi](\d+)E", t.group(2))
+    return f"{name}<{', '.join([dtype, *params])}>"
 
 
 def phase_build():
@@ -485,43 +497,67 @@ def _both(t):
 
 
 def phase_kernel_a(g, results):
+    """Kernel A (GroupNorm(+SiLU): the stats pass, then the apply pass) at
+    the mid-block and conv_norm_out sites, against its plain version, in
+    bf16 and fp32; timed in both dtypes beside PR 1's kernels on the same
+    inputs (which it must beat), the plain version and F.group_norm +
+    F.silu."""
     import torch
     import torch.nn.functional as F
     from vae_tagger_tpu_torch.ops import backend
     from vae_tagger_tpu_torch.ops.normalization import group_norm_silu
 
-    log("kernel A: group_norm_silu at the mid-block and conv_norm_out sites")
+    log("kernel A: group_norm_silu at the mid-block and conv_norm_out sites; "
+        "PR 1's kernels on the same inputs")
     chk = Check("group_norm_silu")
     shape = (BATCH, RES // 8, RES // 8, 512)
     x = _rnd(g, *shape, shift=0.5)
     xs = _both(x)
-    xb = xs[torch.bfloat16]
     sc = _rnd(g, 512, scale=0.2, shift=1.0)
     bi = _rnd(g, 512, scale=0.1)
-    ms = plain_ms = lib_ms = 0.0
+    tot = {dt: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, pr1_ms=0.0)
+           for dt in xs}
     for silu in (False, True):
         def op(dt, silu=silu):
             return group_norm_silu(xs[dt], sc, bi, num_groups=GROUPS,
                                    apply_silu=silu)
 
         chk.run(f"{shape} silu={silu}", op)
+        for dt, t in tot.items():
+            def library(dt=dt, silu=silu):
+                y = F.group_norm(xs[dt].permute(0, 3, 1, 2), GROUPS,
+                                 sc.to(dt), bi.to(dt), 1e-6)
+                return F.silu(y) if silu else y
 
-        def library(silu=silu):
-            y = F.group_norm(xb.permute(0, 3, 1, 2), GROUPS, sc.bfloat16(),
-                             bi.bfloat16(), 1e-6)
-            return F.silu(y) if silu else y
-
-        ms += time_ms(lambda: op(torch.bfloat16))
-        with backend.backend("torch"):
-            plain_ms += time_ms(lambda: op(torch.bfloat16))
-        lib_ms += time_ms(library)
-    nbytes = 2 * 2 * x.numel() * 2  # two launches, x read + out written, bf16
-    b_ms, b_by = bound(nbytes, 2 * 10 * x.numel())
+            t["ms"] += time_ms(lambda: op(dt))
+            with backend.backend("torch"):
+                t["plain_ms"] += time_ms(lambda: op(dt))
+            t["library_ms"] += time_ms(library)
+            t["pr1_ms"] += time_ms(lambda: _pr1_group_norm_silu(
+                xs[dt], sc, bi, silu))
+    out = {}
+    for dt, t in tot.items():
+        # two calls, each reading x once and writing out once; the
+        # arithmetic is fp32 on the CUDA cores
+        nbytes = 2 * 2 * x.numel() * xs[dt].element_size()
+        b_ms, b_by = bound(nbytes, 2 * 10 * x.numel(), "float32")
+        out[dt] = dict(t, bound_ms=b_ms, bound_by=b_by)
+        log(f"  A, {dt}, 2 calls: {t['ms']:.4f} ms, PR 1's kernels "
+            f"{t['pr1_ms']:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_ms / t['ms']:.1%}); plain "
+            f"{t['plain_ms']:.4f}, F.group_norm + F.silu "
+            f"{t['library_ms']:.4f} ms")
+        assert t["ms"] < t["pr1_ms"], (dt, t)
+    bf, f32 = out[torch.bfloat16], out[torch.float32]
     results["group_norm_silu"] = dict(
-        chk.summary(), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=b_ms, bound_by=b_by,
+        chk.summary(), ms=bf["ms"], plain_ms=bf["plain_ms"],
+        library_ms=bf["library_ms"], bound_ms=bf["bound_ms"],
+        bound_by=bf["bound_by"], pr1_ms=bf["pr1_ms"], ms_fp32=f32["ms"],
+        plain_ms_fp32=f32["plain_ms"], library_ms_fp32=f32["library_ms"],
+        bound_ms_fp32=f32["bound_ms"], pr1_ms_fp32=f32["pr1_ms"],
         library="F.group_norm + F.silu (channels_last)",
-        per=f"2 launches: one batch of {BATCH} at {RES}px, bf16")
+        per=f"2 calls (4 launches): one batch of {BATCH} at {RES}px; ms, "
+            f"plain_ms, library_ms and bound_ms bf16, *_fp32 fp32")
 
 
 def _fp32_bounds(nbytes, flops):
@@ -550,7 +586,8 @@ def phase_kernel_b(g, results):
 
     log(f"kernels B' (bf16) and B'' (fp32): gn_silu_conv3x3 at the "
         f"{B_PER_FORWARD} encoder convs, the SIMT kernel B on the same fp32 "
-        f"inputs; kernel A's stats pass (group_stats) on their inputs")
+        f"inputs; kernel A's stats pass (group_stats) checked on their "
+        f"inputs (timed in phase_stats_sites)")
     dts = {"gn_silu_conv3x3_tc": torch.bfloat16,
            "gn_silu_conv3x3_tf32x3": torch.float32}
     chk = {"gn_silu_conv3x3_tc": Check("gn_silu_conv3x3_tc", ("bf16",)),
@@ -559,7 +596,6 @@ def phase_kernel_b(g, results):
     chk_s = Check("group_stats")
     tot = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
                       nbytes=0.0) for name in dts}
-    st = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0)
     simt = dict(ms=0.0, rel_errs=[])
     # the instances of B' and B'': what the CUDA runtime reports for each
     attrs = {torch.bfloat16: {}, torch.float32: {}}
@@ -624,12 +660,6 @@ def phase_kernel_b(g, results):
                 return out
             return call
 
-        xb = xs[torch.bfloat16]
-
-        def library_stats():
-            return torch.var_mean(xb.view(BATCH, hw * hw, GROUPS, -1).float(),
-                                  dim=(1, 3), correction=0)
-
         m = BATCH * hw * hw
         k_dim = 9 * cin + (cres if variant == "shortcut" else 0)
         for name, dt in dts.items():
@@ -644,13 +674,7 @@ def phase_kernel_b(g, results):
                                            + (m * cres if cres else 0)
                                            + k_dim * cout)
         simt["ms"] += mult * time_ms(simt_op, max_iters=5)
-        ms, plain_ms, lib_ms = time_kernel(stats_op, torch.bfloat16,
-                                           library_stats)
-        st["ms"] += mult * ms
-        st["plain_ms"] += mult * plain_ms
-        st["library_ms"] += mult * lib_ms
-        st["nbytes"] += mult * 2.0 * m * cin
-        del x, xs, res, rs, xb
+        del x, xs, res, rs
         torch.cuda.empty_cache()
     log(f"  B' instances (cudaFuncGetAttributes): {attrs[torch.bfloat16]}")
     log(f"  B'' instances (cudaFuncGetAttributes): {attrs[torch.float32]}")
@@ -679,12 +703,7 @@ def phase_kernel_b(g, results):
         bit_identical_repeats=len(B_CASES),
         runtime_attrs=attrs[torch.float32], library=f"{library}, TF32 off",
         per=f"{per}, float32")
-    s_ms, s_by = bound(st["nbytes"], 0.0)
-    results["group_stats"] = dict(
-        chk_s.summary(), ms=st["ms"], plain_ms=st["plain_ms"],
-        library_ms=st["library_ms"], bound_ms=s_ms, bound_by=s_by,
-        library="torch.var_mean over the groups (fp32 upcast)",
-        per=f"{B_PER_FORWARD} launches: one batch of {BATCH} at {RES}px, bf16")
+    results["group_stats"] = chk_s.summary()
 
 
 def phase_kernel_c(g, results):
@@ -803,6 +822,282 @@ def _simt_conv(x, gs, gb, kern, bias, res=None, sck=None, scb=None,
         wmat.data_ptr(), bias.data_ptr(), ptr(res), c_res, ptr(wsc),
         ptr(scb), out.data_ptr(), _build.stream_of(x)), "vt_gn_silu_conv3x3")
     return out
+
+
+def _pr1_stats_chunks(n, s, c):
+    """The PR 1 stats pass's row chunks per sample: about 2,048 blocks of
+    32 channels in all, at least 64 rows per chunk."""
+    strips = -(-c // 32)
+    chunks = max(1, -(-2048 // (n * strips)))
+    return min(chunks, max(1, -(-s // 64)))
+
+
+def _pr1_stats(x, gs=None, gb=None, num_groups=GROUPS, eps=1e-6):
+    """Kernel A's stats pass as PR 1 wrote it (``gn_partial_kernel`` and
+    ``gn_finalize_kernel`` of csrc/groupnorm_silu.cu), launched directly
+    with the PR 1 wrapper's allocations: the yardstick of the stats pass.
+    Returns (mean, meansq, eff_scale, eff_bias); the last two are None
+    without gs/gb."""
+    import torch
+    from vae_tagger_tpu_torch.ops import _build
+
+    n, h, w, c = x.shape
+    s = h * w
+    chunks = _pr1_stats_chunks(n, s, c)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty(n * chunks * 2 * c, **f32)
+    mean = torch.empty(n, num_groups, **f32)
+    meansq = torch.empty(n, num_groups, **f32)
+    es = eb = None
+    if gs is not None:
+        es, eb = torch.empty(n, c, **f32), torch.empty(n, c, **f32)
+    _build.check(_build.lib("groupnorm_silu").vt_gn_stats(
+        x.data_ptr(), _build.dtype_code(x), n, s, c, num_groups, chunks,
+        None if gs is None else gs.data_ptr(),
+        None if gb is None else gb.data_ptr(), float(eps),
+        partial.data_ptr(), mean.data_ptr(), meansq.data_ptr(),
+        None if es is None else es.data_ptr(),
+        None if eb is None else eb.data_ptr(), _build.stream_of(x)),
+        "vt_gn_stats")
+    return mean, meansq, es, eb
+
+
+def _pr1_group_norm_silu(x, gs, gb, apply_silu=True, num_groups=GROUPS,
+                         eps=1e-6):
+    """Kernel A's GroupNorm(+SiLU) as PR 1 wrote it: its stats pass, then
+    ``gn_apply_kernel``, launched directly; the yardstick of A."""
+    import torch
+    from vae_tagger_tpu_torch.ops import _build
+
+    n, h, w, c = x.shape
+    _, _, es, eb = _pr1_stats(x, gs, gb, num_groups, eps)
+    out = torch.empty_like(x)
+    _build.check(_build.lib("groupnorm_silu").vt_gn_apply(
+        x.data_ptr(), _build.dtype_code(x), n, h * w, c, es.data_ptr(),
+        eb.data_ptr(), out.data_ptr(), int(bool(apply_silu)),
+        _build.stream_of(x)), "vt_gn_apply")
+    return out
+
+
+def _device_ms_by_kernel(fn, reps=10):
+    """Device time of one call of fn() by kernel name, from torch.profiler
+    over ``reps`` calls after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0) or 0
+        if evt.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        name = re.search(r"(\w+_kernel)", evt.key)
+        key = name.group(1) if name else evt.key[:60]
+        out[key] = out.get(key, 0.0) + us / 1e3 / reps
+    return out
+
+
+def _stats_shapes():
+    """{(H=W, C): stats sites of one forward} of the inputs of B_CASES."""
+    shapes = {}
+    for hw, cin, *_, mult in B_CASES:
+        shapes[(hw, cin)] = shapes.get((hw, cin), 0) + mult
+    return shapes
+
+
+def phase_stats_sites(g, results):
+    """Kernel A's stats pass at each of the 20 stats sites of one 1024px
+    forward (the inputs of B_CASES, one row per input shape), in bf16 and
+    fp32: one call's time as the timing loop sees it (CUDA events; host
+    allocation and the ctypes call included), beside PR 1's pass on the same
+    inputs, the plain version and the library call.  The new pass must be
+    faster than PR 1's per batch in both dtypes.  At one 1024^2 C=128 site
+    and one 128^2 C=512 site, two launches of each pass (group_stats,
+    group_norm_affine, group_norm_silu) are bit-identical.  (Device time by
+    kernel comes last, in phase_device_breakdown: a profiler session may
+    slow the host's launches after it.)"""
+    import torch
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.ops.normalization import (
+        group_norm_affine,
+        group_norm_silu,
+        group_stats,
+    )
+
+    log("kernel A's stats pass, site by site (the 20 stats sites of one "
+        f"{RES}px forward, batch {BATCH}): one call in the timing loop (CUDA "
+        "events, host work included), PR 1's pass on the same inputs")
+    rows, repeats = [], []
+    tot = {dt: dict(ms=0.0, pr1_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                    nbytes=0.0) for dt in ("bfloat16", "float32")}
+    for (hw, cin), sites in _stats_shapes().items():
+        x = _rnd(g, BATCH, hw, hw, cin, shift=0.3)
+        gs = _rnd(g, cin, scale=0.2, shift=1.0)
+        gb = _rnd(g, cin, scale=0.1)
+        for dt in (torch.bfloat16, torch.float32):
+            xd = x.to(dt)
+            dname = str(dt).removeprefix("torch.")
+            nbytes = xd.numel() * xd.element_size()
+
+            def new():
+                return group_norm_affine(xd, gs, gb, num_groups=GROUPS)
+
+            row = dict(hw=hw, c=cin, dtype=dname, sites=sites, bytes=nbytes,
+                       bound_ms=nbytes / PEAK_BYTES * 1e3, ms=time_ms(new),
+                       pr1_ms=time_ms(lambda: _pr1_stats(xd, gs, gb)))
+            with backend.backend("torch"):
+                row["plain_ms"] = time_ms(new)
+            row["library_ms"] = time_ms(lambda: torch.var_mean(
+                xd.view(BATCH, hw * hw, GROUPS, -1).float(), dim=(1, 3),
+                correction=0))
+            log(f"  {hw}^2 C={cin} {dname} x{sites} (bound "
+                f"{row['bound_ms']:.4f} ms): {row['ms']:.4f} ms "
+                f"({row['bound_ms'] / row['ms']:.0%} of bound), PR 1 "
+                f"{row['pr1_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+                f"torch.var_mean {row['library_ms']:.4f} ms")
+            t = tot[dname]
+            for key in ("ms", "pr1_ms", "plain_ms", "library_ms"):
+                t[key] += sites * row[key]
+            t["nbytes"] += sites * nbytes
+            rows.append(row)
+            if (hw, cin) in ((RES, 128), (RES // 8, 512)):
+                backend.reset_launch_counts()
+                same = {
+                    "group_stats": _same_twice(
+                        lambda: group_stats(xd, GROUPS)),
+                    "group_norm_affine": _same_twice(new),
+                    "group_norm_silu": _same_twice(
+                        lambda: group_norm_silu(xd, gs, gb,
+                                                num_groups=GROUPS))}
+                counts = backend.launch_counts()
+                log(f"  {hw}^2 C={cin} {dname}: two launches bit-identical: "
+                    f"{same}")
+                assert all(same.values()) and counts["group_stats"] == 4 \
+                    and counts["group_norm_silu"] == 2, (same, counts)
+                repeats.append(f"{hw}^2 C={cin} {dname}")
+            del xd
+        del x
+        torch.cuda.empty_cache()
+    out = {}
+    for dname, t in tot.items():
+        b_ms, b_by = bound(t["nbytes"], 0.0)
+        log(f"  stats pass per batch, {dname}: {t['ms']:.3f} ms, PR 1's "
+            f"{t['pr1_ms']:.3f} ms; bound {b_ms:.3f} ms ({b_ms / t['ms']:.1%} "
+            f"of it; PR 1 {b_ms / t['pr1_ms']:.1%}); plain "
+            f"{t['plain_ms']:.3f}, torch.var_mean {t['library_ms']:.3f} ms")
+        assert t["ms"] < t["pr1_ms"], (dname, t)
+        out[dname] = dict(t, bound_ms=b_ms, bound_by=b_by)
+    bf, f32 = out["bfloat16"], out["float32"]
+    results["group_stats"].update(
+        ms=bf["ms"], plain_ms=bf["plain_ms"], library_ms=bf["library_ms"],
+        bound_ms=bf["bound_ms"], bound_by=bf["bound_by"], pr1_ms=bf["pr1_ms"],
+        ms_fp32=f32["ms"], plain_ms_fp32=f32["plain_ms"],
+        library_ms_fp32=f32["library_ms"], bound_ms_fp32=f32["bound_ms"],
+        pr1_ms_fp32=f32["pr1_ms"], bit_identical_repeats=repeats, sites=rows,
+        library="torch.var_mean over the groups (fp32 upcast)",
+        per=f"{B_PER_FORWARD} launches: one batch of {BATCH} at {RES}px; "
+            f"ms, plain_ms, library_ms and bound_ms bf16, *_fp32 fp32")
+
+
+def device_breakdown():
+    """Kernel A's device time by kernel (torch.profiler), in a process of
+    its own: the stats pass at each stats site in bf16 and fp32, new and
+    PR 1's on the same inputs, and A's two passes at its sites.  Returns
+    {"stats": {"H C dtype": {"new": {kernel: ms}, "pr1": {...}}},
+    "a": {dtype: {"kernel, silu=...": ms}}}."""
+    import torch
+    from vae_tagger_tpu_torch.ops.normalization import (
+        group_norm_affine,
+        group_norm_silu,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    out = {"stats": {}, "a": {}}
+    with torch.inference_mode():
+        for hw, cin in _stats_shapes():
+            x = torch.randn(BATCH, hw, hw, cin, device="cuda",
+                            generator=g) + 0.3
+            gs = torch.randn(cin, device="cuda", generator=g) * 0.2 + 1.0
+            gb = torch.randn(cin, device="cuda", generator=g) * 0.1
+            for dt in (torch.bfloat16, torch.float32):
+                xd = x.to(dt)
+                key = f"{hw} {cin} {str(dt).removeprefix('torch.')}"
+                out["stats"][key] = {
+                    "new": _device_ms_by_kernel(lambda: group_norm_affine(
+                        xd, gs, gb, num_groups=GROUPS)),
+                    "pr1": _device_ms_by_kernel(
+                        lambda: _pr1_stats(xd, gs, gb))}
+                del xd
+            del x
+            torch.cuda.empty_cache()
+        x = torch.randn(BATCH, RES // 8, RES // 8, 512, device="cuda",
+                        generator=g) + 0.5
+        sc = torch.randn(512, device="cuda", generator=g) * 0.2 + 1.0
+        bi = torch.randn(512, device="cuda", generator=g) * 0.1
+        for dt in (torch.bfloat16, torch.float32):
+            xd, dev = x.to(dt), {}
+            for silu in (False, True):
+                for k, v in _device_ms_by_kernel(lambda: group_norm_silu(
+                        xd, sc, bi, num_groups=GROUPS,
+                        apply_silu=silu)).items():
+                    dev[f"{k}, silu={silu}"] = v
+            out["a"][str(dt).removeprefix("torch.")] = dev
+    return out
+
+
+def phase_device_breakdown(results):
+    """Device time by kernel of kernel A's stats pass at each stats site
+    (the rows of phase_stats_sites), new and PR 1's, with their achieved
+    bandwidth beside the timing loop's ms, and of A's two passes: measured
+    by ``device_breakdown`` in a child process, since a profiler session
+    may slow the host's launches after it, and profiles taken after the
+    train step's gave partial counts."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--device-breakdown"],
+        capture_output=True, text=True, timeout=900, cwd=ROOT)
+    if proc.returncode:
+        raise RuntimeError(f"device breakdown failed:\n{proc.stderr[-4000:]}")
+    data = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("kernel A, device ms by kernel (torch.profiler, a child process): "
+        "the stats pass at each stats site (batch 4), new and PR 1's, GB/s "
+        "and share of the bytes bound, beside the timing loop's ms; A's two "
+        "passes")
+    st = results["group_stats"]
+    tot = {}
+    for row in st["sites"]:
+        said = []
+        for key in ("new", "pr1"):
+            dev = data["stats"][f"{row['hw']} {row['c']} {row['dtype']}"][key]
+            total = sum(dev.values())
+            row[f"{key}_device"] = dict(by_kernel=dev, ms=total,
+                                        gb_per_s=row["bytes"] / total / 1e6)
+            t = tot.setdefault(row["dtype"], {"new": 0.0, "pr1": 0.0})
+            t[key] += row["sites"] * total
+            said.append(
+                f"{key} " + " + ".join(f"{k} {v:.4f}" for k, v in dev.items())
+                + f" = {total:.4f} ms ({row['bytes'] / total / 1e6:.0f} GB/s, "
+                f"{row['bound_ms'] / total:.0%} of bound), loop "
+                f"{row['ms' if key == 'new' else 'pr1_ms']:.4f}")
+        log(f"  {row['hw']}^2 C={row['c']} {row['dtype']} x{row['sites']}: "
+            f"{'; '.join(said)}")
+    for dname, t in tot.items():
+        sfx = "" if dname == "bfloat16" else "_fp32"
+        b_ms = st[f"bound_ms{sfx}"]
+        log(f"  stats pass per batch, {dname}: {t['new']:.3f} ms device "
+            f"({b_ms / t['new']:.1%} of bound), PR 1's {t['pr1']:.3f}")
+        st[f"device_ms{sfx}"], st[f"pr1_device_ms{sfx}"] = t["new"], t["pr1"]
+    a = results["group_norm_silu"]
+    for dname, dev in data["a"].items():
+        a[f"device_ms_by_kernel{'' if dname == 'bfloat16' else '_fp32'}"] = dev
+        log(f"  A ({BATCH}, {RES // 8}, {RES // 8}, 512) {dname}, one call "
+            f"each: " + ", ".join(f"{k} {v:.4f}" for k, v in dev.items())
+            + " ms")
 
 
 def _simt_fwd(q, k, v):
@@ -1466,9 +1761,8 @@ def _kernel_breakdown(prof):
              "conv3x3_tf32x3_kernel": "gn_silu_conv3x3_tf32x3",
              "flash_fwd_tc_kernel": "flash_attention_fwd_tc",
              "flash_fwd_tf32x3_kernel": "flash_attention_fwd_tf32x3",
-             "gn_partial_kernel": "group_stats (+A's stats)",
-             "gn_finalize_kernel": "group_stats (+A's stats)",
-             "gn_apply_kernel": "group_norm_silu (apply)",
+             "gn_stats_vec_kernel": "group_stats (+A's stats)",
+             "gn_apply_vec_kernel": "group_norm_silu (apply)",
              "flash_fwd_kernel": "flash_attention_fwd",
              "flash_bwd_dq_kernel": "flash_attention_bwd_dq",
              "flash_bwd_dkv_kernel": "flash_attention_bwd_dkv",
@@ -1797,7 +2091,14 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", type=Path, default=None,
                         help="also write the full report to this JSON file")
+    parser.add_argument("--device-breakdown", action="store_true",
+                        help="only print kernel A's device time by kernel as "
+                             "one JSON line (the child process of the last "
+                             "phase)")
     args = parser.parse_args()
+    if args.device_breakdown:
+        print(json.dumps(device_breakdown()))
+        return
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1809,6 +2110,8 @@ def main():
         phase_kernel_a(g, results)
         phase_kernel_b(g, results)
         torch.cuda.empty_cache()
+        phase_stats_sites(g, results)
+        torch.cuda.empty_cache()
         phase_kernel_c(g, results)
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -1817,6 +2120,8 @@ def main():
     torch.cuda.empty_cache()
     report["main_path"] = phase_main_path()
     report["training"] = phase_training()
+    torch.cuda.empty_cache()
+    phase_device_breakdown(results)
     report["kernels"] = results
 
     # launches: bf16 training runs A, its stats pass, B', C', D' and E';
@@ -1853,7 +2158,10 @@ def main():
                 "bound_ms_cuda_cores": r["bound_ms_cuda_cores"]}
                if name in SIMT_PREDECESSOR else {}),
             **{k: r[k] for k in ("max_rel_err_fp64", "simt_max_rel_err_fp64",
-                                 "plain_max_rel_err_fp64") if k in r}))
+                                 "plain_max_rel_err_fp64", "ms_fp32",
+                                 "plain_ms_fp32", "library_ms_fp32",
+                                 "bound_ms_fp32", "pr1_ms", "pr1_ms_fp32")
+               if k in r}))
     report["kernel_line"] = kernels
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

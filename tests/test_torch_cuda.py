@@ -37,6 +37,7 @@ from vae_tagger_tpu_torch.ops.conv import gn_silu_conv3x3
 from vae_tagger_tpu_torch.ops.normalization import (
     group_norm_affine,
     group_norm_silu,
+    group_stats,
 )
 
 pytestmark = pytest.mark.cuda
@@ -93,6 +94,76 @@ def test_group_norm_silu_kernel(gen, shape, silu):
     _check(lambda dt: group_norm_silu(x.to(dt), sc, bi, num_groups=32,
                                       apply_silu=silu))
     _check(lambda dt: group_norm_affine(x.to(dt), sc, bi, num_groups=32))
+
+
+@pytest.mark.parametrize("shape,groups", [
+    # S = 533,027: not a multiple of any row span of the plan
+    ((3, 517, 1031, 64), 32),
+    # more samples than the arrival counters first allocated (64)
+    ((70, 3, 5, 32), 8),
+    # C = 4,096: 512 bf16 vectors a row (two strips of 256), 1,024 fp32
+    # ones (four strips)
+    ((2, 5, 7, 4096), 32),
+    # C = 300 in bf16: one element a thread, two strips, a group of 100
+    # channels across them
+    ((2, 9, 11, 300), 3),
+])
+def test_group_norm_kernel_ragged(gen, shape, groups):
+    """Kernel A at shapes the plan cuts unevenly: ragged spans, many
+    samples, rows wider than one strip of 256 vectors, C not a multiple of
+    the vector (one element a thread)."""
+    x = _rnd(gen, *shape, shift=0.5)
+    sc = _rnd(gen, shape[-1], scale=0.2, shift=1.0)
+    bi = _rnd(gen, shape[-1], scale=0.1)
+    _check(lambda dt: group_norm_silu(x.to(dt), sc, bi, num_groups=groups))
+    _check(lambda dt: group_norm_affine(x.to(dt), sc, bi,
+                                        num_groups=groups))
+    _check(lambda dt: group_stats(x.to(dt), groups))
+
+
+def test_group_norm_kernel_misaligned(gen):
+    """A contiguous view whose data pointer is 2 (bf16) or 4 (fp32) bytes
+    off a 16-byte boundary takes the kernel's one-element path, not the
+    plain version, and agrees with the plain version."""
+    shape = (2, 19, 23, 128)
+    x = _rnd(gen, *shape, shift=0.5)
+    sc = _rnd(gen, 128, scale=0.2, shift=1.0)
+    bi = _rnd(gen, 128, scale=0.1)
+
+    def off(dt):
+        flat = torch.empty(1 + x.numel(), dtype=dt, device="cuda")
+        view = flat[1:].view(shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 and view.is_contiguous()
+        return view
+
+    _check(lambda dt: group_norm_silu(off(dt), sc, bi, num_groups=32))
+    assert backend.launch_counts()["group_norm_silu"] == 2
+    _check(lambda dt: group_norm_affine(off(dt), sc, bi, num_groups=32))
+    assert backend.launch_counts()["group_stats"] == 2
+
+
+def test_group_norm_kernel_repeats_bit_for_bit(gen):
+    """No float atomics, and the arrival counters are left at zero: two
+    launches of the stats pass and of GroupNorm+SiLU on the same inputs,
+    in bf16 and fp32, give bit-identical outputs."""
+    x = _rnd(gen, 2, 67, 45, 512, shift=0.5)
+    sc = _rnd(gen, 512, scale=0.2, shift=1.0)
+    bi = _rnd(gen, 512, scale=0.1)
+    backend.reset_launch_counts()
+    for dt in (torch.bfloat16, torch.float32):
+        xd = x.to(dt)
+        calls = (lambda: group_stats(xd, 32),
+                 lambda: group_norm_affine(xd, sc, bi, num_groups=32),
+                 lambda: group_norm_silu(xd, sc, bi, num_groups=32))
+        for call in calls:
+            first, second = call(), call()
+            first = first if isinstance(first, tuple) else (first,)
+            second = second if isinstance(second, tuple) else (second,)
+            for a, b in zip(first, second):
+                assert torch.equal(a, b)
+    counts = backend.launch_counts()
+    assert counts["group_stats"] == 8 and counts["group_norm_silu"] == 4
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout,variant", [

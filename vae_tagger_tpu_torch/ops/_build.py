@@ -44,6 +44,12 @@ SIGNATURES = {
                         _P, _P, _P],
         "vt_gn_apply": [_P, _I, _I, _L, _I, _P, _P, _P, _I, _P],
     },
+    "groupnorm_silu_vec": {
+        "vt_gn_stats_vec": [_P, _I, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P,
+                            _F, _P, _P, _P, _P, _P, _P, _P],
+        "vt_gn_apply_vec": [_P, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P, _P,
+                            _I, _P],
+    },
     "gn_silu_conv3x3": {
         "vt_gn_silu_conv3x3": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                _P, _I, _P, _P, _P, _P],

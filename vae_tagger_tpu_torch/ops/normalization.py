@@ -4,7 +4,8 @@ Counterpart of ``vae_tagger_tpu/ops/normalization.py``.  GroupNorm groups
 *consecutive* channels (torch ``nn.GroupNorm`` semantics) and takes its
 statistics in fp32 whatever the input dtype.
 
-Kernel A (``csrc/groupnorm_silu.cu``) serves two wrappers here:
+Kernel A (``csrc/groupnorm_silu_vec.cu``; its plan is :func:`gn_plan`)
+serves two wrappers here:
 
 - :func:`group_norm_silu`: GroupNorm(+SiLU) -- the stats pass, then the
   apply pass (the VAE's mid-block attention norm and ``conv_norm_out``);
@@ -26,6 +27,8 @@ a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -108,51 +111,126 @@ def group_norm_silu_plain(x, scale, bias, *, num_groups: int,
 # kernel A
 # --------------------------------------------------------------------------
 
-def _stats_chunks(n: int, s: int, c: int) -> int:
-    """Row chunks per sample for the stats pass: about 2048 blocks in all
-    (enough to keep 132 SMs reading), at least 64 rows per chunk."""
-    strips = -(-c // 32)
-    chunks = max(1, -(-2048 // (n * strips)))
-    return min(chunks, max(1, -(-s // 64)))
+# the geometry of csrc/groupnorm_silu_vec.cu: threads a block, loads in
+# flight a thread, and the blocks an SM the grid is sized for (one wave;
+# the kernels' __launch_bounds__ guarantee that many fit)
+GN_THREADS = 256
+GN_UNROLL = 4
+GN_BLOCKS_PER_SM = 4
 
 
-def _gn_stats_kernel(x, num_groups: int, eps: float, gamma=None, beta=None):
-    """Launch the stats pass.  Returns (mean, meansq, eff_scale, eff_bias);
-    the last two are None without gamma/beta."""
-    if not x.is_cuda:
-        raise ValueError("the GroupNorm kernel takes a CUDA tensor")
+class GNPlan(NamedTuple):
+    """Launch plan of kernel A's two passes over an (N, S, C) tensor: ``vec``
+    channels a thread (one 16-byte load, or 1), spans of ``rows`` rows,
+    ``blocks`` spans a sample, ``strips`` strips of GN_THREADS vectors a
+    row.  Block (p, n, z) reads rows [p * rows, min((p + 1) * rows, S)) of
+    sample n; the stats pass writes one partial pair a (block, group)."""
+    vec: int
+    rows: int
+    blocks: int
+    strips: int
+
+
+def gn_plan(n: int, s: int, c: int, itemsize: int, aligned: bool,
+            sms: int = 132) -> GNPlan:
+    """The plan of kernel A on ``sms`` SMs: 16-byte vectors where C allows
+    and the data is 16-byte aligned, else one element a thread; spans of
+    whole unrolled steps, at most GN_BLOCKS_PER_SM blocks an SM in all (one
+    wave), so that every block streams one long contiguous span.  ``blocks`` is
+    ceil(S / rows): the spans cover every row exactly once."""
+    vec = 16 // itemsize
+    if not aligned or c % vec:
+        vec = 1
+    slots = c // vec
+    strip = min(slots, GN_THREADS)
+    strips = -(-slots // strip)
+    step = (GN_THREADS // strip) * GN_UNROLL
+    per_sample = max(1, sms * GN_BLOCKS_PER_SM // (n * strips))
+    rows = -(-s // per_sample)
+    rows = -(-rows // step) * step
+    return GNPlan(vec, rows, -(-s // rows), strips)
+
+
+_SMS: dict = {}
+# per (device, stream): [arrival counters (int32, one a sample, 0 between
+# launches), fp32 scratch for what a launch writes and no caller keeps]
+_SCRATCH: dict = {}
+
+
+def _launch_plan(x) -> GNPlan:
+    dev = x.device.index
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, h, w, c = x.shape
+    return gn_plan(n, h * w, c, x.element_size(), x.data_ptr() % 16 == 0,
+                   _SMS[dev])
+
+
+def _scratch(x, stream: int, floats: int):
+    """The arrival counters and at least ``floats`` of scratch for x's
+    device and stream.  Launches on one stream run in order, so each may
+    reuse what the last one wrote; the counters are zeros once and every
+    launch leaves them so (its last block resets them)."""
+    key = (x.device, stream)
+    entry = _SCRATCH.get(key)
+    if entry is None:
+        entry = _SCRATCH[key] = [None, None]
+    if entry[0] is None or entry[0].numel() < x.shape[0]:
+        entry[0] = torch.zeros(max(x.shape[0], 64), dtype=torch.int32,
+                               device=x.device)
+    if entry[1] is None or entry[1].numel() < floats:
+        entry[1] = torch.empty(floats, dtype=torch.float32, device=x.device)
+    return entry
+
+
+def _gn_stats_launch(x, num_groups: int, eps: float, gamma=None, beta=None,
+                     out=None):
+    """Launch the stats pass (one kernel) on a contiguous CUDA tensor x.
+    ``out`` maps "mean", "meansq", "es", "eb" to fp32 tensors that the
+    caller keeps; the others (eff_* only with gamma/beta) and the partial
+    pairs go to the scratch.  Returns (plan, address of eff_scale, address
+    of eff_bias)."""
     n, h, w, c = x.shape
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
-    x = x.contiguous()
-    code = dtype_code(x)
-    s = h * w
-    chunks = _stats_chunks(n, s, c)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    partial = torch.empty(n * chunks * 2 * c, **f32)
-    mean = torch.empty(n, num_groups, **f32)
-    meansq = torch.empty(n, num_groups, **f32)
-    es = eb = None
-    gp = bp = None
+    plan = _launch_plan(x)
+    stream = stream_of(x)
+    out = out or {}
+    sizes = {"partial": 2 * n * num_groups * plan.blocks * plan.strips,
+             "mean": n * num_groups, "meansq": n * num_groups}
     if gamma is not None:
-        gamma = gamma.to(**f32).contiguous()
-        beta = beta.to(**f32).contiguous()
-        es = torch.empty(n, c, **f32)
-        eb = torch.empty(n, c, **f32)
-        gp, bp = gamma.data_ptr(), beta.data_ptr()
-    err = lib("groupnorm_silu").vt_gn_stats(
-        x.data_ptr(), code, n, s, c, num_groups, chunks, gp, bp, float(eps),
-        partial.data_ptr(), mean.data_ptr(), meansq.data_ptr(),
-        es.data_ptr() if es is not None else None,
-        eb.data_ptr() if eb is not None else None, stream_of(x))
-    check(err, "vt_gn_stats")
-    return mean, meansq, es, eb
+        sizes.update(es=n * c, eb=n * c)
+    # 16-byte aligned offsets: kernels B' and B'' load eff_* 16 bytes a time
+    offs, end = {}, 0
+    for name, size in sizes.items():
+        if name not in out:
+            offs[name] = end
+            end += -(-size // 4) * 4
+    arrivals, scratch = _scratch(x, stream, end)
+    ptr = {name: out[name].data_ptr() if name in out
+           else scratch.data_ptr() + 4 * offs[name] for name in sizes}
+    if gamma is not None:
+        gamma = gamma.to(dtype=torch.float32).contiguous()
+        beta = beta.to(dtype=torch.float32).contiguous()
+    err = lib("groupnorm_silu_vec").vt_gn_stats_vec(
+        x.data_ptr(), dtype_code(x), n, h * w, c, num_groups, plan.vec,
+        plan.rows, plan.blocks, plan.strips,
+        None if gamma is None else gamma.data_ptr(),
+        None if beta is None else beta.data_ptr(), float(eps),
+        ptr["partial"], arrivals.data_ptr(), ptr["mean"], ptr["meansq"],
+        ptr.get("es"), ptr.get("eb"), stream)
+    check(err, "vt_gn_stats_vec")
+    return plan, ptr.get("es"), ptr.get("eb")
 
 
 def group_stats(x, num_groups: int):
     """(mean, E[x^2]) per (sample, group), fp32, shape (N, G)."""
     if backend.use_kernel(x):
-        mean, meansq, _, _ = _gn_stats_kernel(x, num_groups, 0.0)
+        mean, meansq = (torch.empty(x.shape[0], num_groups,
+                                    dtype=torch.float32, device=x.device)
+                        for _ in range(2))
+        _gn_stats_launch(x.contiguous(), num_groups, 0.0,
+                         out=dict(mean=mean, meansq=meansq))
         backend.count_launch("group_stats")
         return mean, meansq
     return group_stats_plain(x, num_groups)
@@ -163,7 +241,10 @@ def group_norm_affine(x, gn_scale, gn_bias, *, num_groups: int,
     """GN stats of x folded with the affine: (eff_scale, eff_bias), (N, C)
     fp32 -- the input of the fused conv's prologue."""
     if backend.use_kernel(x):
-        _, _, es, eb = _gn_stats_kernel(x, num_groups, eps, gn_scale, gn_bias)
+        es, eb = (torch.empty(x.shape[0], x.shape[-1], dtype=torch.float32,
+                              device=x.device) for _ in range(2))
+        _gn_stats_launch(x.contiguous(), num_groups, eps, gn_scale, gn_bias,
+                         dict(es=es, eb=eb))
         backend.count_launch("group_stats")
         return es, eb
     mean, meansq = group_stats_plain(x, num_groups)
@@ -171,14 +252,17 @@ def group_norm_affine(x, gn_scale, gn_bias, *, num_groups: int,
 
 
 def _group_norm_silu_kernel(x, scale, bias, num_groups, eps, apply_silu):
+    """The stats pass, then the apply pass in the same plan: two launches;
+    eff_scale/eff_bias stay in the scratch between them."""
     n, h, w, c = x.shape
     x = x.contiguous()
-    _, _, es, eb = _gn_stats_kernel(x, num_groups, eps, scale, bias)
+    plan, es, eb = _gn_stats_launch(x, num_groups, eps, scale, bias)
     out = torch.empty_like(x)
-    err = lib("groupnorm_silu").vt_gn_apply(
-        x.data_ptr(), dtype_code(x), n, h * w, c, es.data_ptr(),
-        eb.data_ptr(), out.data_ptr(), int(bool(apply_silu)), stream_of(x))
-    check(err, "vt_gn_apply")
+    err = lib("groupnorm_silu_vec").vt_gn_apply_vec(
+        x.data_ptr(), dtype_code(x), n, h * w, c, plan.vec, plan.rows,
+        plan.blocks, plan.strips, es, eb, out.data_ptr(),
+        int(bool(apply_silu)), stream_of(x))
+    check(err, "vt_gn_apply_vec")
     return out
 
 
