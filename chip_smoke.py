@@ -80,8 +80,11 @@ failure (non-zero exit, no ``ok`` line):
    of each: finite losses, the exact launch counts (per bf16 train step A
    2, stats 20, B' 20, C' 1, D' 1, E' 2; per fp32 step A 2, stats 20, B''
    20, C'' 1, D'' 1, E'' 2; every other kernel none; per validation batch
-   the forward's), every encoder and head parameter changed, the VAE
-   decoder tensor of the checkpoint kept by the export; the bf16 exports
+   the forward's, and of the final threshold search and evaluation one
+   encode per validation batch), every encoder and head parameter
+   changed, every VAE decoder tensor of the checkpoint exported unchanged
+   (the simplified loss gives it no gradient), the final phase's files
+   written; the bf16 exports
    classify through ``TaggerEngine``.  Then the steady step time (bf16 over
    10 steps, fp32 over 4), images/s and peak memory, a profiler breakdown
    of one step of each by kernel, the fp32 step again with the SIMT D and
@@ -90,10 +93,32 @@ failure (non-zero exit, no ``ok`` line):
    stats, B'', C'', D'' and E'', with exact launch counts) within 1e-3 of
    the torch backend's, relative, or absolute where the torch path's norm
    is below 1e-8 (gradients that are zero in exact arithmetic);
-7. kernel A's device time by kernel (torch.profiler), new and PR 1's, at
+7. the VAE decoder: kernel phases at the decoder's sites at
+   batch 1 (``phase_decoder_kernels``: B' and B'' at its 28 fused convs,
+   Cin > Cout and the shortcut from Cres > Cout among them, the stats pass
+   at 512^2 C=512 and 1024^2 C=256, A at 1024^2 C=128, each against its
+   plain version, timed beside it and the library call); the decode gate
+   (one 1024px decode, fp32 kernel path vs plain MSE < 1e-10, bf16 within
+   4x the plain bf16 path's own MSE, exact launches); ``python -m
+   vae_tagger_tpu_torch.train.train_vae`` for one epoch in bf16 and in
+   fp32 (exact launches per step: A 4, stats 48, B 48, C 2, D 2, E 4;
+   finite losses; every encoder and decoder parameter changed; the bf16
+   export reloads and decodes; steady step, images/s, peak memory, one
+   profiled step by kernel each) and the fp32 train_vae gradient gate over
+   every parameter, the decoder's included (rel <= 1e-3); ``train_full
+   --no_simplified_loss --use_adaptive_weights`` for one epoch in bf16
+   (the adaptive weights move; the final phase writes
+   optimal_thresholds.json and the evaluation files); ``python -m
+   vae_tagger_tpu_torch.eval`` on its exports and ``python -m
+   vae_tagger_tpu_torch.infer.latents`` on the 8 images, the latents
+   against the engine's plain-path encode_scaled mode (MSE < 1e-10);
+8. kernel A's device time by kernel (torch.profiler), new and its first
+   form's (csrc/groupnorm_silu.cu), at
    each stats site with its bandwidth, and of A's two passes: last, since a
    profiler session may slow the host's launches after it;
-8. one JSON line ``{"kernels": [...]}``, then as the last line
+9. one JSON line ``{"kernels": [...]}`` (each kernel's launches on every
+   path, ``launches_by_path``, the train_vae paths included, and its
+   decoder-site numbers under ``decoder``), then as the last line
    ``{"ok": true, "device": {...}}``.
 
 With ``--report PATH`` the full report is also written there as JSON.
@@ -113,6 +138,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+# every phase runs on the card; the entry points are told so (--device)
+DEVICE = "cuda"
 
 BATCH = 4
 RES = 1024
@@ -234,6 +261,59 @@ TRAIN_STEP_LAUNCHES = {
 }
 # launches of the fp32 gradient gate's kernel-path forward and backward
 GATE_LAUNCHES = TRAIN_STEP_LAUNCHES["fp32"]
+
+# The 28 fused convs of one FLUX decoder forward at 1024px (batch 1 in a
+# train_vae step): (H=W, Cin, Cout, variant, Cres, launches per forward).
+# New against the encoder's: Cin > Cout (512->256 at 512^2, 256->128 at
+# 1024^2) and the 1x1 shortcut from Cres > Cout.
+DEC_B_CASES = [
+    (128, 512, 512, "plain", None, 5),
+    (128, 512, 512, "residual", 512, 5),
+    (256, 512, 512, "plain", None, 3),
+    (256, 512, 512, "residual", 512, 3),
+    (512, 512, 256, "plain", None, 1),
+    (512, 256, 256, "shortcut", 512, 1),
+    (512, 256, 256, "plain", None, 2),
+    (512, 256, 256, "residual", 256, 2),
+    (1024, 256, 128, "plain", None, 1),
+    (1024, 128, 128, "shortcut", 256, 1),
+    (1024, 128, 128, "plain", None, 2),
+    (1024, 128, 128, "residual", 128, 2),
+]
+DEC_B_PER_FORWARD = sum(c[-1] for c in DEC_B_CASES)
+# the decoder's stats sites (the inputs of DEC_B_CASES) that no encoder
+# forward has, and its A site (conv_norm_out); batch 1
+DEC_NEW_STATS_SITES = [(512, 512), (1024, 256)]
+DEC_A_SITE = (1024, 128)
+
+
+def _plus(*counts):
+    """The sum of launch-count dicts."""
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+# launches of one decode: A at the attention norm and conv_norm_out, the
+# stats pass before each fused conv, C once
+DECODE_LAUNCHES = {
+    "bf16": {"group_norm_silu": 2, "group_stats": 28,
+             "gn_silu_conv3x3_tc": 28, "flash_attention_fwd_tc": 1},
+    "fp32": {"group_norm_silu": 2, "group_stats": 28,
+             "gn_silu_conv3x3_tf32x3": 28, "flash_attention_fwd_tf32x3": 1},
+}
+# a train_vae step (and a full-loss train_full step) at batch 1: the
+# stacked encode, the anchor's decode, and the backward of both
+# attentions; a validation batch runs both forwards alone
+VAE_FORWARD_LAUNCHES = {k: _plus(ENCODE_LAUNCHES[k], DECODE_LAUNCHES[k])
+                        for k in ENCODE_LAUNCHES}
+VAE_STEP_LAUNCHES = {
+    k: _plus(VAE_FORWARD_LAUNCHES[k],
+             {n: 2 * c for n, c in TRAIN_STEP_LAUNCHES[k].items()
+              if n not in ENCODE_LAUNCHES[k]})
+    for k in ENCODE_LAUNCHES}
 
 
 def log(*a):
@@ -704,6 +784,157 @@ def phase_kernel_b(g, results):
         runtime_attrs=attrs[torch.float32], library=f"{library}, TF32 off",
         per=f"{per}, float32")
     results["group_stats"] = chk_s.summary()
+
+
+def phase_decoder_kernels(g, results):
+    """The decoder's sites of kernels B', B'', A and its stats pass at
+    batch 1 (a train_vae step decodes the anchor alone): B' and B'' at the
+    28 fused convs of DEC_B_CASES against their plain versions (bf16 and
+    fp32) and timed beside them and cuDNN; the stats pass at the two sites
+    no encoder has (512^2 C=512, 1024^2 C=256) and A at conv_norm_out
+    (1024^2 C=128) in both dtypes, timed beside torch.var_mean and
+    F.group_norm + F.silu.  The totals go beside each kernel's encode
+    numbers (``decoder`` in its report)."""
+    import torch
+    import torch.nn.functional as F
+    from vae_tagger_tpu_torch.ops.conv import gn_silu_conv3x3
+    from vae_tagger_tpu_torch.ops.normalization import (
+        group_norm_affine,
+        group_norm_silu,
+    )
+
+    log(f"the decoder's sites, batch 1 at {RES}px: B' (bf16) and B'' (fp32) "
+        f"at its {DEC_B_PER_FORWARD} fused convs, the stats pass at "
+        f"{DEC_NEW_STATS_SITES}, A at {DEC_A_SITE}")
+    dts = {"gn_silu_conv3x3_tc": torch.bfloat16,
+           "gn_silu_conv3x3_tf32x3": torch.float32}
+    chk = {name: Check(name, ("bf16",) if dt == torch.bfloat16 else
+                       ("fp32",)) for name, dt in dts.items()}
+    tot = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
+                      nbytes=0.0, cases=[]) for name in dts}
+    for hw, cin, cout, variant, cres, mult in DEC_B_CASES:
+        x = _rnd(g, 1, hw, hw, cin)
+        gs = _rnd(g, cin, scale=0.2, shift=1.0)
+        gb = _rnd(g, cin, scale=0.1)
+        k = _rnd(g, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        b = _rnd(g, cout, scale=0.1)
+        res = _rnd(g, 1, hw, hw, cres) if cres else None
+        sck = (_rnd(g, cres, cout, scale=cres ** -0.5)
+               if variant == "shortcut" else None)
+        scb = _rnd(g, cout, scale=0.1) if variant == "shortcut" else None
+        xs, rs = _both(x), _both(res)
+
+        def op(dt):
+            return gn_silu_conv3x3(xs[dt], gs, gb, k, b, rs[dt], sck, scb,
+                                   num_groups=GROUPS)
+
+        label = f"{hw}^2 {cin}->{cout} {variant}" + (
+            f" Cres={cres}" if variant == "shortcut" else "")
+        for name in dts:
+            chk[name].run(label, op)
+        m = hw * hw
+        k_dim = 9 * cin + (cres if variant == "shortcut" else 0)
+        for name, dt in dts.items():
+            w_oihw = k.to(dt).permute(3, 2, 0, 1).contiguous()
+            sc_oihw = (None if sck is None
+                       else sck.to(dt).t()[:, :, None, None].contiguous())
+
+            def library(dt=dt, w_oihw=w_oihw, sc_oihw=sc_oihw):
+                y = F.silu(F.group_norm(xs[dt].permute(0, 3, 1, 2), GROUPS,
+                                        gs.to(dt), gb.to(dt), 1e-6))
+                out = F.conv2d(y, w_oihw, b.to(dt), padding=1)
+                if sc_oihw is not None:
+                    out = out + F.conv2d(rs[dt].permute(0, 3, 1, 2), sc_oihw,
+                                         scb.to(dt))
+                elif rs[dt] is not None:
+                    out = out + rs[dt].permute(0, 3, 1, 2)
+                return out
+
+            ms, plain_ms, lib_ms = time_kernel(op, dt, library)
+            esize = 2.0 if dt == torch.bfloat16 else 4.0
+            flops = 2.0 * m * k_dim * cout
+            nbytes = esize * (m * cin + m * cout + (m * cres if cres else 0)
+                              + k_dim * cout)
+            t = tot[name]
+            t["ms"] += mult * ms
+            t["plain_ms"] += mult * plain_ms
+            t["library_ms"] += mult * lib_ms
+            t["flops"] += mult * flops
+            t["nbytes"] += mult * nbytes
+            b_ms = (bound(nbytes, flops) if dt == torch.bfloat16
+                    else _fp32_bounds(nbytes, flops)[1])[0]
+            t["cases"].append(dict(case=label, launches=mult, ms=ms,
+                                   plain_ms=plain_ms, library_ms=lib_ms,
+                                   bound_ms=b_ms))
+            log(f"  {name} {label}: {ms:.3f} ms a call (bound {b_ms:.3f}, "
+                f"{b_ms / ms:.1%}), plain {plain_ms:.3f}, cuDNN {lib_ms:.3f}")
+        del x, xs, res, rs
+        torch.cuda.empty_cache()
+    for name, dt in dts.items():
+        t = tot[name]
+        if dt == torch.bfloat16:
+            b_ms, b_by = bound(t["nbytes"], t["flops"])
+        else:
+            b_ms, b_by = _fp32_bounds(t["nbytes"], t["flops"])[1]
+        log(f"  {name}, the decoder's {DEC_B_PER_FORWARD} convs at batch 1: "
+            f"{t['ms']:.3f} ms, bound {b_ms:.3f} ({b_ms / t['ms']:.1%}, "
+            f"{b_by}), plain {t['plain_ms']:.3f}, cuDNN "
+            f"{t['library_ms']:.3f} ms")
+        results[name]["decoder"] = dict(
+            chk[name].summary(), ms=t["ms"], plain_ms=t["plain_ms"],
+            library_ms=t["library_ms"], bound_ms=b_ms, bound_by=b_by,
+            flops=t["flops"], cases=t["cases"],
+            per=f"{DEC_B_PER_FORWARD} launches: one decode at batch 1, "
+                f"{RES}px")
+
+    chk_s, chk_a = Check("group_stats"), Check("group_norm_silu")
+    stats_rows, a_rows = [], []
+    for hw, c in DEC_NEW_STATS_SITES + [DEC_A_SITE]:
+        x = _rnd(g, 1, hw, hw, c, shift=0.3)
+        gs = _rnd(g, c, scale=0.2, shift=1.0)
+        gb = _rnd(g, c, scale=0.1)
+        xs = _both(x)
+        is_a = (hw, c) == DEC_A_SITE
+        for silu in ((False, True) if is_a else (None,)):
+            def op(dt, silu=silu):
+                if is_a:
+                    return group_norm_silu(xs[dt], gs, gb, num_groups=GROUPS,
+                                           apply_silu=silu)
+                return group_norm_affine(xs[dt], gs, gb, num_groups=GROUPS)
+
+            (chk_a if is_a else chk_s).run(
+                f"{hw}^2 C={c}" + (f" silu={silu}" if is_a else ""), op)
+            for dt in (torch.bfloat16, torch.float32):
+                xd = xs[dt]
+                nbytes = xd.numel() * xd.element_size() * (2 if is_a else 1)
+
+                def library(xd=xd, dt=dt, silu=silu):
+                    if not is_a:
+                        return torch.var_mean(
+                            xd.view(1, hw * hw, GROUPS, -1).float(),
+                            dim=(1, 3), correction=0)
+                    y = F.group_norm(xd.permute(0, 3, 1, 2), GROUPS,
+                                     gs.to(dt), gb.to(dt), 1e-6)
+                    return F.silu(y) if silu else y
+
+                ms, plain_ms, lib_ms = time_kernel(op, dt, library)
+                b_ms = nbytes / PEAK_BYTES * 1e3
+                row = dict(hw=hw, c=c, dtype=str(dt).removeprefix("torch."),
+                           silu=silu, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by="bytes")
+                (a_rows if is_a else stats_rows).append(row)
+                log(f"  {'A' if is_a else 'stats pass'} {hw}^2 C={c} "
+                    f"{row['dtype']}" + (f" silu={silu}" if is_a else "")
+                    + f": {ms:.4f} ms (bound {b_ms:.4f}, {b_ms / ms:.0%}), "
+                    f"plain {plain_ms:.4f}, "
+                    f"{'F.group_norm+F.silu' if is_a else 'torch.var_mean'} "
+                    f"{lib_ms:.4f}")
+        del x, xs
+        torch.cuda.empty_cache()
+    results["group_stats"]["decoder"] = dict(chk_s.summary(),
+                                             sites=stats_rows)
+    results["group_norm_silu"]["decoder"] = dict(chk_a.summary(),
+                                                 sites=a_rows)
 
 
 def phase_kernel_c(g, results):
@@ -1507,8 +1738,8 @@ def _expected(per_batch, n):
 
 
 def _write_artifacts(num_tags=2000):
-    """Seeded full-width weights in diffusers layout, a head .bin, tags and
-    PNGs under build/chip_smoke."""
+    """Seeded full-width weights in diffusers layout (the whole VAE, its
+    decoder included), a head .bin, tags and PNGs under build/chip_smoke."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1524,7 +1755,11 @@ def _write_artifacts(num_tags=2000):
     shutil.rmtree(WORK, ignore_errors=True)
     (WORK / "images").mkdir(parents=True)
     cfg = default_flux_vae_config()
-    vae = seeded_init_(AutoencoderKL(cfg), SEED)
+    # the encoder as seeded_init_ gives it alone (the weights of the runs
+    # before the decoder was ported), the decoder seeded beside it
+    vae = seeded_init_(AutoencoderKL(cfg, with_decoder=True), SEED)
+    vae.load_state_dict(seeded_init_(AutoencoderKL(cfg), SEED).state_dict(),
+                        strict=False)
     save_vae_pretrained(vae, cfg, str(WORK / "vae"))
     head = build_decoder(num_tags, True, None, cfg.latent_channels, SEED + 1)
     g = torch.Generator().manual_seed(SEED + 2)
@@ -1729,12 +1964,9 @@ def phase_main_path():
 
 
 def _write_training_data(art):
-    """The seeded images as a tagged dataset (data.json of weighted tag
-    prompts over the 2,000 tags), and one tensor of a VAE decoder in the
-    VAE checkpoint, which the trainer's export must keep unchanged."""
+    """The seeded images as a tagged dataset: data.json of weighted tag
+    prompts over the 2,000 tags."""
     import numpy as np
-    import torch
-    from safetensors.torch import load_file, save_file
 
     rng = np.random.default_rng(SEED + 3)
     data = {}
@@ -1745,12 +1977,7 @@ def _write_training_data(art):
                                  for t in tags)
     path = WORK / "data.json"
     path.write_text(json.dumps(data, indent=1))
-    state = load_file(art["vae"])
-    extra = torch.randn(128, 16, 3, 3,
-                        generator=torch.Generator().manual_seed(SEED + 4))
-    state["decoder.conv_in.weight"] = extra
-    save_file(state, art["vae"])
-    return str(path), extra
+    return str(path)
 
 
 def _kernel_breakdown(prof):
@@ -1882,89 +2109,133 @@ def _gradient_gate(art, batch):
                 smallest_relative_norm=min(norms))
 
 
-def _train_cli(art, json_path, extra, precision):
-    """One epoch of ``python -m vae_tagger_tpu_torch.train.train_full``'s
+def _train_cli(art, json_path, precision, trainer="train_full", flags=()):
+    """One epoch of ``python -m vae_tagger_tpu_torch.train.<trainer>``'s
     entry point at ``--mixed_precision precision`` ("bf16" or "no"), with
-    the launch counts reset just before it and read just after.  Checks the
-    exact launches, finite losses, every encoder and head parameter
-    changed, and the VAE decoder tensor kept by the export.  Returns the
-    trained state, the output directory and a report."""
+    ``flags`` added, the launch counts reset just before it and read just
+    after.  Checks the exact launches (train_full's final evaluation
+    included), finite losses, every encoder parameter changed, and the
+    VAE decoder: changed where the loss trains it (train_vae, the full
+    loss), exported exactly as loaded where it does not (the simplified
+    loss); train_full's head changed and its final evaluation's files
+    written; the adaptive loss weights moved from zero where they are
+    trained.  Returns the trained state, the output directory and a
+    report."""
     import numpy as np
     import torch
     from safetensors.torch import load_file
     from vae_tagger_tpu_torch.data.loader import train_val_split
     from vae_tagger_tpu_torch.ops import backend
-    from vae_tagger_tpu_torch.train.train_full import main as train_main
+    from vae_tagger_tpu_torch.train import train_full, train_vae
 
     key = "bf16" if precision == "bf16" else "fp32"
-    out = WORK / f"train_out_{key}"
+    full_loss = "--no_simplified_loss" in flags
+    vae_trained = trainer == "train_vae" or full_loss
+    out = WORK / f"{trainer}_out_{key}{'_full_loss' if full_loss else ''}"
     argv = ["--json_path", json_path, "--tags_csv_path", art["tags"],
             "--vae_checkpoint", art["vae"], "--vae_config_path",
-            art["config"], "--decoder_checkpoint", art["decoder"],
-            "--output_dir", str(out), "--resolution", str(RES),
-            "--train_batch_size", "1", "--num_epochs", "1",
+            art["config"], "--output_dir", str(out), "--resolution",
+            str(RES), "--train_batch_size", "1", "--num_epochs", "1",
             "--mixed_precision", precision, "--lr_warmup_steps", "0",
             "--save_steps", "1", "--logging_steps", "1", "--num_workers", "4",
-            "--seed", str(SEED)]
+            "--seed", str(SEED), "--device", DEVICE, *flags]
+    if trainer == "train_full":
+        argv += ["--decoder_checkpoint", art["decoder"]]
     n_train, n_val = (len(ix) for ix in train_val_split(N_IMAGES, 0.1,
                                                         seed=SEED or 42))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     backend.reset_launch_counts()
     t0 = time.perf_counter()
-    state = train_main(argv)
+    main = train_full.main if trainer == "train_full" else train_vae.main
+    state = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = backend.launch_counts()
     cli_peak = torch.cuda.max_memory_allocated()
-    log(f"  CLI, {key}: {n_train} train steps + {n_val} validation batch in "
+    name = f"{trainer} {key}{' ' + ' '.join(flags) if flags else ''}"
+    log(f"  CLI, {name}: {n_train} train steps + {n_val} validation batch"
+        f"{' + the final evaluation' if trainer == 'train_full' else ''} in "
         f"{wall:.2f} s (load, exports and checkpoints included), peak "
         f"device memory {cli_peak / 2**30:.2f} GiB")
-    log(f"  launches in the training path, {key}: {counts}")
-    expect = {k: n_train * TRAIN_STEP_LAUNCHES[key].get(k, 0)
-              + n_val * ENCODE_LAUNCHES[key].get(k, 0) for k in counts}
-    for name, want in expect.items():
-        assert counts[name] == want, (key, name, counts[name], want)
+    log(f"  launches, {name}: {counts}")
+    step = (VAE_STEP_LAUNCHES if vae_trained else TRAIN_STEP_LAUNCHES)[key]
+    val = (VAE_FORWARD_LAUNCHES if vae_trained else ENCODE_LAUNCHES)[key]
+    # train_full's final phase encodes each validation batch once more
+    final = ENCODE_LAUNCHES[key] if trainer == "train_full" else {}
+    expect = {k: n_train * step.get(k, 0) + n_val * val.get(k, 0)
+              + n_val * final.get(k, 0) for k in counts}
+    for k, want in expect.items():
+        assert counts[k] == want, (name, k, counts[k], want)
 
     history = json.loads((out / "training_history.json").read_text())
     values = (history["train_loss"] + history["val_loss"]
               + [v for vs in history["train_metrics"].values() for v in vs])
     assert values and all(np.isfinite(values)), history
-    log(f"  losses, {key}: train {history['train_loss']}, val "
+    log(f"  losses, {name}: train {history['train_loss']}, val "
         f"{history['val_loss']}, terms "
         f"{ {k: v for k, v in history['train_metrics'].items()} }")
 
     before_vae = load_file(art["vae"])
-    after_vae = load_file(str(out / "vae" / "diffusion_pytorch_model.safetensors"))
+    after_vae = load_file(str(out / "vae" /
+                              "diffusion_pytorch_model.safetensors"))
+    assert set(after_vae) == set(before_vae), "the export is not a whole VAE"
     enc = [k for k in before_vae if k.startswith("encoder.")]
-    same_vae = [k for k in enc if torch.equal(before_vae[k], after_vae[k])]
-    before_head = torch.load(art["decoder"], weights_only=True)
-    after_head = torch.load(out / "decoder" / "pytorch_model.bin",
-                            weights_only=True)
-    head_params = [n for n, _ in state.decoder.named_parameters()]
-    same_head = [k for k in head_params
-                 if torch.equal(before_head[k], after_head[k])]
-    log(f"  parameters changed, {key}: encoder {len(enc) - len(same_vae)}/"
-        f"{len(enc)}, head {len(head_params) - len(same_head)}/"
-        f"{len(head_params)}")
-    assert not same_vae and not same_head, (same_vae[:5], same_head[:5])
-    assert torch.equal(after_vae["decoder.conv_in.weight"], extra), \
-        "the export lost the VAE decoder tensor"
-    return state, out, dict(train_steps=n_train, val_batches=n_val,
-                            cli_wall_s=wall, cli_peak_mem_bytes=cli_peak,
-                            launches=counts, expected_launches=expect,
-                            history=history)
+    dec = [k for k in before_vae if k.startswith("decoder.")]
+    same_enc = [k for k in enc if torch.equal(before_vae[k], after_vae[k])]
+    same_dec = [k for k in dec if torch.equal(before_vae[k], after_vae[k])]
+    said = (f"encoder {len(enc) - len(same_enc)}/{len(enc)}, decoder "
+            f"{len(dec) - len(same_dec)}/{len(dec)}")
+    assert not same_enc, same_enc[:5]
+    if vae_trained:
+        assert not same_dec, same_dec[:5]
+    else:  # no gradient, so AdamW leaves it as loaded
+        assert len(same_dec) == len(dec), "the export changed the decoder"
+    report = dict(train_steps=n_train, val_batches=n_val, cli_wall_s=wall,
+                  cli_peak_mem_bytes=cli_peak, launches=counts,
+                  expected_launches=expect, history=history)
+    if trainer == "train_full":
+        before_head = torch.load(art["decoder"], weights_only=True)
+        after_head = torch.load(out / "decoder" / "pytorch_model.bin",
+                                weights_only=True)
+        head_params = [n for n, _ in state.decoder.named_parameters()]
+        same_head = [k for k in head_params
+                     if torch.equal(before_head[k], after_head[k])]
+        said += (f", head {len(head_params) - len(same_head)}/"
+                 f"{len(head_params)}")
+        assert not same_head, same_head[:5]
+        thresholds = json.loads((out / "optimal_thresholds.json").read_text())
+        overall = json.loads((out / "evaluation_results_overall.json")
+                             .read_text())
+        assert (out / "evaluation_results.csv").exists()
+        assert len(thresholds["per_class_thresholds"]) == art["num_tags"]
+        assert all(np.isfinite(v) for v in overall.values()), overall
+        log(f"  final evaluation, {name}: global threshold "
+            f"{thresholds['global_threshold']:.2f} (macro F1 "
+            f"{thresholds['global_f1']:.4f}), mAP {overall['mAP']:.4f}")
+        report.update(global_threshold=thresholds["global_threshold"],
+                      global_f1=thresholds["global_f1"], mAP=overall["mAP"])
+    if "--use_adaptive_weights" in flags:
+        w = state.adaptive.log_weights.detach()
+        log(f"  adaptive log weights after the epoch: {w.tolist()}")
+        assert torch.isfinite(w).all() and w.abs().max().item() > 0, w
+        report["adaptive_log_weights"] = w.tolist()
+    log(f"  parameters changed, {name}: {said}")
+    return state, out, report
 
 
-def _steady_step(state, batch, dtype, iters, first_index):
+def _steady_step(state, batch, dtype, iters, first_index, steps=None):
     """Mean host-clock time of ``iters`` train steps on one batch after one
-    warm-up step, and the peak device memory over them."""
+    warm-up step, and the peak device memory over them; train_full's
+    simplified-loss steps unless ``steps`` is given."""
     import torch
     from vae_tagger_tpu_torch.losses.combined import LossConfig
     from vae_tagger_tpu_torch.train.steps import FullSteps
 
-    steps = FullSteps(LossConfig(triplet_weight=1.0, use_focal_loss=False),
-                      compute_dtype=dtype, seed=SEED)
+    if steps is None:
+        steps = FullSteps(LossConfig(triplet_weight=1.0,
+                                     use_focal_loss=False),
+                          compute_dtype=dtype, seed=SEED)
     steps.train_step(state, batch, first_index)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2008,8 +2279,8 @@ def phase_training():
         f"with {NUM_TAGS} tags, batch 1 (B={TRAIN_ROWS} stacked), bf16, then "
         f"fp32 (--mixed_precision no)")
     art = _write_artifacts(NUM_TAGS)
-    json_path, extra = _write_training_data(art)
-    state, out, rep16 = _train_cli(art, json_path, extra, "bf16")
+    json_path = _write_training_data(art)
+    state, out, rep16 = _train_cli(art, json_path, "bf16")
 
     eng = TaggerEngine.load(
         vae_checkpoint=str(out / "vae" / "diffusion_pytorch_model.safetensors"),
@@ -2037,7 +2308,7 @@ def phase_training():
     torch.cuda.empty_cache()
 
     # fp32 (--mixed_precision no): D'' and E'' carry the attention backward
-    state32, _, rep32 = _train_cli(art, json_path, extra, "no")
+    state32, _, rep32 = _train_cli(art, json_path, "no")
     iters32 = 4
     step32_s, peak32, steps32 = _steady_step(state32, batch, torch.float32,
                                              iters32, 3000)
@@ -2068,8 +2339,7 @@ def phase_training():
     torch.cuda.empty_cache()
 
     gate = _gradient_gate(art, batch)
-    shutil.rmtree(WORK, ignore_errors=True)
-    return dict(rep16, step_s_bf16=step_s,
+    report = dict(rep16, step_s_bf16=step_s,
                 images_per_s_bf16=TRAIN_ROWS / step_s,
                 step_peak_mem_bytes=peak, profiled_step_ms=total_ms,
                 device_ms_by_kernel=by_kernel, top_kernels=top,
@@ -2081,6 +2351,288 @@ def phase_training():
                           device_ms_by_kernel=by_kernel32,
                           top_kernels=top32),
                 gradient_gate=gate)
+    return report, art, json_path, out, batch
+
+
+def phase_decode_gate(art):
+    """One decode of a 1024px latent (batch 1) through
+    ``AutoencoderKL.decode``, the seeded full-width VAE with its decoder:
+    the exact launches (A 2, stats 28, B 28, C 1), the fp32 kernel path
+    against the plain fp32 path (MSE < 1e-10, the encoder's gate), the
+    bf16 kernel path against the plain fp32 path within 4x the plain bf16
+    path's own MSE; the decode's time in both dtypes (CUDA events)."""
+    import torch
+    from vae_tagger_tpu_torch.io.checkpoints import load_vae
+    from vae_tagger_tpu_torch.ops import backend
+
+    log(f"decode gate: AutoencoderKL.decode of one {RES}px latent, fp32 and "
+        f"bf16, kernel path against the plain path")
+    vae = load_vae(art["vae"], art["config"], with_decoder=True).to(DEVICE).eval()
+    z = torch.randn(1, RES // 8, RES // 8, 16,
+                    generator=torch.Generator().manual_seed(SEED + 6)).to(DEVICE)
+    out, recs = {}, {}
+    with torch.inference_mode():
+        for key, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            torch.cuda.synchronize()
+            backend.reset_launch_counts()
+            recs[key] = vae.decode(z, dt)
+            torch.cuda.synchronize()
+            counts = backend.launch_counts()
+            assert counts == _expected(DECODE_LAUNCHES[key], 1), counts
+            out[f"launches_{key}"] = counts
+            out[f"ms_{key}"] = time_ms(lambda dt=dt: vae.decode(z, dt))
+        with backend.backend("torch"):
+            ref = vae.decode(z)
+            ref16 = vae.decode(z, torch.bfloat16)
+            out["plain_ms_fp32"] = time_ms(lambda: vae.decode(z))
+    assert recs["fp32"].shape == (1, RES, RES, 3)
+    mse = ((recs["fp32"] - ref) ** 2).mean().item()
+    mse16 = ((recs["bf16"] - ref) ** 2).mean().item()
+    mse16_t = ((ref16 - ref) ** 2).mean().item()
+    log(f"  decode fp32: kernel vs plain MSE {mse:.3e} (gate 1e-10); bf16 "
+        f"kernel vs fp32 plain {mse16:.3e}, plain bf16's own {mse16_t:.3e} "
+        f"(gate 4x); {out['ms_fp32']:.2f} ms fp32 (plain "
+        f"{out['plain_ms_fp32']:.2f}), {out['ms_bf16']:.2f} ms bf16 a "
+        f"decode")
+    assert all(torch.isfinite(r).all() for r in recs.values())
+    assert mse < 1e-10 and mse16 <= 4 * mse16_t, (mse, mse16, mse16_t)
+    del vae, recs, ref, ref16
+    torch.cuda.empty_cache()
+    return dict(out, mse_fp32_kernel_vs_plain=mse,
+                mse_bf16_kernel_vs_fp32_plain=mse16,
+                mse_bf16_plain_vs_fp32_plain=mse16_t)
+
+
+def _vae_gradient_gate(art, batch):
+    """One fp32 train_vae batch with the KL optimized, the same weights
+    and generators, through the kernel path and the torch backend: the
+    loss, and every parameter's gradient, encoder and decoder, within 1e-3
+    relative, or absolute where the torch path's norm is below
+    ZERO_GRAD_NORM (as _gradient_gate); exact launches of the kernel
+    path."""
+    import torch
+    from vae_tagger_tpu_torch.io.checkpoints import load_vae
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.train.state import TrainState
+    from vae_tagger_tpu_torch.train.steps import (
+        VaeSteps,
+        batch_to_device,
+        step_generators,
+    )
+
+    dev = torch.device(DEVICE)
+    vae = load_vae(art["vae"], art["config"], with_decoder=True).to(dev)
+    state = TrainState(vae=vae, decoder=None, optimizer=None)
+    steps = VaeSteps(LossConfig(reconstruction_weight=0.01, kl_weight=1e-2,
+                                triplet_weight=1.0), use_simplified=False,
+                     compute_dtype=torch.float32, seed=SEED)
+    dev_batch = batch_to_device(batch, dev)
+    params = list(vae.named_parameters())
+    grads, losses = {}, {}
+    for be in ("kernel", "torch"):
+        vae.zero_grad(set_to_none=True)
+        backend.reset_launch_counts()
+        g, g_recon = step_generators(dev, SEED, 7)
+        with backend.backend(be):
+            total, _, _ = steps.forward_losses(state, dev_batch, g,
+                                               train=True,
+                                               recon_generator=g_recon)
+            total.backward()
+        torch.cuda.synchronize()
+        if be == "kernel":
+            launches = backend.launch_counts()
+            expect = _expected(VAE_STEP_LAUNCHES["fp32"], 1)
+            assert launches == expect, (launches, expect)
+        losses[be] = total.item()
+        missing = [n for n, p in params if p.grad is None]
+        assert not missing, f"{be} path: no gradient for {missing[:5]}"
+        grads[be] = {n: p.grad.detach().clone() for n, p in params}
+    worst, errs, absolute = ("", 0.0, 0.0), [], {}
+    for n, _ in params:
+        gt, gk = grads["torch"][n], grads["kernel"][n]
+        diff, norm = (gk - gt).norm().item(), gt.norm().item()
+        err = diff if norm < ZERO_GRAD_NORM else diff / norm
+        if norm < ZERO_GRAD_NORM:
+            absolute[n] = (norm, diff)
+        errs.append(err)
+        if err >= worst[1]:
+            worst = (n, err, norm)
+    log(f"  train_vae gradient gate (fp32, {len(params)} parameters, "
+        f"{sum(n.startswith('decoder.') for n, _ in params)} of the "
+        f"decoder): loss kernel {losses['kernel']:.6f} vs torch "
+        f"{losses['torch']:.6f}; worst {worst[0]} {worst[1]:.3e} (torch-path "
+        f"norm {worst[2]:.3e}; gate 1e-3); median "
+        f"{sorted(errs)[len(errs) // 2]:.3e}; compared absolutely: "
+        f"{ {k: f'{a:.2e}/{b:.2e}' for k, (a, b) in absolute.items()} }")
+    assert all(e <= 1e-3 for e in errs), worst
+    assert abs(losses["kernel"] - losses["torch"]) <= 1e-4 * abs(
+        losses["torch"]), losses
+    del grads, state, vae
+    torch.cuda.empty_cache()
+    return dict(parameters=len(params), launches=launches,
+                expected_launches=expect, worst_param=worst[0],
+                worst_err=worst[1], worst_param_grad_norm=worst[2],
+                median_err=sorted(errs)[len(errs) // 2], losses=losses,
+                compared_absolutely={k: dict(torch_norm=a, diff_norm=b)
+                                     for k, (a, b) in absolute.items()})
+
+
+def phase_train_vae(art, json_path, batch):
+    """``python -m vae_tagger_tpu_torch.train.train_vae`` for one epoch
+    at 1024px, batch 1, in bf16 and then in fp32 (``--mixed_precision
+    no``), each checked by _train_cli (exact launches: per step A 4, stats
+    48, B 48, C 2, D 2, E 4); the bf16 export reloads and decodes; steady
+    step time, images/s and peak memory, and one profiled step by kernel,
+    in both dtypes; then the fp32 gradient gate over every parameter."""
+    import torch
+    from vae_tagger_tpu_torch.io.checkpoints import load_vae
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.train.steps import VaeSteps
+
+    log(f"train_vae path: python -m vae_tagger_tpu_torch.train.train_vae, "
+        f"full FLUX VAE with its decoder, {N_IMAGES} seeded {RES}px images, "
+        f"batch 1 (B={TRAIN_ROWS} stacked encode, the anchor decoded), "
+        f"bf16, then fp32")
+    cfg = LossConfig(reconstruction_weight=0.01, kl_weight=1e-2,
+                     triplet_weight=1.0)
+    report = {}
+    for precision, dt, iters in (("bf16", torch.bfloat16, 5),
+                                 ("no", torch.float32, 3)):
+        key = "bf16" if precision == "bf16" else "fp32"
+        state, out, rep = _train_cli(art, json_path, precision, "train_vae")
+        if key == "bf16":
+            vae = load_vae(str(out / "vae" /
+                               "diffusion_pytorch_model.safetensors"),
+                           str(out / "vae" / "config.json"),
+                           with_decoder=True).to(DEVICE).eval()
+            z = torch.randn(1, RES // 8, RES // 8, 16, device=DEVICE)
+            with torch.inference_mode():
+                rec = vae.decode(z, torch.bfloat16)
+            assert rec.shape == (1, RES, RES, 3) and torch.isfinite(
+                rec).all()
+            log("  the bf16 export reloads with its decoder and decodes")
+            del vae, rec
+        steps = VaeSteps(cfg, compute_dtype=dt, seed=SEED)
+        step_s, peak, steps = _steady_step(state, batch, dt, iters,
+                                           6000 + 1000 * iters, steps)
+        log(f"  steady train_vae step, {key}: {step_s * 1e3:.1f} ms, "
+            f"{TRAIN_ROWS / step_s:.3f} images/s ({TRAIN_ROWS} encoded, 1 "
+            f"decoded per step; host clock, {iters} steps), peak device "
+            f"memory {peak / 2**30:.2f} GiB")
+        total_ms, by_kernel, top = _profiled_step(steps, state, batch,
+                                                  9000 + iters)
+        report[key] = dict(rep, step_s=step_s,
+                           images_per_s=TRAIN_ROWS / step_s,
+                           step_peak_mem_bytes=peak,
+                           profiled_step_ms=total_ms,
+                           device_ms_by_kernel=by_kernel, top_kernels=top)
+        del state, steps
+        torch.cuda.empty_cache()
+    report["gradient_gate"] = _vae_gradient_gate(art, batch)
+    return report
+
+
+def phase_full_loss(art, json_path):
+    """``train_full --no_simplified_loss --use_adaptive_weights`` for one
+    epoch in bf16 (checked by _train_cli: exact launches, finite losses,
+    the decoder trained, the adaptive weights moved, the final phase's
+    files), with its steady step time."""
+    import torch
+
+    log("full-loss train_full: --no_simplified_loss --use_adaptive_weights, "
+        "one epoch in bf16, then the final threshold search and evaluation")
+    state, out, rep = _train_cli(
+        art, json_path, "bf16", "train_full",
+        ("--no_simplified_loss", "--use_adaptive_weights"))
+    del state
+    torch.cuda.empty_cache()
+    return rep, out
+
+
+def phase_eval_and_latents(art, json_path, train_out):
+    """``python -m vae_tagger_tpu_torch.eval`` on train_full's bf16
+    exports over the 8 images (default fp32, batch 4), and ``python -m
+    vae_tagger_tpu_torch.infer.latents`` on them (fp32, npz): exact
+    launches (two encode batches each), the evaluation's files, and the
+    latents against the engine's encode_scaled mode on the plain path
+    (MSE < 1e-10, the fp32 gate)."""
+    import numpy as np
+    import torch
+    from vae_tagger_tpu_torch.eval.__main__ import main as eval_main
+    from vae_tagger_tpu_torch.infer.engine import VAEOnlyEngine
+    from vae_tagger_tpu_torch.infer.latents import (
+        flatten_latent_torch_order,
+    )
+    from vae_tagger_tpu_torch.infer.latents import main as latents_main
+    from vae_tagger_tpu_torch.infer.pipeline import iter_image_batches
+    from vae_tagger_tpu_torch.data.paths import get_image_paths
+    from vae_tagger_tpu_torch.ops import backend
+
+    log("evaluation and latent extraction: python -m "
+        "vae_tagger_tpu_torch.eval and python -m "
+        "vae_tagger_tpu_torch.infer.latents, fp32, batch 4")
+    n_batches = -(-N_IMAGES // BATCH)
+    out = {}
+    eval_dir = WORK / "eval_out"
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    mets = eval_main([
+        "--vae_checkpoint",
+        str(train_out / "best_vae" / "diffusion_pytorch_model.safetensors"),
+        "--vae_config_path", str(train_out / "best_vae" / "config.json"),
+        "--decoder_checkpoint",
+        str(train_out / "best_decoder" / "pytorch_model.bin"),
+        "--json_path", json_path, "--tags_csv_path", art["tags"],
+        "--output_dir", str(eval_dir), "--resolution", str(RES),
+        "--batch_size", str(BATCH), "--num_workers", "4",
+        "--device", DEVICE])
+    torch.cuda.synchronize()
+    counts = backend.launch_counts()
+    assert counts == _expected(ENCODE_LAUNCHES["fp32"], n_batches), counts
+    for f in ("optimal_thresholds.json", "evaluation_results.csv",
+              "evaluation_results_overall.json"):
+        assert (eval_dir / f).exists(), f
+    assert np.isfinite(mets["f1_macro"]) and np.isfinite(mets["mAP"])
+    log(f"  eval CLI: {time.perf_counter() - t0:.2f} s, macro F1 "
+        f"{mets['f1_macro']:.4f} at threshold {mets['threshold']:.2f}, mAP "
+        f"{mets['mAP']:.4f}; launches {counts}")
+    out["eval"] = dict(launches=counts, f1_macro=mets["f1_macro"],
+                       mAP=mets["mAP"], threshold=mets["threshold"])
+
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = latents_main([
+        "--vae_checkpoint", art["vae"], "--vae_config_path", art["config"],
+        "--image_path", art["images"], "--output_dir",
+        str(WORK / "latents_out"), "--resolution", str(RES),
+        "--batch_size", str(BATCH), "--num_workers", "4",
+        "--output_format", "npz", "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = backend.launch_counts()
+    assert counts == _expected(ENCODE_LAUNCHES["fp32"], n_batches), counts
+    on_disk = dict(np.load(WORK / "latents_out" / "latent_vectors.npz"))
+    paths = [str(p) for p in get_image_paths(art["images"])]
+    assert sorted(on_disk) == sorted(got) == sorted(paths)
+    eng = VAEOnlyEngine.load(art["vae"], art["config"], device=DEVICE)
+    assert eng.vae.decoder is None
+    errs = []
+    with backend.backend("torch"):
+        for _, batch_paths, block in iter_image_batches(paths, RES, BATCH,
+                                                        4, 1):
+            for p, z in zip(batch_paths, eng.encode(block)):
+                ref = flatten_latent_torch_order(z)
+                errs.append(float(np.mean((on_disk[p] - ref) ** 2)))
+    log(f"  latents CLI: {N_IMAGES} images in {wall:.2f} s; latents vs the "
+        f"engine's plain-path encode_scaled mode: worst MSE {max(errs):.3e} "
+        f"(gate 1e-10); launches {counts}")
+    assert len(errs) == N_IMAGES and max(errs) < 1e-10, errs
+    del eng
+    torch.cuda.empty_cache()
+    out["latents"] = dict(launches=counts, wall_s=wall,
+                          worst_mse_vs_plain=max(errs))
+    return out
 
 
 def main():
@@ -2113,13 +2665,22 @@ def main():
         phase_stats_sites(g, results)
         torch.cuda.empty_cache()
         phase_kernel_c(g, results)
+        torch.cuda.empty_cache()
+        phase_decoder_kernels(g, results)
     torch.cuda.empty_cache()
     with torch.no_grad():
         phase_kernel_de(g, results)
     report["autograd"] = phase_autograd(g)
     torch.cuda.empty_cache()
     report["main_path"] = phase_main_path()
-    report["training"] = phase_training()
+    report["training"], art, json_path, train_out, batch = phase_training()
+    torch.cuda.empty_cache()
+    report["decode"] = phase_decode_gate(art)
+    report["train_vae"] = phase_train_vae(art, json_path, batch)
+    report["full_loss"], _ = phase_full_loss(art, json_path)
+    report["eval_latents"] = phase_eval_and_latents(art, json_path,
+                                                    train_out)
+    shutil.rmtree(WORK, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_device_breakdown(results)
     report["kernels"] = results
@@ -2135,7 +2696,17 @@ def main():
                "infer_fp32": report["main_path"]["launches_cli_fp32"],
                "infer_fp32_engine": report["main_path"]["launches_fp32"],
                "grad_gate_fp32":
-                   report["training"]["gradient_gate"]["launches"]}
+                   report["training"]["gradient_gate"]["launches"],
+               "decode_bf16": report["decode"]["launches_bf16"],
+               "decode_fp32": report["decode"]["launches_fp32"],
+               "train_vae_bf16": report["train_vae"]["bf16"]["launches"],
+               "train_vae_fp32": report["train_vae"]["fp32"]["launches"],
+               "train_vae_grad_gate_fp32":
+                   report["train_vae"]["gradient_gate"]["launches"],
+               "train_full_full_loss_bf16": report["full_loss"]["launches"],
+               "eval_fp32": report["eval_latents"]["eval"]["launches"],
+               "latents_fp32":
+                   report["eval_latents"]["latents"]["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -2161,7 +2732,9 @@ def main():
                                  "plain_max_rel_err_fp64", "ms_fp32",
                                  "plain_ms_fp32", "library_ms_fp32",
                                  "bound_ms_fp32", "pr1_ms", "pr1_ms_fp32")
-               if k in r}))
+               if k in r},
+            **({"decoder": {k: v for k, v in r["decoder"].items()
+                            if k != "cases"}} if "decoder" in r else {})))
     report["kernel_line"] = kernels
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -176,6 +176,12 @@ def test_group_norm_kernel_repeats_bit_for_bit(gen):
     (2, 3, 130, 96, 256, "plain"),
     # three channel chunks (the last partial), two output-channel tiles
     (1, 4, 66, 136, 512, "shortcut"),
+    # the decoder's: Cin > Cout (conv1 512->256, 256->128), and the 1x1
+    # shortcut from more residual channels than output channels
+    (1, 5, 70, 512, 256, "plain"),
+    (1, 6, 66, 256, 128, "plain"),
+    (1, 4, 70, 512, 256, "shortcut"),
+    (1, 6, 66, 256, 128, "shortcut"),
 ])
 def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
     groups = 8
@@ -451,6 +457,77 @@ def test_encoder_kernel_path_matches_plain_path(gen):
         "flash_attention_fwd_tf32x3"] == 1 and counts["group_norm_silu"] == 2
     assert counts["gn_silu_conv3x3"] == 0 and counts["flash_attention_fwd"] == 0
     assert float(((lat_k - lat_t) ** 2).mean()) < 1e-10
+
+
+def _narrow_vae(seed):
+    """A narrow VAE with its decoder: the last block 512 wide (the
+    attention's head width), 8 groups."""
+    cfg = default_flux_vae_config(block_out_channels=(32, 32, 64, 512),
+                                  norm_num_groups=8, latent_channels=16)
+    return seeded_init_(AutoencoderKL(cfg, with_decoder=True), seed).cuda()
+
+
+def test_decoder_kernel_path_matches_plain_path(gen):
+    """The decoder through every kernel on the card: 14 ResnetBlocks (28
+    fused convs, each with its stats pass), the mid-block attention and
+    two GroupNorms; fp32 reconstruction of the kernel path against the
+    plain path (MSE < 1e-10, the encoder's gate), bf16 within 4x the plain
+    bf16 path's own MSE."""
+    vae = _narrow_vae(4).eval()
+    z = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(1, 8, 8, 16)).astype(np.float32)).cuda()
+    backend.reset_launch_counts()
+    with torch.inference_mode():
+        rec_k = vae.decode(z)
+        counts = backend.launch_counts()
+        rec_k16 = vae.decode(z, torch.bfloat16)
+        with backend.backend("torch"):
+            rec_t = vae.decode(z)
+            rec_t16 = vae.decode(z, torch.bfloat16)
+    assert counts["gn_silu_conv3x3_tf32x3"] == 28
+    assert counts["group_stats"] == 28 and counts["group_norm_silu"] == 2
+    assert counts["flash_attention_fwd_tf32x3"] == 1
+    assert rec_k.shape == (1, 64, 64, 3)
+    assert float(((rec_k - rec_t) ** 2).mean()) < 1e-10
+    mse16 = float(((rec_k16 - rec_t) ** 2).mean())
+    assert mse16 <= 4 * float(((rec_t16 - rec_t) ** 2).mean())
+
+
+def test_vae_step_gradients_match_torch_backend(gen):
+    """One fp32 train_vae step's loss and gradients, every encoder and
+    decoder parameter, kernel path against the torch backend (relative
+    1e-3, as chip_smoke.py's gate; absolute where the torch path's norm is
+    below 1e-8, the structurally zero key-projection bias)."""
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.train.state import TrainState
+    from vae_tagger_tpu_torch.train.steps import (
+        VaeSteps,
+        batch_to_device,
+        step_generators,
+    )
+
+    vae = _narrow_vae(5).train()
+    rng = np.random.default_rng(2)
+    batch = {k: rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+             for k in ("anchor", "positive", "negative")}
+    batch["labels"] = batch["positive_labels"] = np.ones((1, 4), np.float32)
+    batch = batch_to_device(batch, torch.device("cuda"))
+    steps = VaeSteps(LossConfig(reconstruction_weight=1.0),
+                     use_simplified=False)
+    state = TrainState(vae=vae, decoder=None, optimizer=None)
+    grads = {}
+    for be in ("kernel", "torch"):
+        vae.zero_grad(set_to_none=True)
+        g, g_recon = step_generators(torch.device("cuda"), 0, 3)
+        with backend.backend(be):
+            total, _, _ = steps.forward_losses(state, batch, g, train=True,
+                                               recon_generator=g_recon)
+            total.backward()
+        grads[be] = {n: p.grad.clone() for n, p in vae.named_parameters()}
+    assert any(n.startswith("decoder.") for n in grads["kernel"])
+    for n, gt in grads["torch"].items():
+        diff, norm = (grads["kernel"][n] - gt).norm().item(), gt.norm().item()
+        assert (diff / norm if norm >= 1e-8 else diff) <= 1e-3, n
 
 
 def test_tf32x3_repeats_bit_for_bit(gen):

@@ -1,6 +1,7 @@
-"""Argument groups of the trainer CLI (the port's copy of the builders in
-``vae_tagger_tpu/core/cli.py`` that ``scripts/train_full.py`` uses), plus
-``--device``.
+"""Argument groups of the port's CLIs (the port's copy of the functions in
+``vae_tagger_tpu/core/cli.py`` that ``scripts/train_full.py``,
+``scripts/train_vae.py`` and ``scripts/evaluate.py`` use, and the loss
+flags of ``scripts/train_vae.py``), plus ``--device``.
 
 The reference's quirks are kept: ``--use_attention`` and its two
 sub-flags are store_true with default True (``--no_attention`` turns the
@@ -113,13 +114,30 @@ def add_loss_args(p: argparse.ArgumentParser):
     p.add_argument("--triplet_margin", type=float, default=1.0)
     p.add_argument("--use_simplified_loss", action="store_true", default=True)
     p.add_argument("--no_simplified_loss", action="store_true",
-                   help="the full combined loss (not ported yet: refused)")
+                   help="the full combined loss: + reconstruction (VAE "
+                   "decoder) + log-damped KL")
     p.add_argument("--use_focal_loss", action="store_true")
     p.add_argument("--use_class_balanced", action="store_true")
     p.add_argument("--use_adaptive_weights", action="store_true",
-                   help="learnable loss weights (not ported yet: refused)")
+                   help="learnable loss weights, trained jointly (with "
+                   "--no_simplified_loss)")
     p.add_argument("--focal_alpha", type=float, default=1.0)
     p.add_argument("--focal_gamma", type=float, default=2.0)
+    p.add_argument("--similarity_type", type=str, default="cosine",
+                   choices=["cosine", "euclidean"])
+
+
+def add_vae_loss_args(p: argparse.ArgumentParser):
+    """The loss flags of ``scripts/train_vae.py`` (its --kl_weight default
+    is 1e-2, train_full's 1e-7)."""
+    p.add_argument("--use_simplified_vae_loss", action="store_true",
+                   default=True,
+                   help="simplified VAE loss (recon + triplet; KL monitored "
+                   "only)")
+    p.add_argument("--reconstruction_weight", type=float, default=0.01)
+    p.add_argument("--kl_weight", type=float, default=1e-2)
+    p.add_argument("--triplet_weight", type=float, default=1.0)
+    p.add_argument("--triplet_margin", type=float, default=1.0)
     p.add_argument("--similarity_type", type=str, default="cosine",
                    choices=["cosine", "euclidean"])
 
@@ -130,9 +148,7 @@ def refuse_unported(args) -> None:
         ("--use_bucketing", getattr(args, "use_bucketing", False)),
         ("--transfer_format yuv420",
          getattr(args, "transfer_format", "rgb") != "rgb"),
-        ("--no_simplified_loss", getattr(args, "no_simplified_loss", False)),
-        ("--use_adaptive_weights",
-         getattr(args, "use_adaptive_weights", False)),
+        ("--tiled", getattr(args, "tiled", False)),
         ("--spatial_parallel", getattr(args, "spatial_parallel", False)),
         ("--profile_steps", bool(getattr(args, "profile_steps", 0))),
     ) if on]

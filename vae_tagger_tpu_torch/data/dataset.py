@@ -57,14 +57,15 @@ def parse_weighted_tags(prompt: str, tag_to_idx: Dict[str, int],
 
 
 class TaggedImageDataset:
-    """Map-style dataset of mined triplets; ``__getitem__`` returns a dict
-    of numpy arrays: anchor/positive/negative (HWC uint8) and labels/
-    positive_labels/negative_labels (float32 vectors).  The classification
-    form (``pixel_values``) waits for ``train_decoder``."""
+    """Map-style dataset; ``__getitem__`` returns a dict of numpy arrays:
+    with ``return_triplets`` (the trainers) the mined triplet anchor/
+    positive/negative (HWC uint8) and labels/positive_labels/
+    negative_labels (float32 vectors), else the classification form,
+    ``pixel_values`` and ``labels`` (evaluation)."""
 
     def __init__(self, json_path: str, tags_csv_path: str,
                  resolution: int = 512, max_candidates: int = 100,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, return_triplets: bool = True):
         with open(json_path, "r", encoding="utf-8") as f:
             self.data = json.load(f)
         self.tags = load_tag_names(tags_csv_path)
@@ -72,6 +73,7 @@ class TaggedImageDataset:
         self.image_paths: List[str] = list(self.data.keys())
         self.resolution = resolution
         self.max_candidates = max_candidates
+        self.return_triplets = return_triplets
         self._seed = seed if seed is not None else 0
         self.epoch = 0
         self.labels_matrix = np.stack([
@@ -140,6 +142,9 @@ class TaggedImageDataset:
 
     def __getitem__(self, idx: int) -> dict:
         anchor = self._load(idx)
+        if not self.return_triplets:
+            return {"labels": self.labels_matrix[idx], "index": idx,
+                    "pixel_values": anchor}
         pos_idx, neg_idx = self._mine_triplet(idx)
         return {
             "labels": self.labels_matrix[idx], "index": idx,

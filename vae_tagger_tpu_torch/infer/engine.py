@@ -8,8 +8,12 @@ tagger head -> sigmoid, under ``torch.inference_mode()``.
 
 - The host->device copy of a uint8 batch is non-blocking, from pinned
   memory, on the current stream.
-- :meth:`TaggerEngine.classify_async` returns the device tensor without
+- :meth:`TaggerEngine.classify_async` and
+  :meth:`VAEOnlyEngine.encode_async` return the device tensor without
   synchronizing, so the caller can format the previous batch meanwhile.
+- :class:`VAEOnlyEngine`, the base of :class:`TaggerEngine`, holds the
+  encode half of the VAE alone (latent extraction); neither loads the VAE
+  decoder onto the card.
 - The VAE runs in the policy's compute dtype (bf16 with mixed precision);
   the tagger head, a small fraction of the work, runs in fp32.
 
@@ -51,15 +55,59 @@ def build_decoder(num_classes: int, use_attention: bool = True,
     return seeded_init_(head, seed)
 
 
-class TaggerEngine:
-    """VAE + tagger head on one device."""
+class VAEOnlyEngine:
+    """The encode half of the VAE on one device: uint8 pixels -> scaled
+    posterior-mode latents (latent extraction, and the base of
+    :class:`TaggerEngine`).  The VAE decoder is not loaded."""
 
-    def __init__(self, vae: AutoencoderKL, decoder: torch.nn.Module,
-                 tag_names: list, policy: Policy = Policy(),
+    def __init__(self, vae: AutoencoderKL, policy: Policy = Policy(),
                  device=None):
         self.device = resolve_device(device)
         self.policy = policy
         self.vae = vae.to(self.device).eval()
+
+    @classmethod
+    def load(cls, vae_checkpoint: str,
+             vae_config_path: Optional[str] = None,
+             mixed_precision: Optional[str] = None,
+             device=None) -> "VAEOnlyEngine":
+        device = resolve_device(device)
+        return cls(load_vae(vae_checkpoint, vae_config_path),
+                   resolve_mixed_precision(mixed_precision), device)
+
+    def _place(self, pixels_uint8) -> torch.Tensor:
+        """Host uint8 batch -> device tensor (pinned, non-blocking)."""
+        arr = np.ascontiguousarray(pixels_uint8)
+        if not arr.flags.writeable:
+            arr = arr.copy()
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _encode(self, px: torch.Tensor) -> torch.Tensor:
+        x = normalize_uint8(px, self.policy.compute_dtype)
+        return encode_scaled(self.vae.encode(x).mode(), self.vae.config)
+
+    def encode_async(self, pixels_uint8: np.ndarray):
+        """Dispatch without synchronizing: (device latents, real count)."""
+        with torch.inference_mode():
+            latents = self._encode(self._place(pixels_uint8))
+        return latents, len(pixels_uint8)
+
+    def encode(self, pixels_uint8: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) uint8 -> (B, h, w, C) scaled/shifted latents."""
+        latents, _ = self.encode_async(pixels_uint8)
+        return latents.float().cpu().numpy()
+
+
+class TaggerEngine(VAEOnlyEngine):
+    """VAE encoder + tagger head on one device."""
+
+    def __init__(self, vae: AutoencoderKL, decoder: torch.nn.Module,
+                 tag_names: list, policy: Policy = Policy(),
+                 device=None):
+        super().__init__(vae, policy, device)
         self.decoder = decoder.to(self.device).eval()
         self.tag_names = tag_names
 
@@ -82,32 +130,10 @@ class TaggerEngine:
         load_decoder(decoder, decoder_checkpoint)
         return cls(vae, decoder, tag_names, policy, device)
 
-    # -- device forwards ------------------------------------------------------
-    def _place(self, pixels_uint8) -> torch.Tensor:
-        """Host uint8 batch -> device tensor (pinned, non-blocking)."""
-        arr = np.ascontiguousarray(pixels_uint8)
-        if not arr.flags.writeable:
-            arr = arr.copy()
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
-
-    def _encode(self, px: torch.Tensor) -> torch.Tensor:
-        x = normalize_uint8(px, self.policy.compute_dtype)
-        return encode_scaled(self.vae.encode(x).mode(), self.vae.config)
-
     def _encode_classify(self, px: torch.Tensor):
         latents = self._encode(px)
         probs = torch.sigmoid(self.decoder(latents.float()).float())
         return latents, probs
-
-    # -- public API -----------------------------------------------------------
-    def encode(self, pixels_uint8: np.ndarray) -> np.ndarray:
-        """(B, H, W, 3) uint8 -> (B, h, w, C) scaled/shifted latents."""
-        with torch.inference_mode():
-            latents = self._encode(self._place(pixels_uint8))
-        return latents.float().cpu().numpy()
 
     def classify_async(self, pixels_uint8: np.ndarray):
         """Dispatch without synchronizing: (device_probs, real_count)."""

@@ -2,7 +2,6 @@ from .checkpoints import (
     load_decoder,
     load_state_file,
     load_vae,
-    passthrough_vae_tensors,
     restore_train_state,
     save_decoder_bin,
     save_train_state,
@@ -14,7 +13,6 @@ __all__ = [
     "load_decoder",
     "load_state_file",
     "load_vae",
-    "passthrough_vae_tensors",
     "restore_train_state",
     "save_decoder_bin",
     "save_train_state",

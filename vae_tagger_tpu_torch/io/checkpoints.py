@@ -5,15 +5,17 @@
   ``AutoencoderKL`` with ``load_state_dict(strict=False)`` and a key-diff
   report, as the reference loads them.  The port's modules carry the
   diffusers key names, so no key is renamed and no weight transposed.
+  With ``with_decoder`` the model holds the decoder and loads
+  ``decoder.*`` and ``post_quant_conv.*`` too; without it (the tagging
+  engine, latent extraction) those keys are skipped.
 - :func:`load_decoder`: a tagger head's ``pytorch_model.bin``, BatchNorm
   running stats included.
-- :func:`passthrough_vae_tensors` and :func:`save_vae_pretrained`: the
-  port's VAE has no decoder, so a trainer keeps the checkpoint's
-  ``decoder.*`` and ``post_quant_conv.*`` tensors aside, unchanged, and the
-  export writes them back beside the trained encoder: a whole diffusers
-  VAE.  (The JAX package decays those untrained tensors by (1 - lr*wd)
-  each step; the port leaves them as they are, as the reference's torch
-  AdamW skips parameters without a gradient.)
+- :func:`save_vae_pretrained`: diffusers ``save_pretrained``-style export
+  of the model's own tensors.  Under the simplified loss the VAE decoder
+  gets no gradient, and AdamW leaves a parameter whose ``.grad`` is None as
+  it was, as the reference's torch AdamW does: the export writes the
+  loaded decoder back unchanged.  (The JAX package's optax decays those
+  untrained tensors by (1 - lr*wd) each step.)
 - :func:`save_train_state` / :func:`restore_train_state`: the whole train
   state in one ``torch.save`` file (the JAX package's orbax checkpoint).
 - :func:`torch_state_from_jax_params`: a JAX parameter tree of numpy arrays
@@ -50,8 +52,8 @@ _INDEXED_NAMES = (
     "classifier", "channel_att", "spatial_att", "feature_compress",
 )
 _BN_LEAVES = {"mean": "running_mean", "var": "running_var"}
-# keys of a full diffusers VAE checkpoint that the encode path never reads
-_UNUSED_PREFIXES = ("decoder.", "post_quant_conv.")
+# keys of a full diffusers VAE checkpoint that only the decoder reads
+_DECODER_PREFIXES = ("decoder.", "post_quant_conv.")
 
 
 def _torch_key(path: Tuple[str, ...], leaf: str) -> str:
@@ -146,9 +148,10 @@ def load_vae(vae_checkpoint: Optional[str],
              require_checkpoint: bool = True,
              resolution: Optional[int] = None, remat: bool = False,
              use_quant_conv: bool = False,
-             use_post_quant_conv: bool = False):
-    """The port's ``AutoencoderKL`` (CPU, fp32): the config JSON if given,
-    else the FLUX config (``sample_size`` = ``resolution`` when given);
+             use_post_quant_conv: bool = False, with_decoder: bool = False):
+    """The port's ``AutoencoderKL`` (CPU, fp32), with its decoder when
+    ``with_decoder``: the config JSON if given, else the FLUX config
+    (``sample_size`` = ``resolution`` when given);
     ``use_quant_conv``/``use_post_quant_conv`` force the SD-style quant
     convs on.  Weights come from a diffusers-layout checkpoint; keys it
     lacks keep a seeded fresh initialization (strict=False).  Without a
@@ -170,13 +173,14 @@ def load_vae(vae_checkpoint: Optional[str],
     if use_quant_conv or use_post_quant_conv:
         config = dataclasses.replace(config, use_quant_conv=use_quant_conv,
                                      use_post_quant_conv=use_post_quant_conv)
-    model = seeded_init_(AutoencoderKL(config, remat=remat))
+    model = seeded_init_(AutoencoderKL(config, remat=remat,
+                                       with_decoder=with_decoder))
     if not have:
         print("no VAE checkpoint: training from a fresh initialization")
         return model
     print(f"loading pretrained VAE weights: {vae_checkpoint}")
     state = {k: v for k, v in load_state_file(vae_checkpoint).items()
-             if not k.startswith(_UNUSED_PREFIXES)}
+             if with_decoder or not k.startswith(_DECODER_PREFIXES)}
     missing, _ = load_state_report(model, state, label="VAE ")
     warn_if_quant_convs_missing(missing)
     if missing:
@@ -194,30 +198,19 @@ def load_decoder(decoder: torch.nn.Module, path: str) -> torch.nn.Module:
     return decoder
 
 
-def passthrough_vae_tensors(vae_checkpoint: str) -> Dict[str, torch.Tensor]:
-    """The tensors of a diffusers VAE checkpoint that the port's encode-only
-    VAE does not hold (``decoder.*``, ``post_quant_conv.*``), unchanged."""
-    return {k: v for k, v in load_state_file(vae_checkpoint).items()
-            if k.startswith(_UNUSED_PREFIXES)}
-
-
 def save_vae_pretrained(model: torch.nn.Module, config: VAEConfig,
-                        output_dir: str,
-                        passthrough: Optional[Dict[str, torch.Tensor]] = None
-                        ) -> None:
+                        output_dir: str) -> None:
     """Diffusers ``save_pretrained``-style export of the port's VAE:
-    ``config.json`` + ``diffusion_pytorch_model.safetensors``, with the
-    ``passthrough`` tensors (:func:`passthrough_vae_tensors`) written back
-    unchanged."""
+    ``config.json`` + ``diffusion_pytorch_model.safetensors`` of the
+    model's own tensors, in fp32."""
     from safetensors.torch import save_file
 
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "config.json"), "w",
               encoding="utf-8") as f:
         json.dump(config.to_json_dict(), f, indent=2)
-    state = {k: v.contiguous() for k, v in (passthrough or {}).items()}
-    state.update({k: v.detach().float().cpu().contiguous()
-                  for k, v in model.state_dict().items()})
+    state = {k: v.detach().float().cpu().contiguous()
+             for k, v in model.state_dict().items()}
     save_file(state, os.path.join(output_dir,
                                   "diffusion_pytorch_model.safetensors"))
 

@@ -1,9 +1,15 @@
-"""Combined training loss of the simplified path (the port's copy of
-``LossConfig``, ``classification_term``, ``simplified_combined_loss`` and
-``compute_class_distribution`` from ``vae_tagger_tpu/losses/combined.py``).
+"""Combined training losses (the port's copy of
+``vae_tagger_tpu/losses/combined.py``):
 
-The full four-term ``combined_loss``, ``log_damped_kl`` and the adaptive
-weights need the VAE decoder and wait for its slice.
+- ``simplified_combined_loss``: the semantic term (triplet or contrastive)
+  plus the classification term (focal, BCE or class-balanced);
+- ``combined_loss``: the full four-term loss, MSE reconstruction +
+  log-damped KL over the three triplet posteriors + triplet +
+  classification, with fixed weights or the learnable
+  :class:`AdaptiveLossWeights` (softmax of zero-initialized log weights
+  over a temperature, trained jointly with the models).
+
+Each returns ``(total_loss, loss_dict)`` with scalar tensors.
 """
 
 from __future__ import annotations
@@ -12,9 +18,25 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from .classification import bce_with_logits, class_balanced_loss, focal_loss
 from .metric_learning import contrastive_loss, triplet_loss
+
+
+class AdaptiveLossWeights(nn.Module):
+    """Learnable loss weights: softmax(log_weights / temperature), the log
+    weights zero-initialized and optimized with the models."""
+
+    def __init__(self, num_losses: int = 4, temperature: float = 1.0):
+        super().__init__()
+        self.temperature = temperature
+        self.log_weights = nn.Parameter(torch.zeros(num_losses))
+
+    def forward(self, losses):
+        weights = torch.softmax(self.log_weights / self.temperature, dim=0)
+        total = sum(w * l for w, l in zip(weights, losses))
+        return total, weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +94,48 @@ def simplified_combined_loss(cfg: LossConfig, z_a, z_p, z_n=None,
                                  classification_targets, cb_weights)
         total = total + cfg.classification_weight * cl
         loss_dict["classification_loss"] = cl
+    loss_dict["total_loss"] = total
+    return total, loss_dict
+
+
+def log_damped_kl(kl_a, kl_p, kl_n):
+    """log(1 + mean KL / 10000) over the three triplet posteriors' per-sample
+    KLs."""
+    kl_mean = ((kl_a + kl_p + kl_n) / 3.0).mean()
+    return torch.log1p(kl_mean / 10000.0)
+
+
+def combined_loss(cfg: LossConfig, reconstruction, target_images,
+                  kl_a, kl_p, kl_n, z_a, z_p, z_n,
+                  classification_logits, classification_targets,
+                  anchor_labels=None, positive_labels=None, cb_weights=None,
+                  adaptive_weights=None):
+    """The full four-term loss.  ``kl_*`` are the per-sample KL vectors of
+    ``DiagonalGaussian.kl()``; ``adaptive_weights`` is the
+    :class:`AdaptiveLossWeights` module when ``cfg.use_adaptive_weights``."""
+    recon = (reconstruction.float() - target_images.float()).square().mean()
+    kl = log_damped_kl(kl_a, kl_p, kl_n)
+    trip = triplet_loss(z_a, z_p, z_n, anchor_labels, positive_labels,
+                        margin=cfg.triplet_margin,
+                        similarity_type=cfg.similarity_type)
+    cls = classification_term(cfg, classification_logits,
+                              classification_targets, cb_weights)
+    losses = [recon, kl, trip, cls]
+    loss_dict = {"reconstruction_loss": recon, "kl_loss": kl,
+                 "triplet_loss": trip, "classification_loss": cls}
+    if cfg.use_adaptive_weights:
+        if adaptive_weights is None:
+            raise ValueError("use_adaptive_weights requires the "
+                             "AdaptiveLossWeights module")
+        total, weights = adaptive_weights(losses)
+        loss_dict["adaptive_weights"] = weights
+    else:
+        total = (cfg.reconstruction_weight * recon + cfg.kl_weight * kl
+                 + cfg.triplet_weight * trip
+                 + cfg.classification_weight * cls)
+        loss_dict["weights"] = torch.tensor(
+            [cfg.reconstruction_weight, cfg.kl_weight, cfg.triplet_weight,
+             cfg.classification_weight], device=recon.device)
     loss_dict["total_loss"] = total
     return total, loss_dict
 

@@ -1,4 +1,11 @@
-from .autoencoder_kl import AutoencoderKL, DiagonalGaussian, Encoder, encode_scaled
+from .autoencoder_kl import (
+    AutoencoderKL,
+    Decoder,
+    DiagonalGaussian,
+    Encoder,
+    decode_scaled,
+    encode_scaled,
+)
 from .taggers import (
     AttentionClassificationDecoder,
     ClassificationDecoder,
@@ -13,10 +20,12 @@ __all__ = [
     "AutoencoderKL",
     "ClassificationDecoder",
     "CrossAttention",
+    "Decoder",
     "DiagonalGaussian",
     "Encoder",
     "MultiHeadSelfAttention",
     "SpatialAttention",
     "create_attention_decoder",
+    "decode_scaled",
     "encode_scaled",
 ]

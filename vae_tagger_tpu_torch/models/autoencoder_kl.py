@@ -1,13 +1,15 @@
-"""The FLUX AutoencoderKL encoder in PyTorch, NHWC.
+"""The FLUX AutoencoderKL in PyTorch, NHWC.
 
-Counterpart of ``vae_tagger_tpu/models/autoencoder_kl.py`` for the encode
-and training paths: ``Encoder``, the diagonal-Gaussian posterior
-(``from_moments`` with logvar clamped to [-30, 20], ``mode``, ``sample``
-from an explicit generator, ``kl``), ``AutoencoderKL.encode`` with the
-optional 1x1 ``quant_conv`` of SD-family VAEs, and ``encode_scaled``.
-Module names follow the diffusers keys, so ``encoder.*`` and
-``quant_conv.*`` of a diffusers checkpoint load 1:1.  The decoder waits for
-its slice.
+Counterpart of ``vae_tagger_tpu/models/autoencoder_kl.py``: ``Encoder`` and
+``Decoder``, the diagonal-Gaussian posterior (``from_moments`` with logvar
+clamped to [-30, 20], ``mode``, ``sample`` from an explicit generator,
+``kl``), ``AutoencoderKL.encode`` / ``decode`` with the optional 1x1
+``quant_conv`` / ``post_quant_conv`` of SD-family VAEs, the training
+forward (encode -> sample -> decode), ``encode_scaled`` and
+``decode_scaled``.  Module names follow the diffusers keys, so a diffusers
+checkpoint loads 1:1.  ``with_decoder=False`` builds the encode half alone
+(``encoder.*``, ``quant_conv.*``): what the tagging engine and latent
+extraction hold on the card.
 
 ``remat=True`` checkpoints every ResnetBlock and the mid-block attention
 (``torch.utils.checkpoint``, the JAX package's ``nn.remat``).
@@ -21,7 +23,13 @@ import torch
 import torch.nn as nn
 
 from ..core.config import VAEConfig
-from ..nn.blocks import Conv2D, DownEncoderBlock, GroupNorm, MidBlock
+from ..nn.blocks import (
+    Conv2D,
+    DownEncoderBlock,
+    GroupNorm,
+    MidBlock,
+    UpDecoderBlock,
+)
 
 
 @dataclasses.dataclass
@@ -81,16 +89,54 @@ class Encoder(nn.Module):
         return self.conv_out(self.conv_norm_out(x))  # (B, h, w, 2*latent)
 
 
-class AutoencoderKL(nn.Module):
-    """The encode half of the VAE (``encoder`` and ``quant_conv``)."""
+class Decoder(nn.Module):
+    """conv_in -> mid block -> up blocks (``layers_per_block + 1`` resnets
+    each, nearest-2x upsample after all but the last) -> GN+SiLU ->
+    conv_out, over the reversed channel list."""
 
     def __init__(self, config: VAEConfig, remat: bool = False):
+        super().__init__()
+        cfg = config
+        g = cfg.norm_num_groups
+        channels = list(reversed(cfg.block_out_channels))
+        ch = channels[0]
+        self.conv_in = Conv2D(cfg.latent_channels, ch)
+        self.mid_block = MidBlock(ch, g, cfg.mid_block_add_attention, remat)
+        blocks = []
+        for i, out_ch in enumerate(channels):
+            blocks.append(UpDecoderBlock(
+                ch, out_ch, cfg.layers_per_block + 1,
+                add_upsample=i < len(channels) - 1, num_groups=g,
+                remat=remat))
+            ch = out_ch
+        self.up_blocks = nn.ModuleList(blocks)
+        self.conv_norm_out = GroupNorm(g, ch, with_silu=True)
+        self.conv_out = Conv2D(ch, cfg.out_channels)
+
+    def forward(self, z):
+        x = self.mid_block(self.conv_in(z))
+        for block in self.up_blocks:
+            x = block(x)
+        return self.conv_out(self.conv_norm_out(x))
+
+
+class AutoencoderKL(nn.Module):
+    """The VAE: ``encoder`` (+ ``quant_conv``) and, with ``with_decoder``,
+    ``decoder`` (+ ``post_quant_conv``)."""
+
+    def __init__(self, config: VAEConfig, remat: bool = False,
+                 with_decoder: bool = False):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config, remat)
         self.quant_conv = (
             Conv2D(2 * config.latent_channels, 2 * config.latent_channels, 1,
                    padding=0) if config.use_quant_conv else None)
+        self.decoder = Decoder(config, remat) if with_decoder else None
+        self.post_quant_conv = (
+            Conv2D(config.latent_channels, config.latent_channels, 1,
+                   padding=0)
+            if with_decoder and config.use_post_quant_conv else None)
 
     def encode(self, x) -> DiagonalGaussian:
         """NHWC pixels in [-1, 1], in the compute dtype -> posterior (fp32)."""
@@ -99,9 +145,30 @@ class AutoencoderKL(nn.Module):
             moments = self.quant_conv(moments)
         return DiagonalGaussian.from_moments(moments.float())
 
+    def decode(self, z, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """NHWC latents -> reconstruction (fp32), computed in ``dtype``."""
+        if self.decoder is None:
+            raise RuntimeError("this AutoencoderKL was built without its "
+                               "decoder (with_decoder=False)")
+        z = z.to(dtype)
+        if self.post_quant_conv is not None:
+            z = self.post_quant_conv(z)
+        return self.decoder(z).float()
+
+    def forward(self, x, generator: torch.Generator):
+        """The training forward: (reconstruction of a posterior draw from
+        ``generator``, posterior), in the dtype of x."""
+        posterior = self.encode(x)
+        return self.decode(posterior.sample(generator), x.dtype), posterior
+
 
 def encode_scaled(posterior_mode: torch.Tensor,
                   config: VAEConfig) -> torch.Tensor:
     """latent * scaling_factor + shift_factor (the diffusers wrapper's
     encode transform)."""
     return posterior_mode * config.scaling_factor + config.shift_factor
+
+
+def decode_scaled(z: torch.Tensor, config: VAEConfig) -> torch.Tensor:
+    """The inverse of :func:`encode_scaled`, applied before decoding."""
+    return (z - config.shift_factor) / config.scaling_factor

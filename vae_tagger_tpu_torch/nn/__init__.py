@@ -5,6 +5,8 @@ from .blocks import (
     GroupNorm,
     MidBlock,
     ResnetBlock,
+    UpDecoderBlock,
+    Upsample,
     VAEAttention,
     seeded_init_,
 )
@@ -16,6 +18,8 @@ __all__ = [
     "GroupNorm",
     "MidBlock",
     "ResnetBlock",
+    "UpDecoderBlock",
+    "Upsample",
     "VAEAttention",
     "seeded_init_",
 ]

@@ -1,4 +1,4 @@
-"""Building blocks of the FLUX AutoencoderKL encoder, NHWC in and out.
+"""Building blocks of the FLUX AutoencoderKL, NHWC in and out.
 
 Counterpart of ``vae_tagger_tpu/nn/blocks.py``.  Module and parameter names
 follow the diffusers state-dict keys
@@ -8,14 +8,15 @@ layouts (conv OIHW, linear (out, in)), so a diffusers checkpoint loads with
 ``load_state_dict`` 1:1.  Activations are NHWC tensors; parameters stay
 fp32 and are cast to the activation dtype where a matmul or conv uses them.
 
-Every encoder ResnetBlock runs both of its branches through the fused
-``gn_silu_conv3x3`` (kernel B on the card); the attention's GroupNorm and
-``conv_norm_out`` go through ``group_norm_silu`` (kernel A) and the
-mid-block attention through kernel C.  With ``remat`` each ResnetBlock
-and the attention run under ``torch.utils.checkpoint`` (non-reentrant):
-the counterpart of ``nn.remat`` in the JAX package, O(block) activation
-memory for a second forward in the backward.  ``Upsample`` and
-``UpDecoderBlock`` wait for the decoder slice.
+Every ResnetBlock, of the encoder and of the decoder, runs both of its
+branches through the fused ``gn_silu_conv3x3`` (kernel B on the card); the
+attention's GroupNorm and ``conv_norm_out`` go through ``group_norm_silu``
+(kernel A) and the mid-block attention through kernel C.  The decoder's
+``Upsample`` is a nearest 2x repeat and a plain 3x3 conv (``F.conv2d``,
+outside any TPU kernel in the JAX package too).  With ``remat`` each
+ResnetBlock and the attention run under ``torch.utils.checkpoint``
+(non-reentrant): the counterpart of ``nn.remat`` in the JAX package,
+O(block) activation memory for a second forward in the backward.
 """
 
 from __future__ import annotations
@@ -126,6 +127,18 @@ class Downsample(nn.Module):
         return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
 
 
+class Upsample(nn.Module):
+    """Nearest-neighbour 2x, then a 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv2D(channels, channels)
+
+    def forward(self, x):
+        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return self.conv(x)
+
+
 class VAEAttention(nn.Module):
     """Single-head spatial self-attention with residual (the mid block):
     GroupNorm (no SiLU), Q/K/V/out projections with bias, one head of dim
@@ -190,6 +203,31 @@ class DownEncoderBlock(nn.Module):
             x = _call(r, x, self.remat)
         if self.downsamplers is not None:
             x = self.downsamplers[0](x)
+        return x
+
+
+class UpDecoderBlock(nn.Module):
+    """``num_layers`` resnets (``layers_per_block + 1`` in the decoder),
+    then an optional nearest-2x upsample."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 num_layers: int = 3, add_upsample: bool = True,
+                 num_groups: int = 32, remat: bool = False):
+        super().__init__()
+        self.remat = remat
+        self.resnets = nn.ModuleList([
+            ResnetBlock(in_channels if i == 0 else out_channels, out_channels,
+                        num_groups)
+            for i in range(num_layers)
+        ])
+        self.upsamplers = (nn.ModuleList([Upsample(out_channels)])
+                           if add_upsample else None)
+
+    def forward(self, x):
+        for r in self.resnets:
+            x = _call(r, x, self.remat)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
         return x
 
 

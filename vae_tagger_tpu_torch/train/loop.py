@@ -107,7 +107,9 @@ class EpochLoop:
             images_seen = 0
 
             def drain(step, step_global, metrics, n_real):
-                host = {k: float(v) for k, v in metrics.items()}
+                # scalars only: the adaptive weights are a vector
+                host = {k: float(v) for k, v in metrics.items()
+                        if v.dim() == 0}
                 for k, v in host.items():
                     metric_acc.setdefault(k, []).append((v, n_real))
                 if step % args.logging_steps == 0:

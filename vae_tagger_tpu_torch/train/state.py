@@ -10,15 +10,16 @@ step.  With gradient accumulation over k micro-steps the gradients
 advance once per k, as ``optax.MultiSteps`` does.
 
 Unlike optax, AdamW skips a parameter whose ``.grad`` is None, as the
-reference's torch optimizer does: the port trains only the parameters it
-holds (the encoder and the head), so the decay the JAX package applies to
-the VAE decoder's untrained tensors does not happen here.
+reference's torch optimizer does: under the simplified loss the VAE
+decoder gets no gradient (its ``.grad`` stays None; gradients are cleared
+with ``set_to_none``), so the decay the JAX package applies to its
+untrained tensors does not happen here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -81,21 +82,30 @@ def build_optimizer(params, schedule: Schedule, weight_decay: float = 1e-6,
 @dataclasses.dataclass
 class TrainState:
     """What a training run carries from step to step: the micro-step
-    count, the two models (the head's BatchNorm running statistics are
-    buffers of ``decoder``) and the optimizer with its schedule position."""
+    count, the models -- the VAE, the tagger head ``decoder`` (None in
+    train_vae; its BatchNorm running statistics are buffers) and the
+    adaptive loss weights (None unless trained) -- and the optimizer with
+    its schedule position."""
 
     vae: torch.nn.Module
-    decoder: torch.nn.Module
+    decoder: Optional[torch.nn.Module]
     optimizer: Optimizer
     step: int = 0
+    adaptive: Optional[torch.nn.Module] = None
+
+    def _modules(self) -> dict:
+        return {k: m for k, m in (("vae", self.vae),
+                                  ("decoder", self.decoder),
+                                  ("adaptive", self.adaptive))
+                if m is not None}
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "vae": self.vae.state_dict(),
-                "decoder": self.decoder.state_dict(),
+        return {"step": self.step,
+                **{k: m.state_dict() for k, m in self._modules().items()},
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
         self.step = int(state["step"])
-        self.vae.load_state_dict(state["vae"])
-        self.decoder.load_state_dict(state["decoder"])
+        for k, m in self._modules().items():
+            m.load_state_dict(state[k])
         self.optimizer.load_state_dict(state["optimizer"])

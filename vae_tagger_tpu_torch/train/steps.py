@@ -1,18 +1,31 @@
-"""The train and eval steps of ``train_full`` with the simplified loss (the
-port's counterpart of ``make_full_steps`` in
+"""The train and eval steps of ``train_full`` and ``train_vae`` (the
+port's counterparts of ``make_full_steps`` and ``make_vae_steps`` in
 ``vae_tagger_tpu/train/steps.py``).
 
-One step: the anchor, positive and negative images run as ONE stacked 3B
-encode -> posterior draw z (explicit generator) -> the triplet term on z ->
-the anchor's scaled posterior mean, detached, into the tagger head (train
-mode: dropout from the same generator, BatchNorm on batch statistics) ->
-the classification term -> backward through the head and the whole encoder
-(kernels A, B, C forward; C's backward is kernels D and E) -> clip + AdamW.
+``FullSteps``, one step: the anchor, positive and negative images run as
+ONE stacked 3B encode -> posterior draw z (explicit generator) -> the
+triplet term on z -> the anchor's scaled posterior mean, detached, into the
+tagger head (train mode: dropout from the same generator, BatchNorm on
+batch statistics) -> the classification term -> backward through the head
+and the whole encoder (kernels A, B, C forward; C's backward is kernels D
+and E) -> clip + AdamW.  With the full loss (``use_simplified=False``) the
+anchor is also decoded from a posterior draw of its own and the loss adds
+the reconstruction MSE and the log-damped KL, with fixed or adaptive
+weights.
+
+``VaeSteps``, one step: the stacked 3B encode -> the triplet draw -> the
+triplet term; the anchor decoded from its own draw -> the reconstruction
+MSE against the normalized anchor in fp32; the log-damped KL, optimized
+unless ``use_simplified`` (then only reported).
+
+The reconstruction's draw is independent of the triplet's: it comes from a
+second generator of the same step (``step_generator(..., stream=1)``).  The
+JAX package measured that one shared draw destabilizes training (its
+``make_vae_steps``; ``benchmarks/vae_dynamics_probe.py``).
 
 The TPU's sublane padding of the stacked batch and its per-member bs1
 encodes are not carried over.  The head runs in fp32 whatever the VAE's
-compute dtype, as the port's inference engine runs it.  The full combined
-loss (with the VAE decoder) waits for its slice.
+compute dtype, as the port's inference engine runs it.
 """
 
 from __future__ import annotations
@@ -21,7 +34,13 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..losses.combined import LossConfig, simplified_combined_loss
+from ..losses.combined import (
+    LossConfig,
+    combined_loss,
+    log_damped_kl,
+    simplified_combined_loss,
+)
+from ..losses.metric_learning import triplet_loss
 from ..models.autoencoder_kl import DiagonalGaussian, encode_scaled
 from ..ops.image import normalize_uint8
 from .state import TrainState
@@ -32,11 +51,23 @@ _BATCH_KEYS = ("anchor", "positive", "negative", "labels", "positive_labels")
 _EVAL_STREAM = 10_000_000
 
 
-def step_generator(device, seed: int, index: int) -> torch.Generator:
-    """The generator of one step: a pure function of (seed, index)."""
+def step_generator(device, seed: int, index: int,
+                   stream: int = 0) -> torch.Generator:
+    """The generator of one step: a pure function of (seed, index, stream);
+    stream 0 draws the triplet posterior and the head's dropout, stream 1
+    the reconstruction's posterior."""
     g = torch.Generator(device=device)
-    g.manual_seed((int(seed) * 1_000_003 + int(index)) & 0xFFFFFFFFFFFFFFFF)
+    # the CPU generator reads the low 32 bits of the seed: streams differ
+    # there (a golden-ratio offset, far from any index a run reaches)
+    g.manual_seed((int(seed) * 1_000_003 + int(index)
+                   + int(stream) * 0x9E3779B9) & 0xFFFFFFFFFFFFFFFF)
     return g
+
+
+def step_generators(device, seed: int, index: int):
+    """(triplet generator, reconstruction generator) of one step."""
+    return (step_generator(device, seed, index),
+            step_generator(device, seed, index, stream=1))
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -70,22 +101,81 @@ def triplet_posterior(vae, batch: dict, compute_dtype,
     return DiagonalGaussian(mean=mean, logvar=logvar)
 
 
-class FullSteps:
-    """train_full's steps over a :class:`TrainState` on one device."""
+def anchor_reconstruction(vae, posterior: DiagonalGaussian, batch: dict,
+                          compute_dtype, generator: torch.Generator):
+    """(reconstruction of the anchor from a posterior draw of its own, the
+    anchor normalized in fp32): the draw from ``generator``, independent
+    of the triplet's."""
+    b = batch["anchor"].shape[0]
+    z = DiagonalGaussian(mean=posterior.mean[:b],
+                         logvar=posterior.logvar[:b]).sample(generator)
+    return (vae.decode(z, compute_dtype),
+            normalize_uint8(batch["anchor"], torch.float32))
 
-    def __init__(self, cfg: LossConfig, *, cb_weights=None,
-                 compute_dtype=torch.float32, checkpoint_encode: bool = False,
-                 seed: int = 0):
+
+def _detached(loss_dict: dict, total) -> dict:
+    metrics = {k: v.detach() for k, v in loss_dict.items()
+               if k not in ("total_loss", "weights")}
+    metrics["loss"] = total.detach()
+    return metrics
+
+
+class _Steps:
+    """The step loop shared by both trainers: ``forward_losses(state,
+    batch, generator, train=, recon_generator=)`` -> (total, metrics,
+    probabilities)."""
+
+    def train_step(self, state: TrainState, batch: dict,
+                   global_step: int) -> dict:
+        """One micro-step: loss, backward, and the optimizer's step (which
+        applies an update every ``accumulation_steps``)."""
+        device = next(state.vae.parameters()).device
+        g, g_recon = step_generators(device, self.seed, global_step)
+        total, metrics, _ = self.forward_losses(
+            state, batch_to_device(batch, device), g, train=True,
+            recon_generator=g_recon)
+        total.backward()
+        state.optimizer.step()
+        state.step += 1
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: dict, index: int) -> dict:
+        """Losses (and the head's probabilities, where there is a head),
+        head in eval mode, posterior draws from the eval stream
+        ``index``."""
+        device = next(state.vae.parameters()).device
+        g, g_recon = step_generators(device, self.seed, _EVAL_STREAM + index)
+        _, metrics, probs = self.forward_losses(
+            state, batch_to_device(batch, device), g, train=False,
+            recon_generator=g_recon)
+        if probs is not None:
+            metrics["probs"] = probs
+        return metrics
+
+
+class FullSteps(_Steps):
+    """train_full's steps over a :class:`TrainState` on one device; the
+    full loss needs ``state.vae`` built with its decoder, and
+    ``state.adaptive`` with ``cfg.use_adaptive_weights``."""
+
+    def __init__(self, cfg: LossConfig, *, use_simplified: bool = True,
+                 cb_weights=None, compute_dtype=torch.float32,
+                 checkpoint_encode: bool = False, seed: int = 0):
         self.cfg = cfg
+        self.use_simplified = use_simplified
         self.cb_weights = cb_weights
         self.compute_dtype = compute_dtype
         self.checkpoint_encode = checkpoint_encode
         self.seed = seed
 
     def forward_losses(self, state: TrainState, batch: dict,
-                       generator: torch.Generator, *, train: bool):
+                       generator: torch.Generator, *, train: bool,
+                       recon_generator: torch.Generator = None):
         """(total loss, metrics, probabilities) of one device batch; the
-        total carries the graph when grad mode is on."""
+        total carries the graph when grad mode is on.  ``generator`` draws
+        the triplet posterior and the head's dropout, ``recon_generator``
+        the reconstruction's posterior (full loss only)."""
         vae, decoder = state.vae, state.decoder
         b = batch["anchor"].shape[0]
         posterior = triplet_posterior(vae, batch, self.compute_dtype,
@@ -95,36 +185,70 @@ class FullSteps:
         decoder.train(train)
         logits = decoder(latents.float(), generator)
         labels = batch["labels"]
-        total, loss_dict = simplified_combined_loss(
-            self.cfg, z[:b], z[b:2 * b], z[2 * b:],
-            classification_logits=logits, classification_targets=labels,
-            anchor_labels=labels, positive_labels=batch["positive_labels"],
-            cb_weights=self.cb_weights)
-        metrics = {k: v.detach() for k, v in loss_dict.items()
-                   if k != "total_loss"}
-        metrics["loss"] = total.detach()
-        return total, metrics, torch.sigmoid(logits.detach().float())
+        if self.use_simplified:
+            total, loss_dict = simplified_combined_loss(
+                self.cfg, z[:b], z[b:2 * b], z[2 * b:],
+                classification_logits=logits,
+                classification_targets=labels, anchor_labels=labels,
+                positive_labels=batch["positive_labels"],
+                cb_weights=self.cb_weights)
+        else:
+            recon, anchor = anchor_reconstruction(
+                vae, posterior, batch, self.compute_dtype, recon_generator)
+            kl = posterior.kl()
+            total, loss_dict = combined_loss(
+                self.cfg, recon, anchor, kl[:b], kl[b:2 * b], kl[2 * b:],
+                z[:b], z[b:2 * b], z[2 * b:], logits, labels,
+                anchor_labels=labels,
+                positive_labels=batch["positive_labels"],
+                cb_weights=self.cb_weights,
+                adaptive_weights=state.adaptive)
+        return (total, _detached(loss_dict, total),
+                torch.sigmoid(logits.detach().float()))
 
-    def train_step(self, state: TrainState, batch: dict,
-                   global_step: int) -> dict:
-        """One micro-step: loss, backward, and the optimizer's step (which
-        applies an update every ``accumulation_steps``)."""
-        device = next(state.vae.parameters()).device
-        g = step_generator(device, self.seed, global_step)
-        total, metrics, _ = self.forward_losses(
-            state, batch_to_device(batch, device), g, train=True)
-        total.backward()
-        state.optimizer.step()
-        state.step += 1
-        return metrics
 
-    @torch.no_grad()
-    def eval_step(self, state: TrainState, batch: dict, index: int) -> dict:
-        """Losses and probabilities, head in eval mode, posterior draw from
-        the eval stream ``index``."""
-        device = next(state.vae.parameters()).device
-        g = step_generator(device, self.seed, _EVAL_STREAM + index)
-        _, metrics, probs = self.forward_losses(
-            state, batch_to_device(batch, device), g, train=False)
-        metrics["probs"] = probs
-        return metrics
+class VaeSteps(_Steps):
+    """train_vae's steps over a :class:`TrainState` without a head; the VAE
+    is built with its decoder."""
+
+    def __init__(self, cfg: LossConfig, *, use_simplified: bool = True,
+                 compute_dtype=torch.float32, checkpoint_encode: bool = False,
+                 seed: int = 0):
+        self.cfg = cfg
+        self.use_simplified = use_simplified
+        self.compute_dtype = compute_dtype
+        self.checkpoint_encode = checkpoint_encode
+        self.seed = seed
+
+    def forward_losses(self, state: TrainState, batch: dict,
+                       generator: torch.Generator, *, train: bool,
+                       recon_generator: torch.Generator = None):
+        """(total loss, metrics, None) of one device batch; ``generator``
+        draws the triplet posterior, ``recon_generator`` the
+        reconstruction's."""
+        cfg, vae = self.cfg, state.vae
+        b = batch["anchor"].shape[0]
+        posterior = triplet_posterior(vae, batch, self.compute_dtype,
+                                      self.checkpoint_encode)
+        z = posterior.sample(generator)
+        recon, anchor = anchor_reconstruction(vae, posterior, batch,
+                                              self.compute_dtype,
+                                              recon_generator)
+        recon_loss = (recon.float() - anchor).square().mean()
+        kl = posterior.kl()
+        kl_loss = log_damped_kl(kl[:b], kl[b:2 * b], kl[2 * b:])
+        trip = triplet_loss(z[:b], z[b:2 * b], z[2 * b:], batch["labels"],
+                            batch["positive_labels"],
+                            margin=cfg.triplet_margin,
+                            similarity_type=cfg.similarity_type)
+        # KL is reported either way; optimized only with the full loss
+        if self.use_simplified:
+            total = (cfg.reconstruction_weight * recon_loss
+                     + cfg.triplet_weight * trip)
+        else:
+            total = (cfg.reconstruction_weight * recon_loss
+                     + cfg.kl_weight * kl_loss + cfg.triplet_weight * trip)
+        metrics = {"reconstruction_loss": recon_loss.detach(),
+                   "kl_loss": kl_loss.detach(), "triplet_loss": trip.detach(),
+                   "loss": total.detach()}
+        return total, metrics, None

@@ -1,20 +1,25 @@
-"""End-to-end VAE encoder + tagger training with the simplified loss:
+"""End-to-end VAE + tagger training:
 ``python -m vae_tagger_tpu_torch.train.train_full`` (the port's counterpart
 of ``vae_tagger_tpu/train/train_full.py`` and ``scripts/train_full.py``,
 same flags, plus ``--device``).
 
-Runs on the card unless ``--device cpu`` is given.  Writes
-``<output_dir>/training_history.json``, the train state under
-``best_checkpoint/`` and ``checkpoint-{epoch}/`` (``--resume_from`` takes
-either), and exports ``best_vae/``, ``vae/`` (diffusers safetensors +
-``config.json``, with the loaded checkpoint's ``decoder.*`` tensors kept)
-and ``best_decoder/``, ``decoder/`` (``pytorch_model.bin``), which
-``python -m vae_tagger_tpu_torch.infer`` loads.
+The simplified loss (triplet + classification) by default; with
+``--no_simplified_loss`` the full four-term loss (+ the reconstruction of
+the anchor through the VAE decoder + the log-damped KL), with
+``--use_adaptive_weights`` its weights learned jointly.  Runs on the card
+unless ``--device cpu`` is given.  Writes ``<output_dir>/
+training_history.json``, the train state under ``best_checkpoint/`` and
+``checkpoint-{epoch}/`` (``--resume_from`` takes either), and exports
+``best_vae/``, ``vae/`` (diffusers safetensors + ``config.json``, the whole
+VAE; the decoder as loaded where the loss does not train it) and
+``best_decoder/``, ``decoder/`` (``pytorch_model.bin``), which ``python -m
+vae_tagger_tpu_torch.infer`` loads.  Then the final phase: one validation
+pass of an anchor-only encode+classify predictor, shared by the threshold
+search (``optimal_thresholds.json``) and the evaluation at the global
+threshold (``evaluation_results.csv``, ``evaluation_results_overall.json``).
 
 Refused at start, not yet ported: ``--use_bucketing``, ``--transfer_format
-yuv420``, ``--no_simplified_loss``, ``--use_adaptive_weights``,
-``--spatial_parallel``, ``--profile_steps``.  The final threshold search
-and evaluation wait for the evaluation slice.
+yuv420``, ``--spatial_parallel``, ``--profile_steps``.
 """
 
 from __future__ import annotations
@@ -37,18 +42,24 @@ from ..core.cli import (
 )
 from ..core.device import resolve_device
 from ..core.precision import resolve_mixed_precision
+from ..eval.threshold import (
+    collect_predictions,
+    evaluate_model,
+    find_optimal_threshold,
+)
 from ..infer.engine import build_decoder
 from ..io.checkpoints import (
     load_decoder,
     load_vae,
-    passthrough_vae_tensors,
     restore_train_state,
     save_decoder_bin,
     save_train_state,
     save_vae_pretrained,
 )
 from ..losses.classification import class_balanced_weights
-from ..losses.combined import LossConfig
+from ..losses.combined import AdaptiveLossWeights, LossConfig
+from ..models.autoencoder_kl import encode_scaled
+from ..ops.image import normalize_uint8
 from .loop import EpochLoop, build_dataset_and_loaders
 from .schedule import build_lr_schedule
 from .state import TrainState, build_optimizer
@@ -83,10 +94,8 @@ def train_full(args) -> TrainState:
     vae = load_vae(args.vae_checkpoint, args.vae_config_path,
                    require_checkpoint=False, resolution=args.resolution,
                    remat=args.remat, use_quant_conv=args.use_quant_conv,
-                   use_post_quant_conv=args.use_post_quant_conv)
-    passthrough = (passthrough_vae_tensors(args.vae_checkpoint)
-                   if args.vae_checkpoint
-                   and os.path.exists(args.vae_checkpoint) else {})
+                   use_post_quant_conv=args.use_post_quant_conv,
+                   with_decoder=True)
     cfg_vae = vae.config
     side = args.resolution // cfg_vae.downsample_factor
     print(f"VAE latents: {cfg_vae.latent_channels} x {side} x {side}")
@@ -121,12 +130,19 @@ def train_full(args) -> TrainState:
     total_steps = args.num_epochs * len(train_loader)
     schedule = build_lr_schedule(args.lr_scheduler_type, args.learning_rate,
                                  args.lr_warmup_steps, total_steps)
+    adaptive = None
+    if not args.use_simplified_loss and args.use_adaptive_weights:
+        adaptive = AdaptiveLossWeights(num_losses=4).to(device)
+        print("adaptive loss weights enabled (trained jointly)")
     optimizer = build_optimizer(
-        [*vae.parameters(), *decoder.parameters()], schedule,
-        args.weight_decay, args.max_grad_norm,
+        [*vae.parameters(), *decoder.parameters(),
+         *(adaptive.parameters() if adaptive is not None else ())],
+        schedule, args.weight_decay, args.max_grad_norm,
         args.gradient_accumulation_steps)
-    state = TrainState(vae=vae, decoder=decoder, optimizer=optimizer)
-    steps = FullSteps(cfg, cb_weights=cb_weights,
+    state = TrainState(vae=vae, decoder=decoder, optimizer=optimizer,
+                       adaptive=adaptive)
+    steps = FullSteps(cfg, use_simplified=args.use_simplified_loss,
+                      cb_weights=cb_weights,
                       compute_dtype=policy.compute_dtype,
                       checkpoint_encode=args.remat, seed=seed)
 
@@ -134,7 +150,7 @@ def train_full(args) -> TrainState:
         vae_out = os.path.join(args.output_dir, vae_dir)
         dec_out = os.path.join(args.output_dir, decoder_dir)
         os.makedirs(dec_out, exist_ok=True)
-        save_vae_pretrained(state.vae, cfg_vae, vae_out, passthrough)
+        save_vae_pretrained(state.vae, cfg_vae, vae_out)
         save_decoder_bin(state.decoder,
                          os.path.join(dec_out, "pytorch_model.bin"))
         print(f"VAE saved to: {vae_out}")
@@ -160,15 +176,45 @@ def train_full(args) -> TrainState:
                                      args.lr_warmup_steps,
                                      state.step + total_steps)
         state.optimizer.schedule = schedule
+    log_keys = (("loss", "triplet_loss", "classification_loss")
+                if args.use_simplified_loss else
+                ("loss", "reconstruction_loss", "kl_loss", "triplet_loss",
+                 "classification_loss"))
     loop = EpochLoop(args, train_loader, val_loader, steps.train_step,
                      steps.eval_step, on_best, on_periodic,
-                     log_metric_keys=("loss", "triplet_loss",
-                                      "classification_loss"))
+                     log_metric_keys=log_keys)
     loop.run(state, lr_schedule=schedule)
+    print("training complete; final evaluation...")
     loop.save_history(args.output_dir)
-    print("training complete (the final threshold search and evaluation "
-          "are not ported yet)")
+    final_evaluation(state, val_loader, dataset.tags, policy.compute_dtype,
+                     args.output_dir)
+    print("training and evaluation complete")
     return state
+
+
+def final_evaluation(state: TrainState, val_loader, class_names,
+                     compute_dtype, output_dir: str):
+    """One validation pass of an anchor-only encode+classify predictor (the
+    head in eval mode), shared by the threshold search and the evaluation
+    at its global threshold; both write their files to ``output_dir``."""
+    vae, head = state.vae, state.decoder
+    device = next(vae.parameters()).device
+    head.eval()
+
+    @torch.inference_mode()
+    def predict_fn(batch):
+        px = torch.from_numpy(batch["anchor"]).to(device, non_blocking=True)
+        posterior = vae.encode(normalize_uint8(px, compute_dtype))
+        latents = encode_scaled(posterior.mode(), vae.config)
+        return torch.sigmoid(head(latents.float()).float())
+
+    collected = collect_predictions(predict_fn, val_loader)
+    thresholds = find_optimal_threshold(predict_fn, val_loader, class_names,
+                                        output_dir=output_dir,
+                                        collected=collected)
+    return evaluate_model(predict_fn, val_loader, class_names,
+                          threshold=thresholds["global_threshold"],
+                          output_dir=output_dir, collected=collected)
 
 
 def main(argv=None) -> TrainState:
