@@ -112,14 +112,41 @@ failure (non-zero exit, no ``ok`` line):
    vae_tagger_tpu_torch.eval`` on its exports and ``python -m
    vae_tagger_tpu_torch.infer.latents`` on the 8 images, the latents
    against the engine's plain-path encode_scaled mode (MSE < 1e-10);
-8. kernel A's device time by kernel (torch.profiler), new and its first
+8. the tiled VAE, train_decoder and buckets, each phase fatal on any
+   failed gate: ``phase_tile_bucket_kernels``: the kernels at the shapes the new paths give
+   them, each against its plain version, timed beside it and the library
+   call: B' and B'' at the decoder's 1024^2 256->128 conv and its shortcut
+   from 256 channels at a tile batch of 8 (an input of 2^31 elements),
+   the stats pass and A on that 2^31-element activation in both dtypes,
+   B' and B'' at the 704x576 bucket (B=3, W != H), C', C'', D', E', D''
+   and E'' at B=3, S=6,336, D=512 (no multiple of 128), and C' and C'' at
+   B=8, S=16,384; ``phase_tiled``: ``TiledVAE`` on a seeded 2048x1536
+   image (tile 1024, overlap 256: 6 tiles, one batch of 8), exact
+   launches of a tile batch (encode A 2, stats 20, B 20, C 1; decode A 2,
+   stats 28, B 28, C 1), fp32 kernel path vs plain path (latents and
+   pixels MSE < 1e-10), bf16 within 4x the plain bf16 path's own MSE, one
+   1024^2 tile vs ``VAEOnlyEngine.encode`` (MSE < 1e-10), wall time and
+   peak memory, then the latents and reconstruction CLIs with
+   ``--tiled``; ``phase_train_decoder``: ``python -m
+   vae_tagger_tpu_torch.train.train_decoder`` for 2 epochs at batch 4 with
+   ``--cache_latents`` in bf16, fp32, and yuv420 (exact launches: one
+   encode a batch of epoch 1, none after; every head parameter changed,
+   every VAE tensor as loaded; the final phase read the cache alone), the
+   steady step with and without the cache; ``phase_buckets``: three
+   seeded images in the buckets (704, 576), (768, 576) and (512, 512),
+   ``train_full`` and ``train_vae --use_bucketing`` for one epoch in bf16
+   and fp32 (``_train_cli``), the fp32 gradient gate on the 704x576
+   triplet, the infer CLI with ``--transfer_format yuv420`` against RGB
+   within YUV_PROB_BOUND, and ``yuv420_to_rgb_uint8`` on the card vs the
+   CPU (<= 1 apart, >= 99.9% equal);
+9. kernel A's device time by kernel (torch.profiler), new and its first
    form's (csrc/groupnorm_silu.cu), at
    each stats site with its bandwidth, and of A's two passes: last, since a
    profiler session may slow the host's launches after it;
-9. one JSON line ``{"kernels": [...]}`` (each kernel's launches on every
-   path, ``launches_by_path``, the train_vae paths included, and its
-   decoder-site numbers under ``decoder``), then as the last line
-   ``{"ok": true, "device": {...}}``.
+10. one JSON line ``{"kernels": [...]}`` (each kernel's launches on every
+   path, ``launches_by_path``, the train_vae, tiled, train_decoder and
+   bucket paths included, its decoder-site numbers under ``decoder`` and
+   the tile and bucket shapes' under ``tile_bucket``), then as the last line ``{"ok": true, "device": {...}}``.
 
 With ``--report PATH`` the full report is also written there as JSON.
 """
@@ -2109,7 +2136,8 @@ def _gradient_gate(art, batch):
                 smallest_relative_norm=min(norms))
 
 
-def _train_cli(art, json_path, precision, trainer="train_full", flags=()):
+def _train_cli(art, json_path, precision, trainer="train_full", flags=(),
+               n_images=N_IMAGES):
     """One epoch of ``python -m vae_tagger_tpu_torch.train.<trainer>``'s
     entry point at ``--mixed_precision precision`` ("bf16" or "no"), with
     ``flags`` added, the launch counts reset just before it and read just
@@ -2131,7 +2159,8 @@ def _train_cli(art, json_path, precision, trainer="train_full", flags=()):
     key = "bf16" if precision == "bf16" else "fp32"
     full_loss = "--no_simplified_loss" in flags
     vae_trained = trainer == "train_vae" or full_loss
-    out = WORK / f"{trainer}_out_{key}{'_full_loss' if full_loss else ''}"
+    out = WORK / (f"{trainer}_out_{key}{'_full_loss' if full_loss else ''}"
+                  f"{'_buckets' if '--use_bucketing' in flags else ''}")
     argv = ["--json_path", json_path, "--tags_csv_path", art["tags"],
             "--vae_checkpoint", art["vae"], "--vae_config_path",
             art["config"], "--output_dir", str(out), "--resolution",
@@ -2141,7 +2170,7 @@ def _train_cli(art, json_path, precision, trainer="train_full", flags=()):
             "--seed", str(SEED), "--device", DEVICE, *flags]
     if trainer == "train_full":
         argv += ["--decoder_checkpoint", art["decoder"]]
-    n_train, n_val = (len(ix) for ix in train_val_split(N_IMAGES, 0.1,
+    n_train, n_val = (len(ix) for ix in train_val_split(n_images, 0.1,
                                                         seed=SEED or 42))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2635,6 +2664,795 @@ def phase_eval_and_latents(art, json_path, train_out):
     return out
 
 
+# --------------------------------------------------------------------------
+# the tiled VAE, train_decoder with --cache_latents, aspect-ratio
+# buckets and the YUV 4:2:0 wire format
+# --------------------------------------------------------------------------
+
+# tiles a call of the tiled VAE (its default)
+TILE_BATCH = 8
+# the decoder's first fused conv of its 1024^2 stage and that block's
+# shortcut, at a tile batch: x (or the residual) holds 8 * 1024^2 * 256 =
+# 2^31 elements; (N, H, W, Cin, Cout, variant, Cres)
+TILED_B_CASES = [(TILE_BATCH, 1024, 1024, 256, 128, "plain", None),
+                 (TILE_BATCH, 1024, 1024, 128, 128, "shortcut", 256)]
+# the 704x576 bucket: the encoder's first ResnetBlock conv at a stacked
+# triplet (B=3), and the mid-block attention's S = 88 * 72 = 6,336, no
+# multiple of 128
+BUCKET = (704, 576)
+BUCKET_B_CASE = (TRAIN_ROWS, BUCKET[1], BUCKET[0], 128, 128, "residual", 128)
+RAGGED_S = (BUCKET[0] // 8) * (BUCKET[1] // 8)
+# the tiled VAE's image: 2048 x 1536 at tile 1024, overlap 256 is 2 x 3 =
+# 6 tiles, one tile batch
+TILED_W, TILED_H, TILE, OVERLAP = 2048, 1536, 1024, 256
+# the bucketed dataset: (w, h) -> the bucket the JAX package assigns
+BUCKET_IMAGES = {(1408, 1152): (704, 576), (1024, 768): (768, 576),
+                 (1024, 1024): (512, 512)}
+# the JAX package's chroma bound on tag probabilities, RGB against YUV
+# 4:2:0 on the same images (tests/test_yuv.py, the loader/classify test)
+YUV_PROB_BOUND = 0.05
+
+
+def _rnd_dev(g, *shape, scale=1.0, shift=0.0):
+    """Seeded normal tensor made on the card (``g`` a CUDA generator),
+    rounded to bf16-representable fp32 values: the 2^31-element inputs
+    would take seconds to draw on the host."""
+    import torch
+
+    t = torch.randn(*shape, generator=g, device=DEVICE)
+    return (t.mul_(scale).add_(shift)).bfloat16().float()
+
+
+def _tile_bucket(results, name, label, chk, **timed):
+    """One case of the tile and bucket shapes under its kernel's
+    ``tile_bucket`` report: the worst errors of ``chk`` (a check of this
+    case alone) and the times."""
+    worst = {k: max(r[k] for r in chk.rows if k in r)
+             for k in ("rel_err_fp32", "rel_err_bf16", "abs_err_fp32",
+                       "abs_err_bf16") if any(k in r for r in chk.rows)}
+    results[name].setdefault("tile_bucket", {})[label] = dict(worst, **timed)
+
+
+def phase_tile_bucket_kernels(results):
+    """The kernels at the shapes that the tiled VAE and the buckets give
+    them, each
+    against its plain version in the dtypes it runs, timed beside it and
+    the library call:
+
+    - a tile batch of 8 at 1024^2: B' and B'' at the decoder's 256->128
+      conv (x of 2^31 elements) and the 1x1 shortcut from 256 channels (a
+      residual of 2^31 elements), the stats pass and A on the 2^31-element
+      activation, in both dtypes;
+    - the 704x576 bucket: B' and B'' at the encoder's first ResnetBlock
+      conv at B=3 (W != H); C', C'', D', E', D'' and E'' at B=3,
+      S=6,336, D=512 (S no multiple of 128);
+    - C' and C'' at B=8, S=16,384 (a tile batch's mid-block)."""
+    import torch
+    import torch.nn.functional as F
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.ops.attention import (
+        bwd_delta,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
+    from vae_tagger_tpu_torch.ops.conv import gn_silu_conv3x3
+    from vae_tagger_tpu_torch.ops.normalization import (
+        group_norm_affine,
+        group_norm_silu,
+    )
+
+    log("the tile and bucket shapes: a tile batch of 8 at 1024^2 (2^31-element "
+        "activations), the 704x576 bucket (W != H, S=6,336) and C at B=8, "
+        "S=16,384")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    conv_dts = {"gn_silu_conv3x3_tc": torch.bfloat16,
+                "gn_silu_conv3x3_tf32x3": torch.float32}
+    for n, h, w, cin, cout, variant, cres in (TILED_B_CASES
+                                              + [BUCKET_B_CASE]):
+        x = _rnd_dev(g, n, h, w, cin)
+        gs = _rnd_dev(g, cin, scale=0.2, shift=1.0)
+        gb = _rnd_dev(g, cin, scale=0.1)
+        k = _rnd_dev(g, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        b = _rnd_dev(g, cout, scale=0.1)
+        res = _rnd_dev(g, n, h, w, cres) if cres else None
+        sck = (_rnd_dev(g, cres, cout, scale=cres ** -0.5)
+               if variant == "shortcut" else None)
+        scb = _rnd_dev(g, cout, scale=0.1) if variant == "shortcut" else None
+        xs, rs = _both(x), _both(res)
+        del x, res
+        label = (f"N={n} {h}x{w} {cin}->{cout} {variant}"
+                 + (f" Cres={cres}" if variant == "shortcut" else ""))
+        big = max(n * h * w * cin, n * h * w * (cres or 0))
+        log(f"  {label}: largest input {big} elements "
+            f"({'2^31' if big == 2 ** 31 else 'under 2^31'})")
+
+        def op(dt):
+            return gn_silu_conv3x3(xs[dt], gs, gb, k, b, rs[dt], sck, scb,
+                                   num_groups=GROUPS)
+
+        m = n * h * w
+        k_dim = 9 * cin + (cres if variant == "shortcut" else 0)
+        for name, dt in conv_dts.items():
+            chk = Check(name, ("bf16",) if dt == torch.bfloat16 else
+                        ("fp32",))
+            chk.run(label, op)
+            w_oihw = k.to(dt).permute(3, 2, 0, 1).contiguous()
+            sc_oihw = (None if sck is None
+                       else sck.to(dt).t()[:, :, None, None].contiguous())
+
+            def library(dt=dt, w_oihw=w_oihw, sc_oihw=sc_oihw):
+                y = F.silu(F.group_norm(xs[dt].permute(0, 3, 1, 2), GROUPS,
+                                        gs.to(dt), gb.to(dt), 1e-6))
+                out = F.conv2d(y, w_oihw, b.to(dt), padding=1)
+                if sc_oihw is not None:
+                    out = out + F.conv2d(rs[dt].permute(0, 3, 1, 2), sc_oihw,
+                                         scb.to(dt))
+                elif rs[dt] is not None:
+                    out = out + rs[dt].permute(0, 3, 1, 2)
+                return out
+
+            ms, plain_ms, lib_ms = time_kernel(op, dt, library)
+            esize = 2.0 if dt == torch.bfloat16 else 4.0
+            flops = 2.0 * m * k_dim * cout
+            nbytes = esize * (m * cin + m * cout + (m * cres if cres else 0)
+                              + k_dim * cout)
+            b_ms, b_by = (bound(nbytes, flops) if dt == torch.bfloat16
+                          else _fp32_bounds(nbytes, flops)[1])
+            log(f"  {name} {label}: {ms:.3f} ms (bound {b_ms:.3f}, "
+                f"{b_ms / ms:.1%}, {b_by}), plain {plain_ms:.3f}, cuDNN "
+                f"{lib_ms:.3f}")
+            _tile_bucket(results, name, label, chk, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    launches_per_call=1)
+            torch.cuda.empty_cache()
+        # the stats pass and A on the 2^31-element activation (x of the
+        # decoder's 256->128 conv)
+        big_t, c_big = xs, cin
+        if variant == "plain" and n == TILE_BATCH:
+            gsb = _rnd_dev(g, c_big, scale=0.2, shift=1.0)
+            gbb = _rnd_dev(g, c_big, scale=0.1)
+            for name in ("group_stats", "group_norm_silu"):
+                chk = Check(name)
+                a_label = f"N={n} {h}x{w} C={c_big}"
+
+                def gop(dt, name=name):
+                    if name == "group_stats":
+                        return group_norm_affine(big_t[dt], gsb, gbb,
+                                                 num_groups=GROUPS)
+                    return group_norm_silu(big_t[dt], gsb, gbb,
+                                           num_groups=GROUPS)
+
+                chk.run(a_label, gop)
+                for dt in (torch.bfloat16, torch.float32):
+                    xd = big_t[dt]
+                    nbytes = xd.numel() * xd.element_size() * (
+                        1 if name == "group_stats" else 2)
+
+                    def library(xd=xd, dt=dt, name=name):
+                        if name == "group_stats":
+                            return torch.var_mean(
+                                xd.view(n, h * w, GROUPS, -1).float(),
+                                dim=(1, 3), correction=0)
+                        return F.silu(F.group_norm(
+                            xd.permute(0, 3, 1, 2), GROUPS, gsb.to(dt),
+                            gbb.to(dt), 1e-6))
+
+                    ms, plain_ms, lib_ms = time_kernel(gop, dt, library)
+                    b_ms = nbytes / PEAK_BYTES * 1e3
+                    key = str(dt).removeprefix("torch.")
+                    log(f"  {name} {a_label} {key}: {ms:.3f} ms (bound "
+                        f"{b_ms:.3f}, {b_ms / ms:.0%}), plain "
+                        f"{plain_ms:.3f}, library {lib_ms:.3f}")
+                    _tile_bucket(results, name, f"{a_label} {key}", chk, ms=ms,
+                            plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=b_ms, bound_by="bytes",
+                            launches_per_call=(1 if name == "group_stats"
+                                               else 2))
+                    torch.cuda.empty_cache()
+        del xs, rs, big_t
+        torch.cuda.empty_cache()
+
+    # attention: the bucket's ragged S forward and backward, the tile
+    # batch's forward
+    d = 512
+    fwd = {"flash_attention_fwd_tc": torch.bfloat16,
+           "flash_attention_fwd_tf32x3": torch.float32}
+    bwd = {"flash_attention_bwd_dq_tc": ("dq", torch.bfloat16),
+           "flash_attention_bwd_dkv_tc": ("dkv", torch.bfloat16),
+           "flash_attention_bwd_dq_tf32x3": ("dq", torch.float32),
+           "flash_attention_bwd_dkv_tf32x3": ("dkv", torch.float32)}
+    parts = {"dq": flash_attention_bwd_dq, "dkv": flash_attention_bwd_dkv}
+    for b, s, with_bwd in ((TRAIN_ROWS, RAGGED_S, True),
+                           (TILE_BATCH, (RES // 8) ** 2, False)):
+        q, k, v, do = (_rnd_dev(g, b, s, d) for _ in range(4))
+        ins = {dt: tuple(t.to(dt) for t in (q, k, v, do))
+               for dt in (torch.float32, torch.bfloat16)}
+        label = f"B={b} S={s}"
+        for name, dt in fwd.items():
+            chk = Check(name, ("bf16",) if dt == torch.bfloat16 else
+                        ("fp32",))
+
+            def op(dt_):
+                return flash_attention_fwd(*ins[dt_][:3])
+
+            chk.run(label, op)
+            esize = 2.0 if dt == torch.bfloat16 else 4.0
+            ms, plain_ms, lib_ms = time_kernel(
+                op, dt, lambda dt=dt: sdpa(*ins[dt][:3]))
+            nbytes = esize * 4 * b * s * d + 4.0 * b * s
+            flops = 4.0 * b * s * s * d
+            b_ms, b_by = (bound(nbytes, flops) if dt == torch.bfloat16
+                          else _fp32_bounds(nbytes, flops)[1])
+            log(f"  {name} {label}: {ms:.3f} ms (bound {b_ms:.3f}, "
+                f"{b_ms / ms:.1%}), plain {plain_ms:.3f}, SDPA {lib_ms:.3f}")
+            _tile_bucket(results, name, label, chk, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    launches_per_call=1)
+        if with_bwd:
+            with backend.backend("torch"):
+                o, lse = flash_attention_fwd(q, k, v)
+            delta = bwd_delta(o, do)
+            lib_ms = {}
+            for dt in (torch.bfloat16, torch.float32):
+                with torch.enable_grad():
+                    qb, kb, vb = (t.detach().requires_grad_()
+                                  for t in ins[dt][:3])
+                    out = sdpa(qb, kb, vb)
+                    dob = ins[dt][3][:, None]
+                    lib_ms[dt] = time_ms(lambda: torch.autograd.grad(
+                        out, (qb, kb, vb), dob, retain_graph=True))
+                    del out, qb, kb, vb
+            for name, (part, dt) in bwd.items():
+                chk = Check(name, ("bf16",) if dt == torch.bfloat16 else
+                            ("fp32",))
+
+                def call(dt_, part=part):
+                    out = parts[part](*ins[dt_], lse, delta)
+                    return out if isinstance(out, tuple) else (out,)
+
+                chk.run(label, call)
+                ms, plain_ms, _ = time_kernel(call, dt)
+                esize = 2.0 if dt == torch.bfloat16 else 4.0
+                nbytes = (esize * 4 * b * s * d + 4.0 * 2 * b * s
+                          + esize * (1 if part == "dq" else 2) * b * s * d)
+                flops = (6.0 if part == "dq" else 8.0) * b * s * s * d
+                b_ms, b_by = (bound(nbytes, flops) if dt == torch.bfloat16
+                              else _fp32_bounds(nbytes, flops)[1])
+                log(f"  {name} {label}: {ms:.3f} ms (bound {b_ms:.3f}, "
+                    f"{b_ms / ms:.1%}), plain {plain_ms:.3f}; SDPA's whole "
+                    f"backward {lib_ms[dt]:.3f}")
+                _tile_bucket(results, name, label, chk, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms[dt], bound_ms=b_ms, bound_by=b_by,
+                        launches_per_call=2 if part == "dkv" else 1)
+            del o, lse, delta
+        del q, k, v, do, ins
+        torch.cuda.empty_cache()
+
+
+def _seeded_png(path, w, h, seed):
+    """A seeded smooth-plus-noise RGB image of w x h, saved as PNG."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(w, h)
+    phase = rng.uniform(0, 2 * np.pi, size=3)
+    freq = rng.uniform(2, 12, size=3)
+    img = np.stack([np.sin(freq[c] * (xx + yy * (c + 1)) * np.pi + phase[c])
+                    for c in range(3)], -1) * 100 + 128
+    img += rng.normal(0, 20, size=img.shape)
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    Image.fromarray(img).save(path)
+    return img
+
+
+def _photo_png(path, w, h, seed):
+    """A seeded photo-like RGB image (smooth content, noise of sigma 3: the
+    JAX package's YUV test image, tests/test_yuv.py), saved as PNG."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    ph = rng.uniform(0, 2 * np.pi, size=3)
+    base = np.stack([128 + 100 * np.sin(xx / 9.0 + ph[0]) * np.cos(yy / 13.0),
+                     128 + 90 * np.cos(xx / 17.0 + ph[1]),
+                     128 + 80 * np.sin((xx + yy) / 11.0 + ph[2])], axis=-1)
+    img = np.clip(base + rng.normal(0, 3, size=(h, w, 3)), 0, 255)
+    Image.fromarray(img.astype(np.uint8)).save(path)
+
+
+def _mse(a, b):
+    import numpy as np
+
+    return float(np.mean((np.asarray(a, np.float64)
+                          - np.asarray(b, np.float64)) ** 2))
+
+
+def phase_tiled(art):
+    """The tiled VAE on a seeded 2048x1536 image (tile 1024, overlap 256:
+    six tiles, one batch of 8 for the encode and one for the decode),
+    through ``TiledVAE`` on the seeded full-width VAE:
+
+    - the exact launches of one tile batch (encode A 2, stats 20, B 20,
+      C 1; decode A 2, stats 28, B 28, C 1), wall time and peak device
+      memory of the encode and the decode, fp32 and bf16;
+    - fp32: the kernel path against the plain path on the same tiles,
+      latents MSE < 1e-10 and pixels (decoding the same latents) MSE <
+      1e-10; bf16: the kernel path against the plain fp32 path within 4x
+      the plain bf16 path's own MSE;
+    - a seeded 1024^2 image (one tile) against ``VAEOnlyEngine.encode``:
+      MSE < 1e-10 in fp32;
+    - ``python -m vae_tagger_tpu_torch.infer.latents --tiled`` and
+      ``python -m vae_tagger_tpu_torch.infer.reconstruct --tiled`` on the
+      2048x1536 image: the latents equal the tiled encode's, and the
+      reconstruction prints a finite PSNR."""
+    import numpy as np
+    import torch
+    from vae_tagger_tpu_torch.core.precision import FP32
+    from vae_tagger_tpu_torch.infer.engine import VAEOnlyEngine
+    from vae_tagger_tpu_torch.infer.latents import (
+        flatten_latent_torch_order,
+    )
+    from vae_tagger_tpu_torch.infer.latents import main as latents_main
+    from vae_tagger_tpu_torch.infer.reconstruct import main as recon_main
+    from vae_tagger_tpu_torch.infer.tiled import TiledVAE
+    from vae_tagger_tpu_torch.io.checkpoints import load_vae
+    from vae_tagger_tpu_torch.ops import backend
+
+    from vae_tagger_tpu_torch.infer.tiled import tile_starts
+
+    rows, cols = (len(tile_starts(n, TILE, TILE - OVERLAP))
+                  for n in (TILED_H, TILED_W))
+    log(f"tiled VAE: a seeded {TILED_W}x{TILED_H} image, tile {TILE}, "
+        f"overlap {OVERLAP} ({rows} x {cols} = {rows * cols} tiles, one "
+        f"batch of {TILE_BATCH}), fp32 and bf16, kernel path against the "
+        f"plain path")
+    assert rows * cols <= TILE_BATCH
+    d = WORK / "tiled"
+    d.mkdir(parents=True, exist_ok=True)
+    img = _seeded_png(d / "big.png", TILED_W, TILED_H, SEED + 20)
+    vae = load_vae(art["vae"], art["config"], with_decoder=True).to(
+        DEVICE).eval()
+    out = {}
+    z, px = {}, {}
+    for key, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        tiler = TiledVAE(vae, TILE, OVERLAP, TILE_BATCH, dt)
+        for what, fn, expect in (
+                ("encode", lambda: tiler.encode(img), ENCODE_LAUNCHES[key]),
+                ("decode", lambda: tiler.decode(z["fp32"]),
+                 DECODE_LAUNCHES[key])):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            backend.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = backend.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            assert counts == _expected(expect, 1), (key, what, counts)
+            assert np.isfinite(res).all(), (key, what)
+            (z if what == "encode" else px)[key] = res
+            # a second call, warm
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            out[f"{what}_{key}"] = dict(launches=counts, wall_s=wall,
+                                        warm_wall_s=warm,
+                                        peak_mem_bytes=peak)
+            log(f"  tiled {what}, {key}: {wall:.3f} s cold, {warm:.3f} s "
+                f"warm (one tile batch of {TILE_BATCH}, host blend "
+                f"included), peak device memory {peak / 2**30:.2f} GiB; "
+                f"launches {({k: c for k, c in counts.items() if c})}")
+    with backend.backend("torch"):
+        pz32 = TiledVAE(vae, TILE, OVERLAP, TILE_BATCH).encode(img)
+        ppx32 = TiledVAE(vae, TILE, OVERLAP, TILE_BATCH).decode(z["fp32"])
+        pz16 = TiledVAE(vae, TILE, OVERLAP, TILE_BATCH,
+                        torch.bfloat16).encode(img)
+        ppx16 = TiledVAE(vae, TILE, OVERLAP, TILE_BATCH,
+                         torch.bfloat16).decode(z["fp32"])
+    assert z["fp32"].shape == (TILED_H // 8, TILED_W // 8, 16)
+    assert px["fp32"].shape == (TILED_H, TILED_W, 3)
+    gates = dict(
+        latents_mse_fp32=_mse(z["fp32"], pz32),
+        pixels_mse_fp32=_mse(px["fp32"], ppx32),
+        latents_mse_bf16=_mse(z["bf16"], pz32),
+        latents_mse_bf16_plain=_mse(pz16, pz32),
+        pixels_mse_bf16=_mse(px["bf16"], ppx32),
+        pixels_mse_bf16_plain=_mse(ppx16, ppx32))
+    log(f"  tiled gates: fp32 latents MSE {gates['latents_mse_fp32']:.3e}, "
+        f"pixels {gates['pixels_mse_fp32']:.3e} (gate 1e-10); bf16 latents "
+        f"{gates['latents_mse_bf16']:.3e} vs the plain bf16 path's "
+        f"{gates['latents_mse_bf16_plain']:.3e}, pixels "
+        f"{gates['pixels_mse_bf16']:.3e} vs "
+        f"{gates['pixels_mse_bf16_plain']:.3e} (gate 4x)")
+    assert gates["latents_mse_fp32"] < 1e-10, gates
+    assert gates["pixels_mse_fp32"] < 1e-10, gates
+    assert gates["latents_mse_bf16"] <= 4 * gates["latents_mse_bf16_plain"]
+    assert gates["pixels_mse_bf16"] <= 4 * gates["pixels_mse_bf16_plain"]
+    del pz32, ppx32, pz16, ppx16
+
+    one = _seeded_png(d / "one.png", RES, RES, SEED + 21)
+    zt = TiledVAE(vae, TILE, OVERLAP, TILE_BATCH).encode(one)
+    ze = VAEOnlyEngine(vae, FP32, DEVICE).encode(one[None])[0]
+    gates["one_tile_vs_engine_mse"] = _mse(zt, ze)
+    log(f"  one {RES}^2 tile through TiledVAE vs VAEOnlyEngine.encode: MSE "
+        f"{gates['one_tile_vs_engine_mse']:.3e} (gate 1e-10)")
+    assert gates["one_tile_vs_engine_mse"] < 1e-10, gates
+    del vae
+    torch.cuda.empty_cache()
+
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = latents_main([
+        "--vae_checkpoint", art["vae"], "--vae_config_path", art["config"],
+        "--image_path", str(d / "big.png"), "--output_dir",
+        str(d / "latents"), "--tiled", "--tile_size", str(TILE),
+        "--tile_overlap", str(OVERLAP), "--output_format", "npz",
+        "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = backend.launch_counts()
+    assert counts == _expected(ENCODE_LAUNCHES["fp32"], 1), counts
+    flat = got[str(d / "big.png")]
+    err = _mse(flat, flatten_latent_torch_order(z["fp32"]))
+    log(f"  latents CLI --tiled: {wall:.2f} s (load included), "
+        f"{flat.size} floats, MSE {err:.3e} against the tiled encode")
+    assert flat.size == z["fp32"].size and err < 1e-10, err
+    out["latents_cli"] = dict(wall_s=wall, launches=counts)
+
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = recon_main([
+        "--vae_checkpoint", art["vae"], "--vae_config_path", art["config"],
+        "--image_path", str(d / "big.png"), "--output_dir",
+        str(d / "recon"), "--tiled", "--tile_size", str(TILE),
+        "--tile_overlap", str(OVERLAP), "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = backend.launch_counts()
+    assert counts == _expected(_plus(ENCODE_LAUNCHES["fp32"],
+                                     DECODE_LAUNCHES["fp32"]), 1), counts
+    assert np.isfinite(rec["psnr"]) and rec["latent_shape"] == (
+        1, TILED_H // 8, TILED_W // 8, 16), rec
+    log(f"  reconstruct CLI --tiled: {wall:.2f} s (load included), PSNR "
+        f"{rec['psnr']:.3f} dB, MSE {rec['mse']:.6f} (random weights), "
+        f"compression {rec['compression']:.2f}:1")
+    out["reconstruct_cli"] = dict(wall_s=wall, launches=counts, **rec)
+    return dict(out, gates=gates)
+
+
+def phase_train_decoder(art, json_path):
+    """``python -m vae_tagger_tpu_torch.train.train_decoder`` on the 8
+    images: 2 epochs, batch 4, ``--cache_latents``, warm-started from the
+    head checkpoint, in bf16 and in fp32, then once with
+    ``--transfer_format yuv420 --cache_latents`` (bf16).  7 training
+    images make 2 batches and 1 validation image 1 (filled to 4 rows).
+    Checks of each run: the exact launches (one encode per batch of epoch
+    1: 3 x (A 2, stats 20, B 20, C 1); epoch 2 and the final phase none;
+    no D or E anywhere), finite losses, every head parameter changed,
+    every VAE tensor as loaded, the final phase read the cache alone, the
+    exports classify through ``TaggerEngine``.  Then the steady step time
+    without and with the cache (images/s, peak memory) on one batch."""
+    import numpy as np
+    import torch
+    from vae_tagger_tpu_torch.data.dataset import TaggedImageDataset
+    from vae_tagger_tpu_torch.data.loader import DataLoader, train_val_split
+    from vae_tagger_tpu_torch.infer.engine import TaggerEngine
+    from vae_tagger_tpu_torch.io.checkpoints import load_state_file
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.train import train_decoder
+    from vae_tagger_tpu_torch.train.steps import DecoderSteps
+
+    log("train_decoder: python -m vae_tagger_tpu_torch.train.train_decoder, "
+        f"frozen full-width VAE, {N_IMAGES} {RES}px images, 2 epochs, batch "
+        f"{BATCH}, --cache_latents, bf16 and fp32, then yuv420 in bf16")
+    n_train, n_val = (len(ix) for ix in train_val_split(N_IMAGES, 0.1,
+                                                        seed=SEED or 42))
+    val_batches = -(-n_val // BATCH)
+    batches = -(-n_train // BATCH) + val_batches
+    vae_before = load_state_file(art["vae"])
+    head_before = torch.load(art["decoder"], weights_only=True)
+    seen = {}
+    real_init = DecoderSteps.__init__
+    real_cache = train_decoder.LatentCache
+
+    class Cache(real_cache):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen["cache"] = self
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        seen["steps"] = self
+
+    report = {}
+    DecoderSteps.__init__ = init
+    train_decoder.LatentCache = Cache
+    try:
+        for key, precision, flags in (
+                ("bf16", "bf16", ()), ("fp32", "no", ()),
+                ("yuv420_bf16", "bf16", ("--transfer_format", "yuv420"))):
+            out = WORK / f"train_decoder_{key}"
+            argv = ["--json_path", json_path, "--tags_csv_path",
+                    art["tags"], "--vae_checkpoint", art["vae"],
+                    "--vae_config_path", art["config"], "--decoder_checkpoint",
+                    art["decoder"], "--output_dir", str(out),
+                    "--resolution", str(RES), "--train_batch_size",
+                    str(BATCH), "--num_epochs", "2", "--mixed_precision",
+                    precision, "--lr_warmup_steps", "0", "--save_steps", "1",
+                    "--logging_steps", "1", "--num_workers", "4", "--seed",
+                    str(SEED), "--cache_latents", "--device", DEVICE, *flags]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            backend.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = train_decoder.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = backend.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            enc = ENCODE_LAUNCHES["bf16" if precision == "bf16" else "fp32"]
+            expect = _expected(enc, batches)
+            log(f"  train_decoder {key}: {wall:.2f} s (load, 2 epochs, "
+                f"exports and the final phase), peak device memory "
+                f"{peak / 2**30:.2f} GiB; launches "
+                f"{({k: c for k, c in counts.items() if c})}")
+            assert counts == expect, (key, counts, expect)
+            cache = seen["cache"]
+            assert (cache.hits, cache.misses) == (val_batches, 0), (
+                cache.hits, cache.misses)
+            assert len(cache.latents) == N_IMAGES, len(cache.latents)
+            history = json.loads((out / "training_history.json").read_text())
+            values = history["train_loss"] + history["val_loss"]
+            assert len(history["train_loss"]) == 2 and np.isfinite(
+                values).all(), history
+            after = torch.load(out / "pytorch_model.bin", weights_only=True)
+            names = [n for n, _ in state.decoder.named_parameters()]
+            same = [n for n in names if torch.equal(after[n],
+                                                    head_before[n])]
+            assert not same, same[:5]
+            vae_now = {k: v.cpu() for k, v in
+                       seen["steps"].vae.state_dict().items()}
+            moved = [k for k, v in vae_now.items()
+                     if not torch.equal(v, vae_before[k])]
+            assert not moved and set(state.optimizer.params) == set(
+                state.decoder.parameters()), moved[:5]
+            for f in ("best_pytorch_model.bin", "optimal_thresholds.json",
+                      "evaluation_results.csv",
+                      "evaluation_results_overall.json"):
+                assert (out / f).exists(), f
+            log(f"  train_decoder {key}: losses train "
+                f"{history['train_loss']}, val {history['val_loss']}; "
+                f"head {len(names)}/{len(names)} parameters changed, VAE "
+                f"{len(vae_now)} tensors as loaded; the final phase read "
+                f"{cache.hits} cached batch(es), encoded {cache.misses}")
+            report[key] = dict(wall_s=wall, launches=counts,
+                               expected_launches=expect,
+                               peak_mem_bytes=peak, history=history,
+                               cached_samples=len(cache.latents),
+                               cache_bytes=cache.bytes)
+            del state
+            seen.clear()
+            torch.cuda.empty_cache()
+    finally:
+        DecoderSteps.__init__ = real_init
+        train_decoder.LatentCache = real_cache
+
+    out16 = WORK / "train_decoder_bf16"
+    eng = TaggerEngine.load(
+        vae_checkpoint=art["vae"], vae_config_path=art["config"],
+        decoder_checkpoint=str(out16 / "best_pytorch_model.bin"),
+        tags_csv_path=art["tags"], mixed_precision="bf16", device=DEVICE)
+    dataset = TaggedImageDataset(json_path, art["tags"], RES, seed=SEED,
+                                 return_triplets=False)
+    batch = next(iter(DataLoader(dataset, BATCH, shuffle=False,
+                                 num_workers=4)))
+    probs = eng.classify(batch["pixel_values"])
+    assert probs.shape == (BATCH, NUM_TAGS) and np.isfinite(probs).all()
+    log(f"  the bf16 export classifies through TaggerEngine: max "
+        f"probability {probs.max():.4f}")
+    del eng
+
+    # steady steps: the encode + head step, and the head step on cached
+    # latents
+    from vae_tagger_tpu_torch.infer.engine import build_decoder
+    from vae_tagger_tpu_torch.io.checkpoints import load_decoder, load_vae
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.train.schedule import build_lr_schedule
+    from vae_tagger_tpu_torch.train.state import TrainState, build_optimizer
+
+    vae = load_vae(art["vae"], art["config"]).to(DEVICE).eval()
+    vae.requires_grad_(False)
+    for key, dt, iters in (("bf16", torch.bfloat16, 10),
+                           ("fp32", torch.float32, 4)):
+        head = load_decoder(build_decoder(NUM_TAGS, True, None, 16, SEED),
+                            art["decoder"]).to(DEVICE)
+        opt = build_optimizer(head.parameters(),
+                              build_lr_schedule("constant", 1e-4, 0, 100))
+        state = TrainState(vae=None, decoder=head, optimizer=opt)
+        steps = DecoderSteps(vae, LossConfig(), compute_dtype=dt, seed=SEED)
+        times = {}
+        dev = steps.to_device(batch)
+        latents = steps.encode_batch(dev)
+        for name, fn in (
+                ("encode", lambda i: steps.train_step(state, batch, i)),
+                ("cached", lambda i: steps.train_step_from_latents(
+                    state, latents, dev["labels"], i))):
+            fn(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                fn(1 + i)
+            torch.cuda.synchronize()
+            step_s = (time.perf_counter() - t0) / iters
+            times[name] = dict(step_s=step_s,
+                               images_per_s=BATCH / step_s,
+                               peak_mem_bytes=torch.cuda
+                               .max_memory_allocated())
+        log(f"  steady train_decoder step, {key}, batch {BATCH}: encode + "
+            f"head {times['encode']['step_s'] * 1e3:.2f} ms "
+            f"({times['encode']['images_per_s']:.2f} images/s, peak "
+            f"{times['encode']['peak_mem_bytes'] / 2**30:.2f} GiB); from "
+            f"cached latents {times['cached']['step_s'] * 1e3:.2f} ms "
+            f"({times['cached']['images_per_s']:.2f} images/s, peak "
+            f"{times['cached']['peak_mem_bytes'] / 2**30:.2f} GiB); host "
+            f"clock, {iters} steps")
+        report[key]["steady"] = times
+        del head, opt, state, steps, latents, dev
+        torch.cuda.empty_cache()
+    del vae
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_buckets(art):
+    """Aspect-ratio buckets and the YUV 4:2:0 wire format:
+
+    - seeded PNGs at 1408x1152, 1024x768 and 1024x1024 go to the buckets
+      (704, 576), (768, 576) and (512, 512);
+    - ``train_full --use_bucketing`` and ``train_vae --use_bucketing`` for
+      one epoch at batch 1, bf16 and fp32 (``_train_cli``: the exact
+      launches of every step as at 1024px, one bucket a batch);
+    - the fp32 gradient gate of train_full on the 704x576 triplet;
+    - the infer CLI on the 8 images at 1024px with ``--transfer_format
+      yuv420``, bf16 and fp32, against its RGB run: every probability
+      within YUV_PROB_BOUND, the exact launches;
+    - ``yuv420_to_rgb_uint8`` on the card against the same function on
+      the CPU: at most 1 apart, equal on >= 99.9% of values."""
+    import numpy as np
+    import torch
+    from vae_tagger_tpu_torch.data.bucketing import load_and_transform_image_yuv
+    from vae_tagger_tpu_torch.data.dataset import TaggedImageDataset
+    from vae_tagger_tpu_torch.data.loader import DataLoader
+    from vae_tagger_tpu_torch.data.paths import get_image_paths
+    from vae_tagger_tpu_torch.infer.__main__ import main as infer_main
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.ops.image import yuv420_to_rgb_uint8
+
+    log("buckets: three seeded images at 1408x1152, 1024x768, 1024x1024; "
+        "train_full and train_vae --use_bucketing, bf16 and fp32; the "
+        "bucketed fp32 gradient gate; the infer CLI with --transfer_format "
+        "yuv420")
+    d = WORK / "buckets"
+    (d / "images").mkdir(parents=True, exist_ok=True)
+    data = {}
+    for i, (w, h) in enumerate(BUCKET_IMAGES):
+        p = d / "images" / f"b{i}_{w}x{h}.png"
+        _seeded_png(p, w, h, SEED + 30 + i)
+        data[str(p)] = ", ".join(f"tag_{t}:0.9" for t in (i, i + 1, 7))
+    json_path = d / "data.json"
+    json_path.write_text(json.dumps(data, indent=1))
+    ds = TaggedImageDataset(str(json_path), art["tags"], RES, seed=SEED,
+                            use_bucketing=True)
+    got = {_image_size(p): ds.bucket_of(i)
+           for i, p in enumerate(ds.image_paths)}
+    log(f"  bucket assignment: {got}")
+    assert got == BUCKET_IMAGES, got
+    report = {"buckets": {f"{w}x{h}": list(b) for (w, h), b in got.items()}}
+    # the 704x576 triplet, its members in the anchor's bucket
+    idx = next(i for i, p in enumerate(ds.image_paths)
+               if ds.bucket_of(i) == BUCKET)
+    batch = next(iter(DataLoader(ds, 1, shuffle=False, num_workers=3,
+                                 indices=[idx])))
+    shape = (1, BUCKET[1], BUCKET[0], 3)
+    assert all(batch[k].shape == shape
+               for k in ("anchor", "positive", "negative")), shape
+    for trainer in ("train_full", "train_vae"):
+        for precision, dt, iters in (("bf16", torch.bfloat16, 10),
+                                     ("no", torch.float32, 4)):
+            key = "bf16" if precision == "bf16" else "fp32"
+            state, _, rep = _train_cli(art, str(json_path), precision,
+                                       trainer, ("--use_bucketing",),
+                                       n_images=len(BUCKET_IMAGES))
+            if trainer == "train_full":  # its steady step at 704x576
+                step_s, peak, _ = _steady_step(state, batch, dt, iters, 1000)
+                log(f"  steady train_full step at {BUCKET[0]}x{BUCKET[1]}, "
+                    f"{key}: {step_s * 1e3:.1f} ms, "
+                    f"{TRAIN_ROWS / step_s:.3f} images/s (host clock, "
+                    f"{iters} steps), peak device memory "
+                    f"{peak / 2**30:.2f} GiB")
+                rep.update(step_s=step_s, images_per_s=TRAIN_ROWS / step_s,
+                           step_peak_mem_bytes=peak)
+            report[f"{trainer}_{key}"] = rep
+            del state
+            torch.cuda.empty_cache()
+    report["gradient_gate"] = _gradient_gate(art, batch)
+
+    # the infer CLI, RGB against YUV 4:2:0, bf16 and fp32, on photo-like
+    # images: the JAX package's bound holds for band-limited chroma (its
+    # test images, smooth content with noise of sigma 3); 4:2:0 drops by
+    # design the chroma of the training images' per-pixel noise of sigma 20
+    photos = d / "photos"
+    photos.mkdir(exist_ok=True)
+    for i in range(N_IMAGES):
+        _photo_png(photos / f"photo_{i:02d}.png", RES, RES, SEED + 40 + i)
+    paths = [str(p) for p in get_image_paths(str(photos))]
+    n_batches = -(-N_IMAGES // BATCH)
+    probs = {}
+    for key, precision in (("bf16", "bf16"), ("fp32", "no")):
+        for fmt in ("rgb", "yuv420"):
+            backend.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = infer_main([
+                "--vae_checkpoint", art["vae"], "--vae_config_path",
+                art["config"], "--decoder_checkpoint", art["decoder"],
+                "--image_path", str(photos), "--tags_csv_path",
+                art["tags"], "--output_dir", str(d / f"infer_{key}_{fmt}"),
+                "--resolution", str(RES), "--batch_size", str(BATCH),
+                "--num_workers", "4", "--mixed_precision", precision,
+                "--confidence_threshold", "0", "--transfer_format", fmt,
+                "--device", DEVICE])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = backend.launch_counts()
+            assert counts == _expected(ENCODE_LAUNCHES[key], n_batches), \
+                (key, fmt, counts)
+            probs[key, fmt] = {p: {t["tag"]: t["confidence"]
+                                   for t in r["predicted_tags"]}
+                               for p, r in res.items()}
+            report[f"infer_{fmt}_{key}"] = dict(wall_s=wall,
+                                                launches=counts)
+            log(f"  infer CLI {fmt} {key}: {len(res)} images in "
+                f"{wall:.2f} s; launches "
+                f"{({k: c for k, c in counts.items() if c})}")
+        a, b = probs[key, "rgb"], probs[key, "yuv420"]
+        assert sorted(a) == sorted(b) == sorted(paths)
+        worst = max(abs(a[p][t] - b[p][t]) for p in a for t in a[p])
+        log(f"  {key}: largest |p_yuv420 - p_rgb| over {N_IMAGES} images x "
+            f"{NUM_TAGS} tags: {worst:.4f} (bound {YUV_PROB_BOUND}, the JAX "
+            f"package's chroma bound of tests/test_yuv.py)")
+        assert worst < YUV_PROB_BOUND, worst
+        report[f"yuv_prob_diff_{key}"] = worst
+    planes = [load_and_transform_image_yuv(p, RES) for p in paths]
+    y = torch.from_numpy(np.stack([p[0] for p in planes]))
+    c = torch.from_numpy(np.stack([p[1] for p in planes]))
+    on_card = yuv420_to_rgb_uint8(y.to(DEVICE), c.to(DEVICE)).cpu()
+    on_cpu = yuv420_to_rgb_uint8(y, c)
+    diff = (on_card.int() - on_cpu.int()).abs()
+    equal = (diff == 0).float().mean().item()
+    log(f"  yuv420_to_rgb_uint8 on the card vs the CPU over {N_IMAGES} "
+        f"{RES}px images: largest difference {diff.max().item()}, equal on "
+        f"{equal:.6%} (gate <= 1, >= 99.9%)")
+    assert diff.max().item() <= 1 and equal >= 0.999
+    report["yuv_device_vs_cpu"] = dict(max_diff=diff.max().item(),
+                                       equal_share=equal)
+    return report
+
+
+def _image_size(path):
+    """(width, height) of an image file, from its header."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return tuple(im.size)
+
+
 def main():
     import argparse
 
@@ -2680,6 +3498,15 @@ def main():
     report["full_loss"], _ = phase_full_loss(art, json_path)
     report["eval_latents"] = phase_eval_and_latents(art, json_path,
                                                     train_out)
+    torch.cuda.empty_cache()
+    with torch.no_grad():  # the backward's library call takes a graph
+        phase_tile_bucket_kernels(results)
+    torch.cuda.empty_cache()
+    report["tiled"] = phase_tiled(art)
+    torch.cuda.empty_cache()
+    report["train_decoder"] = phase_train_decoder(art, json_path)
+    torch.cuda.empty_cache()
+    report["buckets"] = phase_buckets(art)
     shutil.rmtree(WORK, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_device_breakdown(results)
@@ -2706,7 +3533,24 @@ def main():
                "train_full_full_loss_bf16": report["full_loss"]["launches"],
                "eval_fp32": report["eval_latents"]["eval"]["launches"],
                "latents_fp32":
-                   report["eval_latents"]["latents"]["launches"]}
+                   report["eval_latents"]["latents"]["launches"],
+               **{f"tiled_{what}_{k}": report["tiled"][f"{what}_{k}"][
+                   "launches"] for what in ("encode", "decode")
+                  for k in ("fp32", "bf16")},
+               "latents_tiled_fp32":
+                   report["tiled"]["latents_cli"]["launches"],
+               "reconstruct_tiled_fp32":
+                   report["tiled"]["reconstruct_cli"]["launches"],
+               **{f"train_decoder_{k}": report["train_decoder"][k][
+                   "launches"] for k in ("bf16", "fp32", "yuv420_bf16")},
+               **{f"{t}_bucketed_{k}": report["buckets"][f"{t}_{k}"][
+                   "launches"] for t in ("train_full", "train_vae")
+                  for k in ("bf16", "fp32")},
+               "grad_gate_bucketed_fp32":
+                   report["buckets"]["gradient_gate"]["launches"],
+               **{f"infer_yuv420_{k}": report["buckets"][
+                   f"infer_yuv420_{k}"]["launches"]
+                  for k in ("bf16", "fp32")}}
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -2734,7 +3578,9 @@ def main():
                                  "bound_ms_fp32", "pr1_ms", "pr1_ms_fp32")
                if k in r},
             **({"decoder": {k: v for k, v in r["decoder"].items()
-                            if k != "cases"}} if "decoder" in r else {})))
+                            if k != "cases"}} if "decoder" in r else {}),
+            **({"tile_bucket": r["tile_bucket"]} if "tile_bucket" in r
+               else {})))
     report["kernel_line"] = kernels
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

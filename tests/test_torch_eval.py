@@ -356,11 +356,17 @@ def test_eval_cli_val_split_and_fixed_threshold(eval_data):
 
 
 def test_eval_cli_refuses_bucketing_and_needs_a_gpu(eval_data, tmp_path):
+    """--use_bucketing runs on the CPU since bucketing was ported (the
+    36x36 images go to the square bucket of a 32..48 grid); without
+    --device cpu the CLI needs a GPU."""
     from vae_tagger_tpu_torch.eval.__main__ import main as eval_main
 
-    with pytest.raises(SystemExit, match="not ported"):
-        eval_main([*eval_data["argv"], "--output_dir", str(tmp_path),
-                   "--use_bucketing"])
+    got = eval_main([*eval_data["argv"], "--output_dir",
+                     str(tmp_path / "bucketed"), "--use_bucketing",
+                     "--base_resolution", "32", "--max_resolution", "48",
+                     "--bucket_step", "16"])
+    assert np.isfinite(got["f1_macro"])
+    assert (tmp_path / "bucketed" / "evaluation_results.csv").exists()
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")
     argv = [a for a in eval_data["argv"] if a not in ("--device", "cpu")]

@@ -3,8 +3,9 @@ against the JAX package's on the same checkpoint and images, on the CPU:
 ``flatten_latent_torch_order``, and the json and npz files of
 ``infer_and_save_latents`` (same keys; values within 1e-5, the fp32
 encoders' difference at latent scale); the CLI ``python -m
-vae_tagger_tpu_torch.infer.latents`` and its refusals; and that
-``VAEOnlyEngine`` holds no VAE decoder."""
+vae_tagger_tpu_torch.infer.latents`` with ``--tiled`` and
+``--transfer_format yuv420``; and that ``VAEOnlyEngine`` holds no VAE
+decoder."""
 
 import json
 
@@ -118,9 +119,28 @@ def test_cli_latents_equal_the_engine_and_refusals(workdir, tmp_path):
         np.testing.assert_array_equal(
             out[p], latents.flatten_latent_torch_order(zi))
     assert eng.vae.decoder is None
-    for flag in (["--tiled"], ["--transfer_format", "yuv420"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            latents.main([*argv, "--output_dir", str(tmp_path), *flag])
+    # --tiled and yuv420 run on the CPU: the tiled encode at the images'
+    # native 32x32 (tile 24, overlap 8: four tiles -> 4x4 latents), the
+    # YUV wire format through the engine's encode_yuv
+    from vae_tagger_tpu_torch.data.bucketing import (
+        load_and_transform_image_yuv,
+    )
+
+    tiled = latents.main([*argv, "--output_dir", str(tmp_path / "tiled"),
+                          "--tiled", "--tile_size", "24", "--tile_overlap",
+                          "8", "--output_format", "npz"])
+    assert sorted(tiled) == sorted(paths)
+    assert all(np.asarray(v).shape == (4 * 4 * 4,) and np.isfinite(v).all()
+               for v in tiled.values())
+    yuv = latents.main([*argv, "--output_dir", str(tmp_path / "yuv"),
+                        "--transfer_format", "yuv420", "--output_format",
+                        "npz"])
+    planes = [load_and_transform_image_yuv(p, 32) for p in paths]
+    zy = eng.encode_yuv(np.stack([y for y, _ in planes]),
+                        np.stack([c for _, c in planes]))
+    for p, zi in zip(paths, zy):
+        np.testing.assert_array_equal(
+            yuv[p], latents.flatten_latent_torch_order(zi))
     if not torch.cuda.is_available():
         cpu_free = [a for a in argv if a not in ("--device", "cpu")]
         with pytest.raises(RuntimeError, match="--device cpu"):

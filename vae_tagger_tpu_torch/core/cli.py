@@ -1,7 +1,8 @@
 """Argument groups of the port's CLIs (the port's copy of the functions in
 ``vae_tagger_tpu/core/cli.py`` that ``scripts/train_full.py``,
-``scripts/train_vae.py`` and ``scripts/evaluate.py`` use, and the loss
-flags of ``scripts/train_vae.py``), plus ``--device``.
+``scripts/train_vae.py``, ``scripts/train_decoder.py`` and
+``scripts/evaluate.py`` use, the loss flags of ``scripts/train_vae.py``
+and those of ``scripts/train_decoder.py``), plus ``--device``.
 
 The reference's quirks are kept: ``--use_attention`` and its two
 sub-flags are store_true with default True (``--no_attention`` turns the
@@ -44,7 +45,7 @@ def add_attention_args(p: argparse.ArgumentParser):
 
 def add_bucketing_args(p: argparse.ArgumentParser):
     p.add_argument("--use_bucketing", action="store_true",
-                   help="aspect-ratio bucketing (not ported yet: refused)")
+                   help="aspect-ratio bucketing: each batch is one bucket")
     p.add_argument("--base_resolution", type=int, default=512)
     p.add_argument("--max_resolution", type=int, default=1024)
     p.add_argument("--bucket_step", type=int, default=64)
@@ -98,7 +99,9 @@ def add_train_args(p: argparse.ArgumentParser, default_lr: float = 1e-4):
                    "yet: refused)")
     p.add_argument("--transfer_format", type=str, default="rgb",
                    choices=("rgb", "yuv420"),
-                   help="image wire format; only rgb is ported")
+                   help="host->device image wire format: yuv420 ships "
+                   "planar 4:2:0 (half of RGB's bytes) and turns it back "
+                   "into RGB on the device")
     p.add_argument("--val_draws", type=int, default=1,
                    help="average this many paired posterior draws per "
                    "validation batch")
@@ -142,15 +145,33 @@ def add_vae_loss_args(p: argparse.ArgumentParser):
                    choices=["cosine", "euclidean"])
 
 
-def refuse_unported(args) -> None:
-    """Raise for a flag whose path the port does not run yet."""
+def add_decoder_train_args(p: argparse.ArgumentParser):
+    """The loss and cache flags of ``scripts/train_decoder.py``."""
+    p.add_argument("--use_simplified_decoder_loss", action="store_true",
+                   default=True,
+                   help="(compat; parsed but unused, as in the reference)")
+    p.add_argument("--use_focal_loss", action="store_true")
+    p.add_argument("--use_class_balanced", action="store_true")
+    p.add_argument("--focal_alpha", type=float, default=1.0)
+    p.add_argument("--focal_gamma", type=float, default=2.0)
+    p.add_argument("--resume_from", type=str, default=None,
+                   help="a train-state checkpoint directory")
+    p.add_argument("--cache_latents", action="store_true",
+                   help="keep each sample's frozen-VAE latents in host "
+                   "memory after its first encode, so later epochs skip "
+                   "the encode (needs the deterministic center crop)")
+    p.add_argument("--cache_latents_max_gb", type=float, default=8.0,
+                   help="host-memory cap of --cache_latents; samples past "
+                   "it stay on the encode path")
+
+
+def refuse_unported(args, extra=()) -> None:
+    """Raise for a flag whose path the port does not run yet; ``extra``
+    adds (flag, is set) pairs of one CLI's own."""
     refused = [flag for flag, on in (
-        ("--use_bucketing", getattr(args, "use_bucketing", False)),
-        ("--transfer_format yuv420",
-         getattr(args, "transfer_format", "rgb") != "rgb"),
-        ("--tiled", getattr(args, "tiled", False)),
         ("--spatial_parallel", getattr(args, "spatial_parallel", False)),
         ("--profile_steps", bool(getattr(args, "profile_steps", 0))),
+        *extra,
     ) if on]
     if refused:
         raise SystemExit(

@@ -1,15 +1,20 @@
-"""Batching and a threaded prefetching loader (the port's copy of
-``vae_tagger_tpu/data/loader.py`` for one process and square images).
+"""Bucket-aware batching and a threaded prefetching loader (the port's
+copy of ``vae_tagger_tpu/data/loader.py`` for one process).
 
-- ``BucketBatchSampler`` yields fixed-size index lists in a shuffle order
-  that is a pure function of (seed, epoch), so a resumed run replays the
-  order of the epoch it stopped in.  Without bucketing every sample shares
-  one shape, so it is a plain batch sampler; the last batch may be short.
+- ``BucketBatchSampler`` groups samples by aspect-ratio bucket (one group
+  without bucketing), so every batch is one shape, and yields
+  ``(indices, mask)`` in a shuffle order that is a pure function of (seed,
+  epoch): a resumed run replays the order of the epoch it stopped in.  The
+  last, partial batch of a group is filled up to ``batch_size`` from its
+  own rows, in order, and the mask marks the repeats, which evaluation
+  drops (``batch_mask``).
 - ``DataLoader`` decodes on a thread pool (PIL releases the GIL) and keeps
   ``prefetch_factor`` collated numpy batches ahead of the device.
 
-The TPU's padding of batches to 8 rows and the per-process slicing of the
-multi-host loader are not carried over.
+The TPU's rounding of the batch up to a multiple of 8 rows (``pad_multiple``)
+is a sublane rule of the v5e and is left out: a batch here has exactly
+``batch_size`` rows.  The per-process slicing of the multi-host loader is
+not carried over either.
 """
 
 from __future__ import annotations
@@ -18,13 +23,13 @@ import queue
 import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 
 class BucketBatchSampler:
-    """Yields lists of dataset indices, ``batch_size`` at most."""
+    """Yields (indices, mask) of ``batch_size`` rows, all of one bucket."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: Optional[int] = 0,
@@ -36,30 +41,48 @@ class BucketBatchSampler:
         self._epoch = 0
         self.indices = (list(indices) if indices is not None
                         else list(range(len(dataset))))
+        self.bucket_groups: Dict[tuple, List[int]] = {}
+        for i in self.indices:
+            bucket = (dataset.bucket_of(i) if hasattr(dataset, "bucket_of")
+                      else None)
+            self.bucket_groups.setdefault(bucket or ("fixed",), []).append(i)
 
     def __len__(self) -> int:
-        return -(-len(self.indices) // self.batch_size)
+        return sum(-(-len(g) // self.batch_size)
+                   for g in self.bucket_groups.values())
 
     def set_epoch(self, epoch: int) -> None:
         """Pin this epoch's shuffle stream (deterministic, resumable)."""
         self._epoch = int(epoch)
 
-    def __iter__(self) -> Iterator[List[int]]:
+    def __iter__(self) -> Iterator[Tuple[List[int], List[bool]]]:
         # int arithmetic: int hashing is stable across interpreter runs
         rng = random.Random(self._seed * 1_000_003 + self._epoch)
-        order = list(self.indices)
-        if self.shuffle:
-            rng.shuffle(order)
-        batches = [order[i:i + self.batch_size]
-                   for i in range(0, len(order), self.batch_size)]
+        batches = []
+        for group in self.bucket_groups.values():
+            order = list(group)
+            if self.shuffle:
+                rng.shuffle(order)
+            for start in range(0, len(order), self.batch_size):
+                chunk = order[start:start + self.batch_size]
+                real = len(chunk)
+                mask = [True] * real
+                # repeat the chunk's own rows: deterministic, and for an
+                # exact multiple the batch mean equals the real rows' mean
+                for fill in range(self.batch_size - real):
+                    chunk.append(chunk[fill % real])
+                    mask.append(False)
+                batches.append((chunk, mask))
         if self.shuffle:
             rng.shuffle(batches)
         return iter(batches)
 
 
-def _collate(items: List[dict]) -> Dict[str, np.ndarray]:
-    return {key: np.stack([np.asarray(it[key]) for it in items])
-            for key in items[0]}
+def _collate(items: List[dict], mask: List[bool]) -> Dict[str, np.ndarray]:
+    batch = {key: np.stack([np.asarray(it[key]) for it in items])
+             for key in items[0]}
+    batch["batch_mask"] = np.asarray(mask, dtype=bool)
+    return batch
 
 
 class DataLoader:
@@ -107,12 +130,12 @@ class DataLoader:
         def producer():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for indices in batches:
+                    for indices, mask in batches:
                         if stop.is_set():
                             return
                         items = list(pool.map(self.dataset.__getitem__,
                                               indices))
-                        if not put(_collate(items)):
+                        if not put(_collate(items, mask)):
                             return
                 put(None)
             except BaseException as e:  # surface in the consumer, not hang

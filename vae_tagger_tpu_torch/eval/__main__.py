@@ -11,9 +11,10 @@ Takes the flags of the JAX package's ``scripts/evaluate.py``, plus
         --output_dir eval_out
 
 Writes the trainers' evaluation files (optimal_thresholds.json,
-evaluation_results.csv and evaluation_results_overall.json).  Refused at
-start, not yet ported: ``--use_bucketing``.  ``--no_data_parallel`` is
-accepted and selects nothing (one device).
+evaluation_results.csv and evaluation_results_overall.json).
+``--use_bucketing`` with the training run's bucket grid scores the
+bucketed transform.  ``--no_data_parallel`` is accepted and selects
+nothing (one device).
 """
 
 from __future__ import annotations

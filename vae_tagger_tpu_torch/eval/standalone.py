@@ -7,7 +7,9 @@ pass over a ``data.json``/``tags.csv`` dataset, and write the trainers'
 evaluation files (``optimal_thresholds.json``, ``evaluation_results.csv``
 and ``evaluation_results_overall.json``).  ``use_val_split`` reproduces the
 trainers' 90/10 split (split seed ``seed or 42``), so a checkpoint can be
-scored on the validation subset it was selected on.
+scored on the validation subset it was selected on, and
+``use_bucketing`` with the training run's bucket grid its bucketed
+validation transform.
 """
 
 from __future__ import annotations
@@ -41,7 +43,11 @@ def evaluate_checkpoint(args, engine: TaggerEngine | None = None) -> dict:
     seed = getattr(args, "seed", 42)
     dataset = TaggedImageDataset(
         json_path=args.json_path, tags_csv_path=args.tags_csv_path,
-        resolution=args.resolution, return_triplets=False, seed=seed)
+        resolution=args.resolution, return_triplets=False, seed=seed,
+        use_bucketing=getattr(args, "use_bucketing", False),
+        base_resolution=getattr(args, "base_resolution", 512),
+        max_resolution=getattr(args, "max_resolution", 1024),
+        bucket_step=getattr(args, "bucket_step", 64))
     indices = None
     if getattr(args, "use_val_split", False):
         # the trainers split with `seed or 42` (train/loop.py), seed 0

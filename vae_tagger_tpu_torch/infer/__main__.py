@@ -1,15 +1,17 @@
 """Image tagging CLI: ``python -m vae_tagger_tpu_torch.infer``.
 
-Takes the flags of the JAX package's ``scripts/infer_full.py`` that this
-slice supports, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch path).
+Takes the flags of the JAX package's ``scripts/infer_full.py``, plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+``--transfer_format yuv420`` ships planar 4:2:0 to the card.  Accepted
+and refused at start, not yet ported: ``--no_data_parallel``,
+``--spatial_parallel`` (multi-GPU) and ``--model_checkpoint``.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ..core.cli import resolve_attention_flags
+from ..core.cli import refuse_unported, resolve_attention_flags
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,6 +37,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batches staged ahead of the device")
     p.add_argument("--mixed_precision", type=str, default=None,
                    help="no|fp16|bf16 (fp16 and bf16 both run bf16)")
+    p.add_argument("--transfer_format", type=str, default="rgb",
+                   choices=["rgb", "yuv420"],
+                   help="host->device wire format: yuv420 ships planar "
+                   "4:2:0 at half of RGB's bytes; tags match RGB within "
+                   "the chroma subsampling's noise")
+    p.add_argument("--no_data_parallel", action="store_true",
+                   help="multi-GPU data parallelism (not ported yet: "
+                   "refused)")
+    p.add_argument("--spatial_parallel", action="store_true",
+                   help="height-sharded multi-GPU inference (not ported "
+                   "yet: refused)")
+    p.add_argument("--model_checkpoint", type=str, default=None,
+                   help="(deprecated) parent path of both checkpoints (not "
+                   "ported: refused)")
     p.add_argument("--use_attention", action="store_true", default=True,
                    help="use the attention decoder (default on)")
     p.add_argument("--no_attention", action="store_true",
@@ -55,6 +71,9 @@ def main(argv=None) -> dict:
     from .engine import TaggerEngine
 
     args = build_parser().parse_args(argv)
+    refuse_unported(args, (
+        ("--no_data_parallel", args.no_data_parallel),
+        ("--model_checkpoint", args.model_checkpoint is not None)))
     attention_config = resolve_attention_flags(args)
     engine = TaggerEngine.load(
         vae_checkpoint=args.vae_checkpoint,
@@ -71,7 +90,8 @@ def main(argv=None) -> dict:
         resolution=args.resolution,
         confidence_threshold=args.confidence_threshold,
         batch_size=args.batch_size, num_workers=args.num_workers,
-        prefetch_factor=args.prefetch_factor)
+        prefetch_factor=args.prefetch_factor,
+        transfer_format=args.transfer_format)
 
 
 if __name__ == "__main__":

@@ -49,11 +49,15 @@ def infer_and_classify(engine: TaggerEngine, image_path: str,
                        output_name: str = "classification_results.json",
                        verbose: bool = True,
                        num_workers: int = 4,
-                       prefetch_factor: int = 2) -> dict:
+                       prefetch_factor: int = 2,
+                       transfer_format: str = "rgb") -> dict:
     """Tag a file or directory of images; writes the results JSON.
 
     Decode runs on a thread pool a batch ahead of the device, and one batch
-    stays in flight on the device while the previous one is formatted."""
+    stays in flight on the device while the previous one is formatted.
+    ``transfer_format="yuv420"`` ships planar 4:2:0 to the device (half of
+    RGB's bytes), which turns it back into RGB; tags match the RGB path's
+    within the chroma subsampling's noise."""
     image_paths = get_image_paths(image_path)
     if not image_paths:
         print("no image files found; check the path")
@@ -76,15 +80,20 @@ def infer_and_classify(engine: TaggerEngine, image_path: str,
                   f"({errors} errors skipped)")
 
     pipeline = OneInFlight(finalize)
+    classify_async = (engine.classify_yuv_async
+                      if transfer_format == "yuv420"
+                      else engine.classify_async)
     for evt in iter_image_batches(image_paths, resolution, batch_size,
-                                  num_workers, prefetch_factor):
+                                  num_workers, prefetch_factor,
+                                  pixel_format=transfer_format):
         if evt[0] == "error":
             errors += 1
             print(f"skipping image {evt[1]}: {evt[2]}")
             continue
         _, batch_paths, block = evt
-        device_probs, _ = engine.classify_async(
-            pad_tail_rows(block, batch_size))
+        block = pad_tail_rows(block, batch_size)
+        device_probs, _ = (classify_async(*block) if isinstance(block, tuple)
+                           else classify_async(block))
         pipeline.submit(batch_paths, device_probs, len(batch_paths))
     pipeline.flush()
 

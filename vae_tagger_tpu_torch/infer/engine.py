@@ -16,9 +16,12 @@ tagger head -> sigmoid, under ``torch.inference_mode()``.
   decoder onto the card.
 - The VAE runs in the policy's compute dtype (bf16 with mixed precision);
   the tagger head, a small fraction of the work, runs in fp32.
+- The ``*_yuv*`` methods take the YUV 4:2:0 wire format, a (B, H, W)
+  luma plane and (B, 2, H/2, W/2) chroma, half of RGB's bytes; the card
+  turns them back into uint8 RGB (ops/image.py) before the same encode.
 
-The TPU's padding of batches to 8 rows is not carried over; the mesh,
-spatial and YUV methods wait for later slices.
+The TPU's padding of batches to 8 rows is not carried over; the mesh and
+spatial methods wait for a later slice.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from ..models.taggers import (
     ClassificationDecoder,
 )
 from ..nn.blocks import seeded_init_
-from ..ops.image import normalize_uint8
+from ..ops.image import normalize_uint8, yuv420_to_rgb_uint8
 
 
 def build_decoder(num_classes: int, use_attention: bool = True,
@@ -100,6 +103,22 @@ class VAEOnlyEngine:
         latents, _ = self.encode_async(pixels_uint8)
         return latents.float().cpu().numpy()
 
+    def _place_yuv(self, y_uint8, cbcr_uint8) -> torch.Tensor:
+        """Host (Y, CbCr) planes -> device uint8 RGB."""
+        return yuv420_to_rgb_uint8(self._place(y_uint8),
+                                   self._place(cbcr_uint8))
+
+    def encode_yuv_async(self, y_uint8: np.ndarray, cbcr_uint8: np.ndarray):
+        """:meth:`encode_async` of the YUV 4:2:0 planes."""
+        with torch.inference_mode():
+            latents = self._encode(self._place_yuv(y_uint8, cbcr_uint8))
+        return latents, len(y_uint8)
+
+    def encode_yuv(self, y_uint8: np.ndarray,
+                   cbcr_uint8: np.ndarray) -> np.ndarray:
+        latents, _ = self.encode_yuv_async(y_uint8, cbcr_uint8)
+        return latents.float().cpu().numpy()
+
 
 class TaggerEngine(VAEOnlyEngine):
     """VAE encoder + tagger head on one device."""
@@ -144,6 +163,19 @@ class TaggerEngine(VAEOnlyEngine):
     def classify(self, pixels_uint8: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 -> (B, num_tags) sigmoid probabilities."""
         probs, _ = self.classify_async(pixels_uint8)
+        return probs.cpu().numpy()
+
+    def classify_yuv_async(self, y_uint8: np.ndarray,
+                           cbcr_uint8: np.ndarray):
+        """:meth:`classify_async` of the YUV 4:2:0 planes."""
+        with torch.inference_mode():
+            _, probs = self._encode_classify(
+                self._place_yuv(y_uint8, cbcr_uint8))
+        return probs, len(y_uint8)
+
+    def classify_yuv(self, y_uint8: np.ndarray,
+                     cbcr_uint8: np.ndarray) -> np.ndarray:
+        probs, _ = self.classify_yuv_async(y_uint8, cbcr_uint8)
         return probs.cpu().numpy()
 
     def encode_and_classify(self, pixels_uint8: np.ndarray):

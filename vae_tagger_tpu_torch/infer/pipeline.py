@@ -1,5 +1,5 @@
 """Overlapped decode -> device pipeline for directory inference (the port's
-copy of ``vae_tagger_tpu/infer/pipeline.py``, RGB only).
+copy of ``vae_tagger_tpu/infer/pipeline.py``).
 
 A producer thread decodes and resizes on a thread pool (PIL releases the GIL
 while it decodes) and stages up to ``prefetch_factor`` collated uint8
@@ -18,13 +18,19 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from ..data.bucketing import load_and_transform_image
+from ..data.bucketing import (
+    load_and_transform_image,
+    load_and_transform_image_yuv,
+)
 
 
-def pad_tail_rows(block: np.ndarray, rows: int) -> np.ndarray:
+def pad_tail_rows(block, rows: int):
     """Pad a tail batch up to ``rows`` by repeating the last row (the
     caller slices the results of pad rows off), so every batch has the
-    same shape."""
+    same shape.  ``block`` is an array or a tuple of arrays with one
+    leading batch dimension (the YUV planes)."""
+    if isinstance(block, tuple):
+        return tuple(pad_tail_rows(b, rows) for b in block)
     n = block.shape[0]
     if n >= rows:
         return block
@@ -34,23 +40,37 @@ def pad_tail_rows(block: np.ndarray, rows: int) -> np.ndarray:
 
 def iter_image_batches(image_paths: Sequence, resolution: int,
                        batch_size: int, num_workers: int = 4,
-                       prefetch_factor: int = 2) -> Iterator[tuple]:
+                       prefetch_factor: int = 2,
+                       pixel_format: str = "rgb") -> Iterator[tuple]:
     """Decode images on a thread pool, yielding batches a queue ahead.
 
     Yields, in input order:
       ("batch", [paths], (n, H, W, 3) uint8)  with 1 <= n <= batch_size
       ("error", path, exception)              for undecodable images
-    Failed decodes never take a batch slot: every batch but the last is
-    full.
+    With ``pixel_format="yuv420"`` a batch's payload is the planar pair
+    ((n, H, W) luma, (n, 2, H/2, W/2) chroma) instead.  Failed decodes
+    never take a batch slot: every batch but the last is full.
     """
+    if pixel_format not in ("rgb", "yuv420"):
+        raise ValueError(f"unknown pixel_format {pixel_format!r}")
+    yuv = pixel_format == "yuv420"
     out_q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch_factor))
     stop = threading.Event()
 
     def load(p):
         try:
+            if yuv:
+                return p, load_and_transform_image_yuv(str(p),
+                                                       resolution), None
             return p, load_and_transform_image(str(p), resolution), None
         except Exception as e:  # reported to the consumer as an event
             return p, None, e
+
+    def stack(items):
+        if yuv:
+            return (np.stack([t[0] for t in items]),
+                    np.stack([t[1] for t in items]))
+        return np.stack(items)
 
     def safe_put(item) -> bool:
         # never block forever: the consumer may have exited early
@@ -89,10 +109,10 @@ def iter_image_batches(image_paths: Sequence, resolution: int,
                     imgs.append(img)
                     paths.append(str(p))
                     if len(imgs) == batch_size:
-                        if not safe_put(("batch", paths, np.stack(imgs))):
+                        if not safe_put(("batch", paths, stack(imgs))):
                             return
                         imgs, paths = [], []
-            if imgs and not safe_put(("batch", paths, np.stack(imgs))):
+            if imgs and not safe_put(("batch", paths, stack(imgs))):
                 return
             safe_put(None)
         except BaseException as e:  # surfaced in the consumer, not a hang

@@ -242,7 +242,8 @@ def restore_train_state(state, path: str):
             else path)
     if not os.path.exists(file):
         raise RuntimeError(f"train state not found: {file}")
-    device = next(state.vae.parameters()).device
+    first = next(iter(state._modules().values()))
+    device = next(first.parameters()).device
     state.load_state_dict(torch.load(file, map_location=device,
                                      weights_only=True))
     return state

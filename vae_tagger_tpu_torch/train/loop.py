@@ -35,11 +35,19 @@ from ..utils.pipelining import OneInFlight
 _VAL_MINING_EPOCH = -1
 
 
-def build_dataset_and_loaders(args):
-    """Dataset + train/val loaders from the trainer's args."""
+def build_dataset_and_loaders(args, return_triplets: bool = True):
+    """Dataset + train/val loaders from the trainer's args: aspect-ratio
+    buckets with ``--use_bucketing`` (and its three size flags), the YUV
+    wire format with ``--transfer_format yuv420``."""
     dataset = TaggedImageDataset(
         json_path=args.json_path, tags_csv_path=args.tags_csv_path,
-        resolution=args.resolution, seed=args.seed)
+        resolution=args.resolution, seed=args.seed,
+        return_triplets=return_triplets,
+        use_bucketing=getattr(args, "use_bucketing", False),
+        base_resolution=getattr(args, "base_resolution", 512),
+        max_resolution=getattr(args, "max_resolution", 1024),
+        bucket_step=getattr(args, "bucket_step", 64),
+        transfer_format=getattr(args, "transfer_format", "rgb") or "rgb")
     train_idx, val_idx = train_val_split(len(dataset), 0.1,
                                          seed=args.seed or 42)
     train_loader = DataLoader(dataset, args.train_batch_size, shuffle=True,
@@ -53,6 +61,12 @@ def build_dataset_and_loaders(args):
     print(f"train size: {len(train_idx)}, val size: {len(val_idx)}, "
           f"batch: {args.train_batch_size}")
     return dataset, train_loader, val_loader
+
+
+def _real_rows(batch) -> int:
+    """Rows of a batch that are not the sampler's repeats."""
+    mask = batch.get("batch_mask")
+    return len(batch["labels"]) if mask is None else int(mask.sum())
 
 
 def _weighted_mean(pairs) -> float:
@@ -123,7 +137,7 @@ class EpochLoop:
 
             train_pipeline = OneInFlight(drain)
             for step, batch in enumerate(self.train_loader):
-                n_real = len(batch["labels"])
+                n_real = _real_rows(batch)
                 metrics = self.run_train_step(state, batch, global_step)
                 train_pipeline.submit(step, global_step, metrics, n_real)
                 images_seen += n_real
@@ -139,7 +153,7 @@ class EpochLoop:
                 for d in range(val_draws):
                     metrics = self.run_eval_step(state, batch,
                                                  i * val_draws + d)
-                    val_pipeline.submit(metrics["loss"], len(batch["labels"]))
+                    val_pipeline.submit(metrics["loss"], _real_rows(batch))
             val_pipeline.flush()
             dataset.set_epoch(mining_epoch)
 

@@ -82,12 +82,13 @@ def build_optimizer(params, schedule: Schedule, weight_decay: float = 1e-6,
 @dataclasses.dataclass
 class TrainState:
     """What a training run carries from step to step: the micro-step
-    count, the models -- the VAE, the tagger head ``decoder`` (None in
-    train_vae; its BatchNorm running statistics are buffers) and the
-    adaptive loss weights (None unless trained) -- and the optimizer with
-    its schedule position."""
+    count, the models -- the VAE (None in train_decoder, whose frozen VAE
+    lives in its steps), the tagger head ``decoder`` (None in train_vae;
+    its BatchNorm running statistics are buffers) and the adaptive loss
+    weights (None unless trained) -- and the optimizer with its schedule
+    position."""
 
-    vae: torch.nn.Module
+    vae: Optional[torch.nn.Module]
     decoder: Optional[torch.nn.Module]
     optimizer: Optimizer
     step: int = 0

@@ -1,5 +1,6 @@
-"""The train and eval steps of ``train_full`` and ``train_vae`` (the
-port's counterparts of ``make_full_steps`` and ``make_vae_steps`` in
+"""The train and eval steps of ``train_full``, ``train_vae`` and
+``train_decoder`` (the port's counterparts of ``make_full_steps``,
+``make_vae_steps`` and ``make_decoder_steps`` in
 ``vae_tagger_tpu/train/steps.py``).
 
 ``FullSteps``, one step: the anchor, positive and negative images run as
@@ -17,6 +18,17 @@ weights.
 triplet term; the anchor decoded from its own draw -> the reconstruction
 MSE against the normalized anchor in fp32; the log-damped KL, optimized
 unless ``use_simplified`` (then only reported).
+
+``DecoderSteps``: the frozen VAE encodes under no gradient (posterior
+mode, scaled, cast to the compute dtype), then the head trains on the
+classification term alone; only the head's parameters are in the
+optimizer.  Its ``*_from_latents`` forms take latents directly, for the
+latent cache of ``train_decoder --cache_latents``.
+
+A batch in the YUV 4:2:0 wire format (``<key>_y``, ``<key>_cbcr``) is
+turned back into uint8 RGB on the device at the top of every step body
+(:func:`resolve_transfer_format`), so what follows is the RGB path fed the
+converted pixels.
 
 The reconstruction's draw is independent of the triplet's: it comes from a
 second generator of the same step (``step_generator(..., stream=1)``).  The
@@ -36,16 +48,18 @@ from torch.utils.checkpoint import checkpoint
 
 from ..losses.combined import (
     LossConfig,
+    classification_term,
     combined_loss,
     log_damped_kl,
     simplified_combined_loss,
 )
 from ..losses.metric_learning import triplet_loss
 from ..models.autoencoder_kl import DiagonalGaussian, encode_scaled
-from ..ops.image import normalize_uint8
+from ..ops.image import normalize_uint8, yuv420_to_rgb_uint8
 from .state import TrainState
 
 _BATCH_KEYS = ("anchor", "positive", "negative", "labels", "positive_labels")
+_IMAGE_KEYS = ("pixel_values", "anchor", "positive", "negative")
 # eval draws use their own generator stream, as the JAX package folds
 # 10,000,000 + index into its key
 _EVAL_STREAM = 10_000_000
@@ -70,16 +84,35 @@ def step_generators(device, seed: int, index: int):
             step_generator(device, seed, index, stream=1))
 
 
-def batch_to_device(batch: dict, device) -> dict:
-    """The numpy arrays a step reads, on ``device`` (pinned, non-blocking
-    host->device copies on the card)."""
+def batch_to_device(batch: dict, device, keys=_BATCH_KEYS) -> dict:
+    """The numpy arrays of ``keys`` that a step reads, an image key also in
+    its YUV form (``<key>_y``, ``<key>_cbcr``), on ``device`` (pinned,
+    non-blocking host->device copies on the card)."""
     out = {}
-    for key in _BATCH_KEYS:
-        t = torch.from_numpy(np.ascontiguousarray(batch[key]))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out[key] = t.to(device, non_blocking=True)
+    for key in keys:
+        for k in (key, key + "_y", key + "_cbcr"):
+            if k not in batch:
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            if device.type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=True)
     return out
+
+
+def resolve_transfer_format(batch: dict) -> dict:
+    """Turn the YUV 4:2:0 pairs of a device batch (``<key>_y`` (B, H, W),
+    ``<key>_cbcr`` (B, 2, H/2, W/2), uint8) back into uint8 RGB under the
+    original keys (ops/image.py::yuv420_to_rgb_uint8); an RGB batch passes
+    through untouched."""
+    if not any(k.endswith("_y") for k in batch):
+        return batch
+    batch = dict(batch)
+    for key in _IMAGE_KEYS:
+        if key + "_y" in batch:
+            batch[key] = yuv420_to_rgb_uint8(batch.pop(key + "_y"),
+                                             batch.pop(key + "_cbcr"))
+    return batch
 
 
 def triplet_posterior(vae, batch: dict, compute_dtype,
@@ -176,6 +209,7 @@ class FullSteps(_Steps):
         total carries the graph when grad mode is on.  ``generator`` draws
         the triplet posterior and the head's dropout, ``recon_generator``
         the reconstruction's posterior (full loss only)."""
+        batch = resolve_transfer_format(batch)
         vae, decoder = state.vae, state.decoder
         b = batch["anchor"].shape[0]
         posterior = triplet_posterior(vae, batch, self.compute_dtype,
@@ -226,6 +260,7 @@ class VaeSteps(_Steps):
         """(total loss, metrics, None) of one device batch; ``generator``
         draws the triplet posterior, ``recon_generator`` the
         reconstruction's."""
+        batch = resolve_transfer_format(batch)
         cfg, vae = self.cfg, state.vae
         b = batch["anchor"].shape[0]
         posterior = triplet_posterior(vae, batch, self.compute_dtype,
@@ -252,3 +287,71 @@ class VaeSteps(_Steps):
                    "kl_loss": kl_loss.detach(), "triplet_loss": trip.detach(),
                    "loss": total.detach()}
         return total, metrics, None
+
+
+class DecoderSteps:
+    """train_decoder's steps: the frozen ``vae`` (not in the train state)
+    encodes, the head ``state.decoder`` trains on the classification
+    term."""
+
+    def __init__(self, vae, cfg: LossConfig, *, cb_weights=None,
+                 compute_dtype=torch.float32, seed: int = 0):
+        self.vae = vae
+        self.cfg = cfg
+        self.cb_weights = cb_weights
+        self.compute_dtype = compute_dtype
+        self.seed = seed
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.vae.parameters()).device
+
+    def to_device(self, batch: dict) -> dict:
+        """The pixels (RGB or YUV) and labels of a host batch, on the
+        VAE's device."""
+        return batch_to_device(batch, self.device,
+                               ("pixel_values", "labels"))
+
+    @torch.no_grad()
+    def encode_batch(self, batch: dict) -> torch.Tensor:
+        """Latents of a device batch: the posterior mode, scaled, in the
+        compute dtype; no gradient reaches the VAE."""
+        px = resolve_transfer_format(batch)["pixel_values"]
+        posterior = self.vae.encode(normalize_uint8(px, self.compute_dtype))
+        return encode_scaled(posterior.mode(),
+                             self.vae.config).to(self.compute_dtype)
+
+    def train_step_from_latents(self, state: TrainState, latents, labels,
+                                global_step: int) -> dict:
+        """One micro-step of the head on latents: the loss, its backward
+        and the optimizer's step; dropout from the step's generator."""
+        head = state.decoder
+        head.train()
+        g = step_generator(latents.device, self.seed, global_step)
+        loss = classification_term(self.cfg, head(latents.float(), g),
+                                   labels, self.cb_weights)
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {"loss": loss.detach()}
+
+    @torch.no_grad()
+    def eval_step_from_latents(self, state: TrainState, latents,
+                               labels) -> dict:
+        """The loss and the probabilities, head in eval mode."""
+        state.decoder.eval()
+        logits = state.decoder(latents.float())
+        loss = classification_term(self.cfg, logits, labels, self.cb_weights)
+        return {"loss": loss, "probs": torch.sigmoid(logits.float())}
+
+    def train_step(self, state: TrainState, batch: dict,
+                   global_step: int) -> dict:
+        b = self.to_device(batch)
+        return self.train_step_from_latents(state, self.encode_batch(b),
+                                            b["labels"], global_step)
+
+    def eval_step(self, state: TrainState, batch: dict, index: int = 0
+                  ) -> dict:
+        b = self.to_device(batch)
+        return self.eval_step_from_latents(state, self.encode_batch(b),
+                                           b["labels"])

@@ -18,8 +18,9 @@ pass of an anchor-only encode+classify predictor, shared by the threshold
 search (``optimal_thresholds.json``) and the evaluation at the global
 threshold (``evaluation_results.csv``, ``evaluation_results_overall.json``).
 
-Refused at start, not yet ported: ``--use_bucketing``, ``--transfer_format
-yuv420``, ``--spatial_parallel``, ``--profile_steps``.
+``--use_bucketing`` batches by aspect-ratio bucket; ``--transfer_format
+yuv420`` ships planar 4:2:0 to the card.  Refused at start, not yet
+ported: ``--spatial_parallel``, ``--profile_steps``.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ from ..ops.image import normalize_uint8
 from .loop import EpochLoop, build_dataset_and_loaders
 from .schedule import build_lr_schedule
 from .state import TrainState, build_optimizer
-from .steps import FullSteps
+from .steps import FullSteps, batch_to_device, resolve_transfer_format
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -203,7 +204,8 @@ def final_evaluation(state: TrainState, val_loader, class_names,
 
     @torch.inference_mode()
     def predict_fn(batch):
-        px = torch.from_numpy(batch["anchor"]).to(device, non_blocking=True)
+        px = resolve_transfer_format(
+            batch_to_device(batch, device, ("anchor",)))["anchor"]
         posterior = vae.encode(normalize_uint8(px, compute_dtype))
         latents = encode_scaled(posterior.mode(), vae.config)
         return torch.sigmoid(head(latents.float()).float())

@@ -14,8 +14,9 @@ takes either; the schedule's horizon is extended past the restored step),
 and exports ``best_vae/`` and ``vae/`` (diffusers safetensors +
 ``config.json``).
 
-Refused at start, not yet ported: ``--use_bucketing``, ``--transfer_format
-yuv420``, ``--spatial_parallel``, ``--profile_steps``.
+``--use_bucketing`` and ``--transfer_format yuv420`` as in train_full.
+Refused at start, not yet ported: ``--spatial_parallel``,
+``--profile_steps``.
 """
 
 from __future__ import annotations
