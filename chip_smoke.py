@@ -139,14 +139,34 @@ failure (non-zero exit, no ``ok`` line):
    triplet, the infer CLI with ``--transfer_format yuv420`` against RGB
    within YUV_PROB_BOUND, and ``yuv420_to_rgb_uint8`` on the card vs the
    CPU (<= 1 apart, >= 99.9% equal);
-9. kernel A's device time by kernel (torch.profiler), new and its first
+9. the HTTP server, the attention maps and the epoch loop's drills, each
+   phase fatal on any failed gate: ``phase_serve``: ``TaggerServer`` at
+   1024px, max_batch 8, fp32 then bf16, 16 concurrent clients posting 96
+   seeded 2048x1536 images (JPEG q90 and PNG): every response 200 with
+   the entry schema, every served probability vector within SERVE_TOL of
+   ``engine.classify`` of the same pixels in another batch, exact
+   launches per dispatched batch (A 2, stats 20, B 20, C 1); the rate,
+   p50/p99 latency, batch-size histogram, the device's busy share, the
+   rate at max_batch 1, the host's decode rate, ``os.cpu_count()`` and the
+   native decode formats; a yuv420 server within YUV_PROB_BOUND of RGB;
+   413, 400 and 503 provoked once each.  ``phase_attention_maps``:
+   ``TaggerEngine.get_attention_maps`` at batch 4, fp32 and bf16, against
+   the plain path, and the attention_viz CLI's files.
+   ``phase_drills``: train_full in bf16 at 1024px: the preemption drill
+   (``VAE_TAGGER_PREEMPT_AFTER_STEPS=2``), its mid-epoch resume for two
+   epochs with ``--profile_steps 2`` (A, B', C', D' and E' named in the
+   trace; each epoch's background checkpoint bit-equal to a synchronous
+   snapshot at the same call), and a real SIGTERM to the CLI's process;
+10. kernel A's device time by kernel (torch.profiler), new and its first
    form's (csrc/groupnorm_silu.cu), at
    each stats site with its bandwidth, and of A's two passes: last, since a
    profiler session may slow the host's launches after it;
-10. one JSON line ``{"kernels": [...]}`` (each kernel's launches on every
-   path, ``launches_by_path``, the train_vae, tiled, train_decoder and
-   bucket paths included, its decoder-site numbers under ``decoder`` and
-   the tile and bucket shapes' under ``tile_bucket``), then as the last line ``{"ok": true, "device": {...}}``.
+11. one JSON line ``{"kernels": [...]}`` (each kernel's launches on every
+   path, ``launches_by_path``, the train_vae, tiled, train_decoder,
+   bucket, serve, attention-map and drill paths included, its
+   decoder-site numbers under ``decoder`` and the tile and bucket shapes'
+   under ``tile_bucket``), then as the last line ``{"ok": true, "device":
+   {...}}``.
 
 With ``--report PATH`` the full report is also written there as JSON.
 """
@@ -3445,6 +3465,615 @@ def phase_buckets(art):
     return report
 
 
+# --------------------------------------------------------------------------
+# slice 10: the HTTP server, attention maps, the epoch loop's drills
+# --------------------------------------------------------------------------
+
+SERVE_IMAGES = 96
+SERVE_CLIENTS = 16
+SERVE_MAX_BATCH = 8
+SERVE_SOURCE = (2048, 1536)
+# a served response against engine.classify of the same decoded pixels in
+# a batch of 4: fp32 as the 1e-5 the HTTP tests hold on the CPU; bf16 2x
+# the 5.1e-3 measured on an H100 80GB HBM3 at 700 W (PERF.md §6), cuDNN's
+# other algorithms for another batch size moving bf16 roundings
+SERVE_TOL = {"fp32": 1e-5, "bf16": 1e-2}
+# kernel names (csrc/) of A, B', C', D' and E' in a chrome trace
+PROFILE_KERNELS = {"A": ("gn_stats_vec_kernel", "gn_apply_vec_kernel"),
+                   "B'": ("conv3x3_tc_kernel",),
+                   "C'": ("flash_fwd_tc_kernel",),
+                   "D'": ("flash_bwd_dq_tc_kernel",),
+                   "E'": ("flash_bwd_dk_tc_kernel", "flash_bwd_dv_tc_kernel")}
+
+
+def _serve_images(n=SERVE_IMAGES, seed=SEED + 10):
+    """n seeded 2048x1536 photo-like images, alternately JPEG (q90) and
+    PNG bytes, made on a thread pool (PIL encodes without the GIL)."""
+    import concurrent.futures
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    w, h = SERVE_SOURCE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    bank = np.random.default_rng(seed).normal(0, 6, size=(4, h, w)).astype(
+        np.float32)
+
+    def make(i):
+        rng = np.random.default_rng(seed + 1 + i)
+        ph = rng.uniform(0, 2 * np.pi, size=3)
+        fr = rng.uniform(20, 90, size=3)
+        img = np.stack([128 + 100 * np.sin(xx / fr[c] + ph[c])
+                        * np.cos(yy / fr[(c + 1) % 3]) + bank[(i + c) % 4]
+                        for c in range(3)], -1)
+        buf = io.BytesIO()
+        im = Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
+        if i % 2:
+            im.save(buf, "PNG", compress_level=1)
+        else:
+            im.save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        return list(ex.map(make, range(n)))
+
+
+def _post(base, data, query="", timeout=600):
+    """(status, headers, body JSON) of one POST /classify."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"{base}/classify{query}", data=data,
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.load(e)
+
+
+def _traffic(server, blobs, clients=SERVE_CLIENTS):
+    """POST every blob from ``clients`` concurrent clients; (responses in
+    blob order, per-request seconds, wall seconds)."""
+    import concurrent.futures
+
+    base = f"http://127.0.0.1:{server.port}"
+
+    def one(data):
+        t0 = time.perf_counter()
+        out = _post(base, data)
+        return out, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(clients) as ex:
+        res = list(ex.map(one, blobs))
+    wall = time.perf_counter() - t0
+    return [r for r, _ in res], [s for _, s in res], wall
+
+
+def phase_serve(art):
+    """``TaggerServer`` (the port's HTTP server) on 127.0.0.1 on an
+    ephemeral port at 1024px, max_batch 8, fp32 (the default) then bf16:
+    16 concurrent clients post 96 seeded 2048x1536 images (JPEG q90 and
+    PNG, alternately).  Gates: every response 200 with the entry schema
+    and every tag's confidence (threshold 0: all 2,000) the 4-decimal
+    rounding of the engine's probability of the same bytes; every served
+    probability vector (recorded at the worker's fetch) within SERVE_TOL
+    of ``engine.classify`` of the same decoded pixels in batches of 4 (so
+    a response does not depend on the batch it rode in); the exact
+    launches per dispatched batch (A 2, stats 20, B 20, C 1).  Reported:
+    images/s, p50/p99 latency, the batch-size histogram, the rate with
+    max_batch 1, ``os.cpu_count()`` and the native decode formats.  Then
+    a yuv420 server (bf16) within YUV_PROB_BOUND of the RGB server on the
+    same 16 images, and 413, 400 and 503 provoked once each."""
+    import concurrent.futures
+    import os
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from vae_tagger_tpu_torch import native
+    from vae_tagger_tpu_torch.data.bucketing import decode_bytes_square
+    from vae_tagger_tpu_torch.infer.engine import TaggerEngine
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.serve import TaggerServer
+
+    formats = sorted(native.decode_formats())
+    log(f"serve: TaggerServer at {RES}px, max_batch {SERVE_MAX_BATCH}, "
+        f"{SERVE_CLIENTS} concurrent clients, {SERVE_IMAGES} seeded "
+        f"{SERVE_SOURCE[0]}x{SERVE_SOURCE[1]} images (JPEG q90 and PNG); "
+        f"os.cpu_count() {os.cpu_count()}, native decode {formats}")
+    if not native.available():
+        raise AssertionError("the native resize library did not build")
+    t0 = time.perf_counter()
+    blobs = _serve_images()
+    log(f"  {len(blobs)} images encoded in {time.perf_counter() - t0:.1f} s "
+        f"({sum(map(len, blobs)) / 2**20:.0f} MiB)")
+    kw = dict(vae_checkpoint=art["vae"], decoder_checkpoint=art["decoder"],
+              tags_csv_path=art["tags"], vae_config_path=art["config"])
+    t0 = time.perf_counter()
+    pixels = [decode_bytes_square(b, RES) for b in blobs]
+    one_thread = (time.perf_counter() - t0) / len(blobs)
+    # what the host can decode with as many threads as clients: the
+    # served rate's ceiling from the decode alone
+    with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+        t0 = time.perf_counter()
+        list(ex.map(lambda b: decode_bytes_square(b, RES), blobs))
+        decode_rate = len(blobs) / (time.perf_counter() - t0)
+    log(f"  decode to {RES}px: {one_thread * 1e3:.1f} ms an image on one "
+        f"thread; {decode_rate:.1f} images/s on {SERVE_CLIENTS} threads")
+    report = dict(cpu_count=os.cpu_count(), native_formats=formats,
+                  decode_ms_one_thread=one_thread * 1e3,
+                  decode_images_per_s_threads=decode_rate)
+    rgb_full = {}
+    for key, precision in (("fp32", None), ("bf16", "bf16")):
+        engine = TaggerEngine.load(mixed_precision=precision, **kw)
+        t0 = time.perf_counter()
+        server = TaggerServer(engine, resolution=RES, threshold=0.0, port=0,
+                              max_batch=SERVE_MAX_BATCH)
+        warm = time.perf_counter() - t0
+        served = []
+        resolve = server.worker._resolve
+
+        def recording(items, device_probs, n, resolve=resolve,
+                      served=served):
+            resolve(items, device_probs, n)
+            served.extend((it.pixels, it.probs) for it in items)
+
+        server.worker._resolve = recording
+        with server:
+            torch.cuda.synchronize()
+            backend.reset_launch_counts()
+            # device time only (CUPTI): the busy share of the served window
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                responses, lat, wall = _traffic(server, blobs)
+                torch.cuda.synchronize()
+            counts = backend.launch_counts()
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        hist = dict(sorted(server.worker.batch_sizes.items()))
+        n_batches = sum(hist.values())
+        expect = _expected(ENCODE_LAUNCHES[key], n_batches)
+        log(f"  {key}: warm-up of batches 1..{SERVE_MAX_BATCH} "
+            f"{warm:.1f} s; {len(blobs)} requests in {wall:.2f} s: "
+            f"{len(blobs) / wall:.3f} images/s, latency p50 "
+            f"{np.percentile(lat, 50) * 1e3:.0f} ms p99 "
+            f"{np.percentile(lat, 99) * 1e3:.0f} ms; {n_batches} batches, "
+            f"sizes {hist}; device busy {busy_ms:.0f} ms of the "
+            f"{wall * 1e3:.0f} ms window (idle "
+            f"{1 - busy_ms / 1e3 / wall:.1%})")
+        log(f"  launches, serve {key}: {counts}")
+        for k, want in expect.items():
+            assert counts[k] == want, (key, k, counts[k], want)
+        assert sum(k * n for k, n in hist.items()) == len(blobs) \
+            == len(served)
+        # every served vector against classify of its pixels, batches of 4
+        worst = 0.0
+        for i in range(0, len(served), BATCH):
+            chunk = served[i:i + BATCH]
+            ref = engine.classify(np.stack([p for p, _ in chunk]))
+            got = np.stack([q for _, q in chunk])
+            assert np.isfinite(got).all()
+            worst = max(worst, float(np.abs(got - ref).max()))
+        log(f"  {key}: served probabilities vs engine.classify of the same "
+            f"pixels in batches of {BATCH}: max |diff| {worst:.3e} (gate "
+            f"{SERVE_TOL[key]:.0e})")
+        assert worst <= SERVE_TOL[key], (key, worst)
+        # every HTTP response: the schema, and its confidences
+        ref = np.concatenate([engine.classify(np.stack(pixels[i:i + BATCH]))
+                              for i in range(0, len(pixels), BATCH)])
+        names = engine.tag_names
+        http_worst = 0.0
+        for i, (status, _, body) in enumerate(responses):
+            assert status == 200, (i, status, body)
+            assert set(body) == {"predicted_tags",
+                                 "total_tags_above_threshold",
+                                 "max_confidence", "avg_confidence_top5"}
+            assert body["total_tags_above_threshold"] == len(names)
+            conf = {t["tag"]: t["confidence"] for t in body["predicted_tags"]}
+            got = np.array([conf[n] for n in names])
+            http_worst = max(http_worst, float(np.abs(got - ref[i]).max()))
+            rgb_full.setdefault(key, []).append(got)
+        log(f"  {key}: HTTP confidences vs engine.classify of the bytes: "
+            f"max |diff| {http_worst:.3e} (4-decimal rounding, gate "
+            f"{5e-5 + SERVE_TOL[key]:.1e})")
+        assert http_worst <= 5e-5 + SERVE_TOL[key], (key, http_worst)
+        # the same traffic at max_batch 1, for contrast
+        with TaggerServer(engine, resolution=RES, threshold=0.0, port=0,
+                          max_batch=1, warmup=False) as one:
+            _, lat1, wall1 = _traffic(one, blobs)
+        log(f"  {key}: the same traffic at max_batch 1: "
+            f"{len(blobs) / wall1:.3f} images/s, latency p50 "
+            f"{np.percentile(lat1, 50) * 1e3:.0f} ms p99 "
+            f"{np.percentile(lat1, 99) * 1e3:.0f} ms")
+        report[key] = dict(
+            warmup_s=warm, wall_s=wall, images_per_s=len(blobs) / wall,
+            device_busy_ms=busy_ms, idle_share=1 - busy_ms / 1e3 / wall,
+            latency_p50_ms=float(np.percentile(lat, 50) * 1e3),
+            latency_p99_ms=float(np.percentile(lat, 99) * 1e3),
+            batch_sizes=hist, batches=n_batches, launches=counts,
+            expected_launches=expect, max_abs_diff_vs_classify=worst,
+            http_max_abs_diff=http_worst,
+            max_batch_1=dict(images_per_s=len(blobs) / wall1,
+                             latency_p50_ms=float(
+                                 np.percentile(lat1, 50) * 1e3),
+                             latency_p99_ms=float(
+                                 np.percentile(lat1, 99) * 1e3)))
+        if key == "bf16":
+            report["yuv420"], report["rejections"] = _serve_yuv_and_rejects(
+                engine, blobs, rgb_full["bf16"])
+        del engine, server
+        torch.cuda.empty_cache()
+    return report
+
+
+def _serve_yuv_and_rejects(engine, blobs, rgb_confidences):
+    """A yuv420 server on the first 16 images against the RGB server's
+    confidences; then 413, 400 and 503, each provoked once."""
+    import numpy as np
+    from vae_tagger_tpu_torch.serve import TaggerServer
+
+    n = 16
+    with TaggerServer(engine, resolution=RES, threshold=0.0, port=0,
+                      max_batch=SERVE_MAX_BATCH,
+                      transfer_format="yuv420") as server:
+        responses, _, wall = _traffic(server, blobs[:n])
+    names = engine.tag_names
+    worst = 0.0
+    for i, (status, _, body) in enumerate(responses):
+        assert status == 200, (status, body)
+        conf = {t["tag"]: t["confidence"] for t in body["predicted_tags"]}
+        got = np.array([conf[t] for t in names])
+        worst = max(worst, float(np.abs(got - rgb_confidences[i]).max()))
+    log(f"  bf16 yuv420 server: {n} requests in {wall:.2f} s; largest "
+        f"|p_yuv420 - p_rgb| {worst:.4f} (bound {YUV_PROB_BOUND})")
+    assert worst < YUV_PROB_BOUND, worst
+
+    class Held:
+        """The engine, its first dispatch held until released: the queue
+        of one then fills, and every later request is turned away."""
+
+        def __init__(self):
+            self.entered, self.release = (threading.Event(),
+                                          threading.Event())
+
+        def classify_async(self, px):
+            self.entered.set()
+            self.release.wait(timeout=120)
+            return engine.classify_async(px)
+
+    import concurrent.futures
+    import threading
+
+    codes = {}
+    with TaggerServer(engine, resolution=RES, port=0, warmup=False,
+                      max_batch=1, max_queue=1) as server:
+        base = f"http://127.0.0.1:{server.port}"
+        codes["413"] = _post(base, b"\0" * (33 << 20))[0]
+        codes["400"] = _post(base, b"not an image")[0]
+        held = server.worker.engine = Held()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+            first = ex.submit(_post, base, blobs[0])
+            assert held.entered.wait(timeout=120)
+            rest = [ex.submit(_post, base, b)
+                    for b in blobs[1:SERVE_CLIENTS]]
+            # all but the one queued request come back while the first
+            # is held
+            deadline = time.monotonic() + 120
+            while (sum(f.done() for f in rest) < len(rest) - 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            held.release.set()
+            responses = [f.result(timeout=600) for f in [first, *rest]]
+    statuses = [s for s, _, _ in responses]
+    busy = [h for s, h, _ in responses if s == 503]
+    codes["503"] = len(busy)
+    log(f"  rejections: 413 -> {codes['413']}, undecodable -> "
+        f"{codes['400']}, {SERVE_CLIENTS} concurrent at max_queue 1 with "
+        f"the first dispatch held -> {statuses.count(200)} x 200 and "
+        f"{len(busy)} x 503")
+    assert codes["413"] == 413 and codes["400"] == 400
+    assert statuses.count(200) == 2 and len(busy) == SERVE_CLIENTS - 2
+    assert all(h.get("Retry-After") == "1" for h in busy)
+    return dict(max_abs_diff_vs_rgb=worst, wall_s=wall), codes
+
+
+def phase_attention_maps(art):
+    """``TaggerEngine.get_attention_maps`` on a batch of 4 seeded images at
+    1024px, bf16 and fp32: every map finite, the gates in [0, 1], every
+    softmax row summing to 1 (1e-5 fp32, 1e-2 bf16, the weights being
+    rounded to bf16); the kernel path against the plain path
+    (``VAE_TAGGER_TORCH_BACKEND=torch``'s switch, on the card): fp32
+    within 1e-4 absolute, bf16 within 4x the plain bf16 path's own
+    distance from the plain fp32 path (floor 1e-3); exact launches of the
+    kernel path (one encode); then ``python -m
+    vae_tagger_tpu_torch.infer.attention_viz`` writes its npz, png and
+    index files."""
+    import numpy as np
+    import torch
+    from vae_tagger_tpu_torch.data.bucketing import load_and_transform_image
+    from vae_tagger_tpu_torch.data.paths import get_image_paths
+    from vae_tagger_tpu_torch.infer.attention_viz import main as viz_main
+    from vae_tagger_tpu_torch.infer.engine import TaggerEngine
+    from vae_tagger_tpu_torch.ops import backend
+
+    paths = [str(p) for p in get_image_paths(art["images"])][:BATCH]
+    px = np.stack([load_and_transform_image(p, resolution=RES)
+                   for p in paths])
+    kw = dict(vae_checkpoint=art["vae"], decoder_checkpoint=art["decoder"],
+              tags_csv_path=art["tags"], vae_config_path=art["config"])
+    log(f"attention maps: a batch of {BATCH} at {RES}px through "
+        f"TaggerEngine.get_attention_maps, fp32 and bf16, kernel and plain "
+        f"paths")
+    maps, report = {}, {}
+    for key, precision in (("fp32", "no"), ("bf16", "bf16")):
+        engine = TaggerEngine.load(mixed_precision=precision, **kw)
+        engine.get_attention_maps(px)  # warm
+        torch.cuda.synchronize()
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        maps[key, "kernel"] = engine.get_attention_maps(px)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = backend.launch_counts()
+        expect = _expected(ENCODE_LAUNCHES[key], 1)
+        for k, want in expect.items():
+            assert counts[k] == want, (key, k, counts[k], want)
+        with backend.backend("torch"):
+            maps[key, "plain"] = engine.get_attention_maps(px)
+        m = maps[key, "kernel"]
+        assert set(m) == {"channel_attention", "spatial_attention",
+                          "self_attention"}, set(m)
+        assert m["channel_attention"].shape == (BATCH, 1, 1, 16)
+        assert m["spatial_attention"].shape == (BATCH, RES // 8, RES // 8, 1)
+        assert m["self_attention"].shape == (BATCH, 8, 64, 64)
+        assert all(np.isfinite(v).all() for v in m.values())
+        for gate in ("channel_attention", "spatial_attention"):
+            assert m[gate].min() >= 0 and m[gate].max() <= 1
+        rows = float(np.abs(m["self_attention"].sum(-1) - 1).max())
+        assert rows <= (1e-5 if key == "fp32" else 1e-2), (key, rows)
+        report[key] = dict(ms=ms, launches=counts, expected_launches=expect,
+                           softmax_row_err=rows)
+        used = {k: c for k, c in counts.items() if c}
+        log(f"  {key}: {ms:.1f} ms host clock; softmax rows within "
+            f"{rows:.2e} of 1; launches {used}")
+        del engine
+    for key in ("fp32", "bf16"):
+        diff = max(float(np.abs(maps[key, "kernel"][k]
+                                - maps[key, "plain"][k]).max())
+                   for k in maps[key, "kernel"])
+        if key == "fp32":
+            tol = 1e-4
+        else:
+            own = max(float(np.abs(maps["bf16", "plain"][k]
+                                   - maps["fp32", "plain"][k]).max())
+                      for k in maps["fp32", "plain"])
+            diff = max(float(np.abs(maps["bf16", "kernel"][k]
+                                    - maps["fp32", "plain"][k]).max())
+                       for k in maps["fp32", "plain"])
+            tol = max(4 * own, 1e-3)
+        log(f"  {key}: kernel path vs plain {'fp32 ' if key == 'bf16' else ''}"
+            f"path, max |diff| over the maps {diff:.3e} (gate {tol:.3e})")
+        assert diff <= tol, (key, diff, tol)
+        report[key].update(max_abs_diff_vs_plain=diff, tol=tol)
+    out = WORK / "attention_out"
+    index = viz_main(["--vae_checkpoint", art["vae"], "--vae_config_path",
+                      art["config"], "--decoder_checkpoint", art["decoder"],
+                      "--tags_csv_path", art["tags"], "--image_path",
+                      art["images"], "--output_dir", str(out),
+                      "--resolution", str(RES), "--batch_size", str(BATCH),
+                      "--max_images", str(BATCH), "--mixed_precision",
+                      "bf16", "--device", DEVICE])
+    files = sorted(p.name for p in out.iterdir())
+    assert len(index["images"]) == BATCH
+    assert "attention_maps_index.json" in files
+    assert sum(f.endswith("_attention.npz") for f in files) == BATCH
+    assert sum(f.endswith("_spatial.png") for f in files) == BATCH
+    assert sum(f.endswith("_mhsa.png") for f in files) == BATCH
+    log(f"  attention_viz CLI: {len(files)} files ({BATCH} npz, "
+        f"{2 * BATCH} png, the index)")
+    report["cli_files"] = len(files)
+    return report
+
+
+def _drill_argv(art, json_path, out, *flags):
+    return ["--json_path", json_path, "--tags_csv_path", art["tags"],
+            "--vae_checkpoint", art["vae"], "--vae_config_path",
+            art["config"], "--decoder_checkpoint", art["decoder"],
+            "--output_dir", str(out), "--resolution", str(RES),
+            "--train_batch_size", "1", "--mixed_precision", "bf16",
+            "--lr_warmup_steps", "0", "--save_steps", "1",
+            "--logging_steps", "1", "--num_workers", "4", "--seed",
+            str(SEED), "--device", DEVICE, *flags]
+
+
+def _flat_tensors(tree, prefix=""):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    out = {}
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+    for k, v in items:
+        out.update(_flat_tensors(v, f"{prefix}/{k}"))
+    return out
+
+
+def phase_drills(art, json_path):
+    """The epoch loop's preemption, profiling and background checkpoints
+    on ``train_full`` in bf16 at 1024px, batch 1, the simplified loss, the
+    8 images (7 train steps an epoch, 1 validation batch):
+
+    - ``VAE_TAGGER_PREEMPT_AFTER_STEPS=2`` writes ``interrupt_checkpoint``
+      after 2 steps (exact launches: 2 steps) and skips the final phase;
+    - ``--resume_from`` it for 2 epochs with ``--profile_steps 2``: the
+      resume skips the 2 trained batches, trains 5 + 7 steps, validates
+      twice and runs the final phase (exact launches); the chrome trace
+      names A, B', C', D' and E'; each epoch's checkpoint from the
+      background writer equals, bit for bit, a synchronous host snapshot
+      taken at the same call of the same run (the second epoch trains
+      while the first epoch's write runs);
+    - a real SIGTERM sent to ``python -m
+      vae_tagger_tpu_torch.train.train_full``'s process after its first
+      step: exit 0, ``interrupt_checkpoint`` at a step short of the
+      epoch, no final phase."""
+    import os
+    import signal as _signal
+
+    import torch
+    from vae_tagger_tpu_torch.data.loader import train_val_split
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.train import train_full
+    from vae_tagger_tpu_torch.train.loop import EpochLoop, HostSnapshot
+
+    n_train, n_val = (len(ix) for ix in train_val_split(N_IMAGES, 0.1,
+                                                        seed=SEED or 42))
+    step = TRAIN_STEP_LAUNCHES["bf16"]
+    val = ENCODE_LAUNCHES["bf16"]
+    log(f"training drills: train_full bf16 at {RES}px, batch 1, "
+        f"{n_train} steps an epoch")
+    report = {}
+
+    out = WORK / "drill"
+    os.environ["VAE_TAGGER_PREEMPT_AFTER_STEPS"] = "2"
+    try:
+        torch.cuda.synchronize()
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_full.main(_drill_argv(art, json_path, out,
+                                            "--num_epochs", "3"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = backend.launch_counts()
+    finally:
+        del os.environ["VAE_TAGGER_PREEMPT_AFTER_STEPS"]
+    ckpt = out / "interrupt_checkpoint"
+    assert state.step == 2 and (ckpt / "train_state.pt").exists()
+    assert not (out / "optimal_thresholds.json").exists()
+    expect = _expected(step, 2)
+    for k, want in expect.items():
+        assert counts[k] == want, ("drill", k, counts[k], want)
+    log(f"  drill (VAE_TAGGER_PREEMPT_AFTER_STEPS=2): interrupt checkpoint "
+        f"at step {state.step} in {wall:.1f} s, no final phase; launches "
+        f"{({k: c for k, c in counts.items() if c})}")
+    report["drill"] = dict(step=state.step, wall_s=wall, launches=counts,
+                           expected_launches=expect)
+    del state
+
+    snapshots = {}
+    orig = EpochLoop._checkpoint
+
+    def timed(callback, epoch):
+        """The callback, its seconds on the writer thread recorded."""
+        def run(snapshot, e):
+            t0 = time.perf_counter()
+            callback(snapshot, e)
+            snapshots[epoch, "write_s"] = (snapshots.get((epoch, "write_s"),
+                                                         0.0)
+                                           + time.perf_counter() - t0)
+        return run
+
+    def checkpoint_beside_a_sync_snapshot(self, callbacks, state, epoch):
+        snapshots[epoch] = _flat_tensors(HostSnapshot(state).state_dict())
+        t0 = time.perf_counter()
+        orig(self, [timed(c, epoch) for c in callbacks], state, epoch)
+        snapshots[epoch, "submit_s"] = time.perf_counter() - t0
+
+    out2 = WORK / "drill_resume"
+    EpochLoop._checkpoint = checkpoint_beside_a_sync_snapshot
+    try:
+        torch.cuda.synchronize()
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_full.main(_drill_argv(
+            art, json_path, out2, "--num_epochs", "2", "--resume_from",
+            str(ckpt), "--profile_steps", "2"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = backend.launch_counts()
+    finally:
+        EpochLoop._checkpoint = orig
+    steps = (n_train - 2) + n_train
+    assert state.step == 2 + steps, state.step
+    expect = {k: steps * step.get(k, 0) + 2 * n_val * val.get(k, 0)
+              + n_val * val.get(k, 0) for k in counts}
+    for k, want in expect.items():
+        assert counts[k] == want, ("resume", k, counts[k], want)
+    assert (out2 / "optimal_thresholds.json").exists()
+    log(f"  resume from step 2 for 2 epochs: {steps} steps, 2 validations "
+        f"and the final phase in {wall:.1f} s; launches "
+        f"{({k: c for k, c in counts.items() if c})}")
+    for epoch in (0, 1):
+        saved = _flat_tensors(torch.load(
+            out2 / f"checkpoint-{epoch}" / "train_state.pt",
+            map_location="cpu", weights_only=True))
+        want = snapshots[epoch]
+        assert saved.keys() == want.keys() and saved, epoch
+        same = all(torch.equal(saved[k], want[k]) for k in want)
+        log(f"  epoch {epoch}: the background writer's checkpoint-{epoch} "
+            f"{'equals' if same else 'DIFFERS from'} the synchronous "
+            f"snapshot, {len(want)} tensors; the main thread spent "
+            f"{snapshots[epoch, 'submit_s'] * 1e3:.0f} ms on it, the "
+            f"writer thread {snapshots[epoch, 'write_s'] * 1e3:.0f} ms on "
+            f"the writes")
+        assert same, epoch
+    trace = json.loads((out2 / "profile" / "trace.json").read_text())
+    kernels = {e.get("name", "") for e in trace["traceEvents"]
+               if e.get("cat") == "kernel"}
+    found = {label: any(n in k for n in names for k in kernels)
+             for label, names in PROFILE_KERNELS.items()}
+    log(f"  --profile_steps 2: {len(trace['traceEvents'])} trace events, "
+        f"{len(kernels)} distinct kernels; ours found: {found}")
+    assert all(found.values()), found
+    report["resume"] = dict(steps=steps, wall_s=wall, launches=counts,
+                            expected_launches=expect,
+                            checkpoint_submit_ms=[
+                                snapshots[e, "submit_s"] * 1e3
+                                for e in (0, 1)],
+                            checkpoint_write_ms=[
+                                snapshots[e, "write_s"] * 1e3
+                                for e in (0, 1)],
+                            trace_events=len(trace["traceEvents"]))
+    del state
+    torch.cuda.empty_cache()
+
+    # a real SIGTERM to the CLI's own process, after its first step
+    out3 = WORK / "drill_sigterm"
+    cmd = [sys.executable, "-m", "vae_tagger_tpu_torch.train.train_full",
+           *_drill_argv(art, json_path, out3, "--num_epochs", "3")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, sent = [], False
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if not sent and line.startswith("Epoch: 0, Step: 0"):
+                proc.send_signal(_signal.SIGTERM)
+                sent = True
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines)
+    saved = torch.load(out3 / "interrupt_checkpoint" / "train_state.pt",
+                       map_location="cpu", weights_only=True)
+    log(f"  SIGTERM after the first step of the CLI's process: exit {rc} "
+        f"in {time.perf_counter() - t0:.1f} s, interrupt checkpoint at "
+        f"step {saved['step']}")
+    assert sent and rc == 0, text[-3000:]
+    assert "SIGTERM received" in text and "skipping final evaluation" in text
+    assert 1 <= saved["step"] < n_train
+    assert not (out3 / "optimal_thresholds.json").exists()
+    report["sigterm"] = dict(exit=rc, step=int(saved["step"]))
+    return report
+
+
 def _image_size(path):
     """(width, height) of an image file, from its header."""
     from PIL import Image
@@ -3507,6 +4136,10 @@ def main():
     report["train_decoder"] = phase_train_decoder(art, json_path)
     torch.cuda.empty_cache()
     report["buckets"] = phase_buckets(art)
+    torch.cuda.empty_cache()
+    report["serve"] = phase_serve(art)
+    report["attention_maps"] = phase_attention_maps(art)
+    report["drills"] = phase_drills(art, json_path)
     shutil.rmtree(WORK, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_device_breakdown(results)
@@ -3550,7 +4183,13 @@ def main():
                    report["buckets"]["gradient_gate"]["launches"],
                **{f"infer_yuv420_{k}": report["buckets"][
                    f"infer_yuv420_{k}"]["launches"]
-                  for k in ("bf16", "fp32")}}
+                  for k in ("bf16", "fp32")},
+               **{f"serve_{k}": report["serve"][k]["launches"]
+                  for k in ("fp32", "bf16")},
+               **{f"attention_maps_{k}": report["attention_maps"][k][
+                   "launches"] for k in ("fp32", "bf16")},
+               "drill_bf16": report["drills"]["drill"]["launches"],
+               "drill_resume_bf16": report["drills"]["resume"]["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]

@@ -1,9 +1,10 @@
 """Aspect-ratio bucketing and the YUV 4:2:0 wire format of the port against
 the JAX package, on the CPU.
 
-The JAX package's native C++ decoder is switched off in these tests (its
+Both packages' native C++ decoders are switched off in these tests (their
 ``native._load`` returns None, as under ``VAE_TAGGER_NATIVE_RESIZE=0``), so
-both packages take their PIL branch; the port has no other.
+both take their PIL branch; tests/test_torch_native.py holds the native
+branches to each other.
 
 - ``AspectRatioBucketing``: bucket lists equal over several grids, and
   assignments equal over a grid of sizes and hypothesis-drawn (w, h);
@@ -37,6 +38,7 @@ from hypothesis import strategies as st
 from PIL import Image
 
 import vae_tagger_tpu.native as jax_native
+import vae_tagger_tpu_torch.native as torch_native
 from vae_tagger_tpu.data import bucketing as jax_bucketing
 from vae_tagger_tpu.data.dataset import TaggedImageDataset as JaxDataset
 from vae_tagger_tpu.data.loader import BucketBatchSampler as JaxSampler
@@ -83,6 +85,7 @@ SMALL_GRID = dict(base_resolution=32, max_resolution=64, bucket_step=16)
 def _pil_only(monkeypatch):
     """Both packages on their PIL branch; no kernel launched."""
     monkeypatch.setattr(jax_native, "_load", lambda: None)
+    monkeypatch.setattr(torch_native, "_load", lambda: None)
     backend.reset_launch_counts()
     yield
     assert sum(backend.launch_counts().values()) == 0

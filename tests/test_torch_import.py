@@ -63,3 +63,12 @@ def test_cuda_sources_ship_as_package_data():
         "groupnorm_silu_vec.cu"]
     text = (ROOT / "pyproject.toml").read_text()
     assert '"vae_tagger_tpu_torch"' in text and "csrc/*.cu" in text
+
+
+def test_native_sources_ship_as_package_data():
+    """The native decode and resize build from the port's own copies of
+    the C++ sources, which ship as package data."""
+    assert sorted(p.name for p in (PKG / "native").glob("*.cpp")) == [
+        "decode.cpp", "resize.cpp"]
+    text = (ROOT / "pyproject.toml").read_text()
+    assert "native/*.cpp" in text

@@ -324,9 +324,9 @@ def test_resume_continues_the_step_count(tiny_run):
     assert saved["step"] == 18 and saved["optimizer"]["count"] == 9
 
 
-# the flags that were refused until bucketing and the YUV wire format were
-# ported, and those still refused
-LIFTED = ("--use_bucketing", "--transfer_format")
+# the flags that were refused until bucketing, the YUV wire format and the
+# profiler capture were ported, and those still refused
+LIFTED = ("--use_bucketing", "--transfer_format", "--profile_steps")
 
 
 @pytest.mark.parametrize("flag", [
@@ -338,10 +338,10 @@ LIFTED = ("--use_bucketing", "--transfer_format")
     ["train_full", "--profile_steps", "3"]])
 def test_unported_flags_are_refused(tiny_run, tmp_path, flag):
     """Both trainers refuse the flags whose path the port does not run;
-    --use_bucketing and --transfer_format yuv420 now run one epoch on the
-    CPU, with finite losses (--no_simplified_loss and
-    --use_adaptive_weights run since the full loss was ported:
-    test_torch_train_vae.py)."""
+    --use_bucketing, --transfer_format yuv420 and --profile_steps now run
+    one epoch on the CPU, with finite losses, the last writing its trace
+    (--no_simplified_loss and --use_adaptive_weights run since the full
+    loss was ported: test_torch_train_vae.py)."""
     from vae_tagger_tpu_torch.train import train_vae
 
     main = {"train_full": train_full.main, "train_vae": train_vae.main}
@@ -363,6 +363,8 @@ def test_unported_flags_are_refused(tiny_run, tmp_path, flag):
                    "1", *flag[1:], *extra])
     history = json.loads((tmp_path / "training_history.json").read_text())
     assert np.isfinite(history["train_loss"] + history["val_loss"]).all()
+    if flag[1] == "--profile_steps":
+        assert (tmp_path / "profile" / "trace.json").stat().st_size > 0
 
 
 def test_trainer_needs_a_gpu_unless_told_cpu(tmp_path):

@@ -87,13 +87,16 @@ def add_train_args(p: argparse.ArgumentParser, default_lr: float = 1e-4):
     p.add_argument("--use_quant_conv", action="store_true")
     p.add_argument("--use_post_quant_conv", action="store_true")
     p.add_argument("--profile_steps", type=int, default=0,
-                   help="profiler capture (not ported yet: refused)")
+                   help="torch.profiler capture of this many train steps "
+                   "from the run's third, as a chrome trace in "
+                   "<output_dir>/profile")
     p.add_argument("--remat", action="store_true",
                    help="gradient checkpointing of every ResnetBlock and "
                    "the attention, and of the whole triplet encode")
     p.add_argument("--sync_checkpoints", action="store_true",
-                   help="(compat) the port always writes checkpoints "
-                   "synchronously")
+                   help="write checkpoints on the main thread from the live "
+                   "state, instead of from a host snapshot on a background "
+                   "writer")
     p.add_argument("--spatial_parallel", action="store_true",
                    help="height-sharded multi-device training (not ported "
                    "yet: refused)")
@@ -170,7 +173,6 @@ def refuse_unported(args, extra=()) -> None:
     adds (flag, is set) pairs of one CLI's own."""
     refused = [flag for flag, on in (
         ("--spatial_parallel", getattr(args, "spatial_parallel", False)),
-        ("--profile_steps", bool(getattr(args, "profile_steps", 0))),
         *extra,
     ) if on]
     if refused:

@@ -1,8 +1,15 @@
 """Image decode, aspect-ratio bucketing and the YUV 4:2:0 host transform
-(the port's copy of ``vae_tagger_tpu/data/bucketing.py``), PIL only.
+(the port's copy of ``vae_tagger_tpu/data/bucketing.py``).
 
+- Decode and resize go through the native library (``native/``: a fused
+  decode + crop + resize of JPEG, PNG and WebP, the JPEG one DCT-scaled)
+  wherever it builds, and through PIL for what it declines, with the JAX
+  package's dispatch and switches, so both give the same pixels:
+  ``VAE_TAGGER_NATIVE_RESIZE=0`` is PIL only, ``VAE_TAGGER_NATIVE_DECODE=0``
+  decodes with PIL and resizes natively, ``VAE_TAGGER_DECODE_EXACT=1``
+  turns the JPEG DCT scaling off.
 - The square transform resizes every image to (resolution, resolution)
-  with PIL's BILINEAR filter, distorting the aspect ratio (the reference's
+  with a BILINEAR filter, distorting the aspect ratio (the reference's
   plain transform).
 - Buckets are every (W, H) with W, H in [base, max] at ``bucket_step``
   and W * H <= max^2, sorted; an image goes to the first bucket in that
@@ -12,9 +19,6 @@
   ``data.json``, so a warm start opens no image header.
 - ``to_yuv420`` turns a transformed RGB image into planar 4:2:0 for the
   YUV wire format (the device turns it back, ops/image.py).
-
-The JAX package's native C++ decode and resize are not ported: this module
-follows the PIL branch that package takes with ``VAE_TAGGER_NATIVE_RESIZE=0``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,26 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from PIL import Image
+
+from .. import native
+
+
+def _jpeg_quality_factor() -> int:
+    """The JPEG decode policy of the native path: 2, a DCT-domain scaled
+    decode that keeps at least twice the target; 0, a full decode, with
+    ``VAE_TAGGER_DECODE_EXACT=1``."""
+    return 0 if os.environ.get("VAE_TAGGER_DECODE_EXACT") == "1" else 2
+
+
+def _random_offset(ow: int, oh: int, width: int, height: int):
+    """SmartResize's random crop offset, drawn as it draws it."""
+    target_ratio = width / height
+    original_ratio = ow / oh
+    if original_ratio > target_ratio:
+        return random.randint(0, ow - int(oh * target_ratio)), 0
+    if original_ratio < target_ratio:
+        return 0, random.randint(0, oh - int(ow / target_ratio))
+    return 0, 0
 
 
 class SmartResize:
@@ -219,9 +243,59 @@ class ImageSizeManifest:
                 pass
 
 
+def _native_smart_resize(img: Image.Image, width: int, height: int,
+                         crop_mode: str) -> Optional[np.ndarray]:
+    """Crop + Lanczos through the native library; None to fall back to
+    PIL.  'random' crop offsets are drawn here, as SmartResize draws
+    them."""
+    if not native.available():
+        return None
+    src = np.asarray(img, dtype=np.uint8)
+    if src.ndim != 3 or src.shape[2] != 3:
+        return None
+    offset = (_random_offset(src.shape[1], src.shape[0], width, height)
+              if crop_mode == "random" else (0, 0))
+    try:
+        return native.smart_resize(src, width, height, crop_mode, offset)
+    except Exception:
+        return None
+
+
+def _native_decode_resize(path, width: int, height: int, crop_mode: str,
+                          resample: str = "lanczos"):
+    """One native call for decode + crop + resample of JPEG, PNG or WebP
+    (by magic bytes).  (result or None, the file's bytes or None); the
+    bytes spare the PIL fallback a second read."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+        fmt = native.sniff_format(data)
+        if fmt is None or fmt not in native.decode_formats():
+            return None, data
+        offset = (0, 0)
+        if crop_mode == "random":
+            oh, ow = native.image_info(data)
+            offset = _random_offset(ow, oh, width, height)
+        return native.decode_image_resize(
+            data, width, height, crop_mode, offset,
+            quality_factor=_jpeg_quality_factor(), resample=resample), data
+    except Exception:
+        return None, None
+
+
 def decode_bytes_square(data: bytes, resolution: int) -> np.ndarray:
-    """Raw image bytes -> (resolution, resolution, 3) uint8; raises on
-    undecodable bytes."""
+    """Raw image bytes -> (resolution, resolution, 3) uint8 by the square
+    distorting BILINEAR transform: the native fused decode + resize where
+    it takes the bytes, PIL otherwise.  The one bytes-level policy of the
+    square file loader and the HTTP server; raises on undecodable bytes."""
+    try:
+        out = native.decode_image_resize(
+            data, resolution, resolution, "distort",
+            quality_factor=_jpeg_quality_factor(), resample="bilinear")
+        if out is not None:
+            return out
+    except Exception:
+        pass
     img = Image.open(io.BytesIO(data)).convert("RGB")
     return np.asarray(img.resize((resolution, resolution), Image.BILINEAR),
                       dtype=np.uint8)
@@ -234,12 +308,20 @@ def load_and_transform_image(path, resolution: Optional[int] = None,
     [-1, 1] happens on the device, ops/image.py).
 
     - ``bucket`` given: SmartResize to (bucket_w, bucket_h), the training
-      bucket mode;
+      bucket mode, natively (the fused decode, else PIL's decode and the
+      native Lanczos), PIL where the library is off;
     - else the square resize to (resolution, resolution)."""
     if bucket is None:
         with open(path, "rb") as f:
             return decode_bytes_square(f.read(), resolution)
-    img = Image.open(path).convert("RGB")
+    out, data = _native_decode_resize(path, bucket[0], bucket[1], crop_mode)
+    if out is not None:
+        return out
+    img = Image.open(io.BytesIO(data) if data is not None
+                     else path).convert("RGB")
+    out = _native_smart_resize(img, bucket[0], bucket[1], crop_mode)
+    if out is not None:
+        return out
     return np.asarray(SmartResize(bucket[0], bucket[1], crop_mode)(img),
                       dtype=np.uint8)
 
@@ -256,6 +338,14 @@ def decode_bytes_square_yuv(data: bytes,
     ((res, res) luma, (2, res/2, res/2) chroma) uint8.  ``resolution``
     must be even; raises on undecodable bytes."""
     _check_even(resolution)
+    try:
+        out = native.decode_image_resize_yuv420(
+            data, resolution, resolution, "distort",
+            quality_factor=_jpeg_quality_factor(), resample="bilinear")
+        if out is not None:
+            return out
+    except Exception:
+        pass
     return to_yuv420(decode_bytes_square(data, resolution))
 
 
@@ -271,16 +361,8 @@ def load_and_transform_image_yuv(path, resolution: int
 def to_yuv420(rgb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """HWC uint8 RGB -> (Y (H, W), CbCr (2, H/2, W/2)) planar 4:2:0 uint8;
     H and W must be even.  The trainers' YUV wire format keeps the RGB
-    transform and converts its result."""
-    from ..ops.image import rgb_to_yuv420_reference
-
-    rgb = np.asarray(rgb)
-    if rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"expected (H, W, 3) uint8, got {rgb.shape}")
-    h, w = rgb.shape[:2]
-    if h % 2 or w % 2:
-        raise ValueError(f"YUV 4:2:0 needs even dims, got {h}x{w}")
-    return rgb_to_yuv420_reference(rgb)
+    transform and converts its result (native.rgb_to_yuv420)."""
+    return native.rgb_to_yuv420(rgb)
 
 
 def dummy_image(width: int = 512, height: int = 512) -> np.ndarray:

@@ -14,8 +14,11 @@ tagger head -> sigmoid, under ``torch.inference_mode()``.
 - :class:`VAEOnlyEngine`, the base of :class:`TaggerEngine`, holds the
   encode half of the VAE alone (latent extraction); neither loads the VAE
   decoder onto the card.
-- The VAE runs in the policy's compute dtype (bf16 with mixed precision);
-  the tagger head, a small fraction of the work, runs in fp32.
+- The VAE and the tagger head run in the policy's compute dtype (bf16
+  with mixed precision), the head fed the latents cast to it, as the JAX
+  engine does; the probabilities are the sigmoid of the logits in fp32.
+- :meth:`TaggerEngine.get_attention_maps` returns the head's CBAM gates
+  and softmax weights for a pixel batch (models/taggers.py).
 - The ``*_yuv*`` methods take the YUV 4:2:0 wire format, a (B, H, W)
   luma plane and (B, 2, H/2, W/2) chroma, half of RGB's bytes; the card
   turns them back into uint8 RGB (ops/image.py) before the same encode.
@@ -40,6 +43,7 @@ from ..models.autoencoder_kl import AutoencoderKL, encode_scaled
 from ..models.taggers import (
     AttentionClassificationDecoder,
     ClassificationDecoder,
+    get_attention_maps,
 )
 from ..nn.blocks import seeded_init_
 from ..ops.image import normalize_uint8, yuv420_to_rgb_uint8
@@ -47,14 +51,16 @@ from ..ops.image import normalize_uint8, yuv420_to_rgb_uint8
 
 def build_decoder(num_classes: int, use_attention: bool = True,
                   attention_config: Optional[dict] = None,
-                  latent_channels: int = 16, seed: int = 0):
-    """Decoder factory of the reference's inference script."""
+                  latent_channels: int = 16, seed: int = 0,
+                  dtype=torch.float32):
+    """Decoder factory of the reference's inference script; ``dtype`` is
+    the head's compute dtype (the policy's)."""
     if use_attention:
         cfg = AttentionDecoderConfig(**(attention_config or {}))
         head = AttentionClassificationDecoder(latent_channels, num_classes,
-                                              cfg)
+                                              cfg, dtype)
     else:
-        head = ClassificationDecoder(latent_channels, num_classes)
+        head = ClassificationDecoder(latent_channels, num_classes, dtype)
     return seeded_init_(head, seed)
 
 
@@ -121,13 +127,15 @@ class VAEOnlyEngine:
 
 
 class TaggerEngine(VAEOnlyEngine):
-    """VAE encoder + tagger head on one device."""
+    """VAE encoder + tagger head on one device; the head runs in the
+    policy's compute dtype."""
 
     def __init__(self, vae: AutoencoderKL, decoder: torch.nn.Module,
                  tag_names: list, policy: Policy = Policy(),
                  device=None):
         super().__init__(vae, policy, device)
         self.decoder = decoder.to(self.device).eval()
+        self.decoder.dtype = policy.compute_dtype
         self.tag_names = tag_names
 
     @classmethod
@@ -145,14 +153,15 @@ class TaggerEngine(VAEOnlyEngine):
         tag_names = load_tag_names(tags_csv_path)
         decoder = build_decoder(len(tag_names), use_attention,
                                 attention_config,
-                                latent_channels=vae.config.latent_channels)
+                                latent_channels=vae.config.latent_channels,
+                                dtype=policy.compute_dtype)
         load_decoder(decoder, decoder_checkpoint)
         return cls(vae, decoder, tag_names, policy, device)
 
     def _encode_classify(self, px: torch.Tensor):
         latents = self._encode(px)
-        probs = torch.sigmoid(self.decoder(latents.float()).float())
-        return latents, probs
+        logits = self.decoder(latents.to(self.policy.compute_dtype))
+        return latents, torch.sigmoid(logits.float())
 
     def classify_async(self, pixels_uint8: np.ndarray):
         """Dispatch without synchronizing: (device_probs, real_count)."""
@@ -183,6 +192,16 @@ class TaggerEngine(VAEOnlyEngine):
             latents, probs = self._encode_classify(
                 self._place(pixels_uint8))
         return latents.float().cpu().numpy(), probs.cpu().numpy()
+
+    def get_attention_maps(self, pixels_uint8: np.ndarray) -> dict:
+        """The head's attention maps for a uint8 pixel batch
+        (models/taggers.py::get_attention_maps), as fp32 numpy arrays;
+        the head runs in the compute dtype, as in :meth:`classify`."""
+        with torch.inference_mode():
+            latents = self._encode(self._place(pixels_uint8))
+            maps = get_attention_maps(
+                self.decoder, latents.to(self.policy.compute_dtype))
+        return {k: v.float().cpu().numpy() for k, v in maps.items()}
 
     def get_confidence(self, pixels_uint8: np.ndarray):
         """Descending (confidences, indices) per image."""

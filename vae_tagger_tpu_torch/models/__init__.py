@@ -13,6 +13,7 @@ from .taggers import (
     MultiHeadSelfAttention,
     SpatialAttention,
     create_attention_decoder,
+    get_attention_maps,
 )
 
 __all__ = [
@@ -28,4 +29,5 @@ __all__ = [
     "create_attention_decoder",
     "decode_scaled",
     "encode_scaled",
+    "get_attention_maps",
 ]

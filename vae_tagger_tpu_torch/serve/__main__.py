@@ -1,0 +1,92 @@
+"""Serve the tagger over HTTP: ``python -m vae_tagger_tpu_torch.serve``.
+
+Takes the flags of the JAX package's ``scripts/serve.py``, plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
+Loads the infer CLI's artifacts (VAE safetensors + config JSON, the head's
+``pytorch_model.bin``, tags CSV) and serves ``POST /classify``,
+``GET /healthz`` and ``GET /tags`` (serve/server.py).  ``--max_batch``
+defaults to 8.  Accepted and refused at start, not yet ported:
+``--no_data_parallel`` and ``--spatial_parallel`` (multi-GPU).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ..core.cli import refuse_unported
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m vae_tagger_tpu_torch.serve",
+                                description="vae-tagger HTTP server")
+    p.add_argument("--vae_checkpoint", type=str, required=True)
+    p.add_argument("--decoder_checkpoint", type=str, required=True)
+    p.add_argument("--tags_csv_path", type=str, required=True)
+    p.add_argument("--vae_config_path", type=str, default=None)
+    p.add_argument("--resolution", type=int, nargs="+", default=[1024],
+                   help="served resolution(s); the first is the default, "
+                   "the others are chosen with POST /classify?resolution=N")
+    p.add_argument("--confidence_threshold", type=float, default=0.5)
+    p.add_argument("--host", type=str, default="127.0.0.1",
+                   help="bind address (no auth: 0.0.0.0 is an explicit "
+                   "opt-in)")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--max_batch", type=int, default=8,
+                   help="most images a device batch coalesces")
+    p.add_argument("--batch_timeout_ms", type=float, default=10.0)
+    p.add_argument("--request_timeout_s", type=float, default=600.0)
+    p.add_argument("--max_body_mb", type=float, default=32.0,
+                   help="a larger request gets 413 before its body is read")
+    p.add_argument("--max_queue", type=int, default=64,
+                   help="pending-request cap; beyond it requests get 503")
+    p.add_argument("--no_warmup", action="store_true")
+    p.add_argument("--no_data_parallel", action="store_true",
+                   help="multi-GPU data parallelism (not ported yet: "
+                   "refused)")
+    p.add_argument("--spatial_parallel", action="store_true",
+                   help="height-sharded multi-GPU serving (not ported yet: "
+                   "refused)")
+    p.add_argument("--no_attention", action="store_true")
+    p.add_argument("--transfer_format", type=str, default="rgb",
+                   choices=["rgb", "yuv420"],
+                   help="host->device wire format: yuv420 ships planar "
+                   "4:2:0 at half of RGB's bytes")
+    p.add_argument("--mixed_precision", type=str, default=None,
+                   help="no|fp16|bf16 (fp16 and bf16 both run bf16)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    return p
+
+
+def build_server(args):
+    """The engine and the (not yet serving) server of parsed ``args``."""
+    from ..infer.engine import TaggerEngine
+    from .server import TaggerServer
+
+    refuse_unported(args, (("--no_data_parallel", args.no_data_parallel),))
+    engine = TaggerEngine.load(
+        vae_checkpoint=args.vae_checkpoint,
+        decoder_checkpoint=args.decoder_checkpoint,
+        tags_csv_path=args.tags_csv_path,
+        vae_config_path=args.vae_config_path,
+        use_attention=not args.no_attention,
+        mixed_precision=args.mixed_precision,
+        device=args.device)
+    return TaggerServer(engine, resolution=tuple(args.resolution),
+                        threshold=args.confidence_threshold,
+                        host=args.host, port=args.port,
+                        max_batch=args.max_batch,
+                        batch_timeout_ms=args.batch_timeout_ms,
+                        request_timeout_s=args.request_timeout_s,
+                        warmup=not args.no_warmup,
+                        max_body_bytes=int(args.max_body_mb * 1024 * 1024),
+                        max_queue=args.max_queue,
+                        transfer_format=args.transfer_format)
+
+
+def main(argv=None):
+    build_server(build_parser().parse_args(argv)).serve_forever()
+
+
+if __name__ == "__main__":
+    main()

@@ -13,22 +13,44 @@ counterpart of ``vae_tagger_tpu/train/loop.py``, one device).
 - history JSON (``train_loss``, ``val_loss``, ``learning_rates``,
   ``train_metrics`` per loss term), best and periodic callbacks;
 - resume: the step count of a restored state continues the epoch numbering
-  and skips the batches of a half-done epoch.
-
-The SIGTERM preempt handler and ``--profile_steps`` wait for a later slice.
+  and skips the batches of a half-done epoch;
+- background checkpoints: at an epoch's checkpoint the state is copied to
+  the host once, on the main thread (:class:`HostSnapshot`: AdamW updates
+  parameters and moments in place, so the writer must not see the live
+  tensors), and every callback of that epoch then writes from that copy on
+  one worker thread while the next epoch trains; ``--sync_checkpoints``
+  runs the callbacks on the live state instead.  The writer is waited on
+  before an interrupt save and at the end of the run;
+- preemption: :meth:`EpochLoop.run` installs a SIGTERM handler that only
+  sets a flag (restored afterwards).  The loop notices it after the step in
+  flight, during validation or after the checkpoint callbacks, writes the
+  full train state to ``<output_dir>/interrupt_checkpoint`` synchronously
+  and returns with ``interrupted`` set (the trainers then skip their final
+  phase); ``--resume_from`` continues from it.
+  ``VAE_TAGGER_PREEMPT_AFTER_STEPS=N`` acts as if the signal came after N
+  train steps of the run (a drill);
+- ``--profile_steps N``: a torch.profiler capture (CPU and CUDA) of train
+  steps first+2 to first+2+N, written as a chrome trace to
+  ``<output_dir>/profile/trace.json``, also when the run ends first.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
+import signal
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from ..data.dataset import TaggedImageDataset
 from ..data.loader import DataLoader, train_val_split
+from ..io.checkpoints import save_train_state
+from ..utils import profiling
 from ..utils.pipelining import OneInFlight
 
 # the mining epoch pinned during validation (outside the training range)
@@ -76,6 +98,65 @@ def _weighted_mean(pairs) -> float:
     return float(np.average([v for v, _ in pairs], weights=weights))
 
 
+def _host_copy(obj):
+    """A copy of a state dict with every tensor copied to the host (a
+    device tensor's copy waits for the work queued before it)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return type(obj)((k, _host_copy(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return copy.deepcopy(obj)
+
+
+class _StateDict:
+    """A host state dict in a module's place (``state_dict()``)."""
+
+    def __init__(self, state: dict):
+        self._state = state
+
+    def state_dict(self) -> dict:
+        return self._state
+
+
+class HostSnapshot:
+    """A host copy of a ``TrainState`` at one step, made on the main thread,
+    for the checkpoint writer: it answers what the callbacks read, the
+    ``step``, ``state_dict()`` (save_train_state) and ``vae``/``decoder``/
+    ``adaptive`` with their ``state_dict()`` (the exports)."""
+
+    def __init__(self, state):
+        self._state = _host_copy(state.state_dict())
+        self.step = self._state["step"]
+        for key in ("vae", "decoder", "adaptive"):
+            setattr(self, key, _StateDict(self._state[key])
+                    if key in self._state else None)
+
+    def state_dict(self) -> dict:
+        return self._state
+
+
+class CheckpointWriter:
+    """At most one background checkpoint write in flight: writes run in
+    order on one worker thread; a failed write raises on the next
+    :meth:`submit` or :meth:`wait`."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1,
+                                        thread_name_prefix="ckpt-writer")
+        self._pending = None
+
+    def submit(self, fn, *fn_args):
+        self.wait()
+        self._pending = self._pool.submit(fn, *fn_args)
+
+    def wait(self):
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+
 class EpochLoop:
     """Runs epochs; keeps the history; calls the checkpoint callbacks."""
 
@@ -97,11 +178,54 @@ class EpochLoop:
         self.history = {"train_loss": [], "val_loss": [],
                         "learning_rates": [], "train_metrics": {}}
         self.best_val_loss = float("inf")
+        self._ckpt_writer = (None if getattr(args, "sync_checkpoints", False)
+                             else CheckpointWriter())
+        self.interrupted = False
+        self._preempt = False
+        self._preempt_after = int(
+            os.environ.get("VAE_TAGGER_PREEMPT_AFTER_STEPS", "0") or 0)
+        self._profiler = None
 
     def run(self, state, lr_schedule=None):
+        """Train ``args.num_epochs`` epochs; returns the state, early (with
+        ``interrupted`` set) after an interrupt save."""
+        def on_sigterm(signum, frame):
+            self._preempt = True
+            print("SIGTERM received: checkpointing and exiting after the "
+                  "current step", flush=True)
+
+        try:
+            previous = signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:  # not the main thread: no handler
+            return self._run(state, lr_schedule)
+        try:
+            return self._run(state, lr_schedule)
+        finally:
+            signal.signal(signal.SIGTERM, previous)
+
+    def _profile_start(self):
+        self._profiler = torch.profiler.profile(
+            activities=profiling.activities())
+        self._profiler.start()
+
+    def _profile_stop(self, note: str = ""):
+        """End the capture after the work queued so far and write its
+        chrome trace."""
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        out = os.path.join(self.args.output_dir, "profile")
+        profiling.write_trace(prof, out)
+        print(f"profiler trace written to {out}{note}", flush=True)
+
+    def _run(self, state, lr_schedule=None):
         args = self.args
         n_batches = max(1, len(self.train_loader))
         global_step = first_step = state.step
+        profile_steps = getattr(args, "profile_steps", 0) or 0
+        profile_range = ((first_step + 2, first_step + 2 + profile_steps)
+                         if profile_steps else None)
         # a resumed run continues the epoch numbering (fresh triplets and
         # shuffles) and replays a half-done epoch from where it stopped
         epoch_offset = first_step // n_batches
@@ -137,12 +261,27 @@ class EpochLoop:
 
             train_pipeline = OneInFlight(drain)
             for step, batch in enumerate(self.train_loader):
+                if profile_range and global_step == profile_range[0]:
+                    self._profile_start()
                 n_real = _real_rows(batch)
                 metrics = self.run_train_step(state, batch, global_step)
+                if self._profiler is not None \
+                        and global_step >= profile_range[1]:
+                    self._profile_stop()
+                    profile_range = None
                 train_pipeline.submit(step, global_step, metrics, n_real)
                 images_seen += n_real
                 global_step += 1
+                if self._preempt or (
+                        self._preempt_after
+                        and global_step - first_step >= self._preempt_after):
+                    train_pipeline.flush()
+                    if self._profiler is not None:
+                        self._profile_stop()
+                    return self._interrupt_save(state)
             train_pipeline.flush()
+            if self._preempt:  # arrived between the last step and validation
+                return self._interrupt_save(state)
 
             val_pairs = []
             val_pipeline = OneInFlight(
@@ -151,11 +290,17 @@ class EpochLoop:
             val_draws = max(1, int(getattr(args, "val_draws", 1) or 1))
             for i, batch in enumerate(self.val_loader):
                 for d in range(val_draws):
+                    if self._preempt:  # save now: a slow validation could
+                        break          # outlast the grace window
                     metrics = self.run_eval_step(state, batch,
                                                  i * val_draws + d)
                     val_pipeline.submit(metrics["loss"], _real_rows(batch))
+                if self._preempt:
+                    break
             val_pipeline.flush()
             dataset.set_epoch(mining_epoch)
+            if self._preempt:
+                return self._interrupt_save(state)
 
             avg_train = _weighted_mean(metric_acc.get("loss", []))
             avg_val = _weighted_mean(val_pairs)
@@ -172,13 +317,50 @@ class EpochLoop:
                   f"Val Loss: {avg_val:.4f} "
                   f"({images_seen / max(dt, 1e-9):.2f} images/sec)",
                   flush=True)
+            callbacks = []
             if avg_val < self.best_val_loss:
                 self.best_val_loss = avg_val
                 print(f"New best validation loss: {avg_val:.4f}")
-                self.on_best(state, epoch)
+                callbacks.append(self.on_best)
             if (self.on_periodic is not None
                     and (epoch + 1) % args.save_steps == 0):
-                self.on_periodic(state, epoch)
+                callbacks.append(self.on_periodic)
+            if callbacks:
+                self._checkpoint(callbacks, state, epoch)
+            if self._preempt:  # during the checkpoint: save now, not an
+                return self._interrupt_save(state)  # epoch later
+        if self._profiler is not None:
+            self._profile_stop(" (run shorter than --profile_steps)")
+        if self._ckpt_writer is not None:  # callers read the files next
+            self._ckpt_writer.wait()
+        return state
+
+    def _checkpoint(self, callbacks, state, epoch):
+        """Run this epoch's checkpoint callbacks: on the live state with
+        ``--sync_checkpoints``, else on one host snapshot, taken here, from
+        the writer thread."""
+        if self._ckpt_writer is None:
+            for callback in callbacks:
+                callback(state, epoch)
+            return
+        snapshot = HostSnapshot(state)
+
+        def write_all():
+            for callback in callbacks:
+                callback(snapshot, epoch)
+
+        self._ckpt_writer.submit(write_all)
+
+    def _interrupt_save(self, state):
+        """The synchronous full-state save of a preemption; sets
+        ``interrupted`` so the trainers skip their final phase."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()  # no race with an epoch's write
+        path = os.path.join(self.args.output_dir, "interrupt_checkpoint")
+        save_train_state(state, path)
+        self.interrupted = True
+        print(f"interrupt checkpoint saved at step {state.step}: {path}\n"
+              f"resume with --resume_from {path}", flush=True)
         return state
 
     def save_history(self, output_dir: str):

@@ -36,8 +36,9 @@ JAX package measured that one shared draw destabilizes training (its
 ``make_vae_steps``; ``benchmarks/vae_dynamics_probe.py``).
 
 The TPU's sublane padding of the stacked batch and its per-member bs1
-encodes are not carried over.  The head runs in fp32 whatever the VAE's
-compute dtype, as the port's inference engine runs it.
+encodes are not carried over.  The head is fed its latents in the compute
+dtype, in which the trainers build it (models/taggers.py), as the JAX
+package's steps do.
 """
 
 from __future__ import annotations
@@ -217,7 +218,7 @@ class FullSteps(_Steps):
         z = posterior.sample(generator)
         latents = encode_scaled(posterior.mean[:b], vae.config).detach()
         decoder.train(train)
-        logits = decoder(latents.float(), generator)
+        logits = decoder(latents.to(self.compute_dtype), generator)
         labels = batch["labels"]
         if self.use_simplified:
             total, loss_dict = simplified_combined_loss(
@@ -328,8 +329,9 @@ class DecoderSteps:
         head = state.decoder
         head.train()
         g = step_generator(latents.device, self.seed, global_step)
-        loss = classification_term(self.cfg, head(latents.float(), g),
-                                   labels, self.cb_weights)
+        loss = classification_term(
+            self.cfg, head(latents.to(self.compute_dtype), g), labels,
+            self.cb_weights)
         loss.backward()
         state.optimizer.step()
         state.step += 1
@@ -340,7 +342,7 @@ class DecoderSteps:
                                labels) -> dict:
         """The loss and the probabilities, head in eval mode."""
         state.decoder.eval()
-        logits = state.decoder(latents.float())
+        logits = state.decoder(latents.to(self.compute_dtype))
         loss = classification_term(self.cfg, logits, labels, self.cb_weights)
         return {"loss": loss, "probs": torch.sigmoid(logits.float())}
 

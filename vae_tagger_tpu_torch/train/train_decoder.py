@@ -24,8 +24,10 @@ the placeholder of an unreadable image (``load_ok``), and it stops growing
 at ``--cache_latents_max_gb``, with one message.  Hits and misses are
 counted per batch; the final phase reports its own.
 
-The JAX package's multi-host branch (the cache turned off on more than one
-process) does not exist here: the port trains in one process.
+``--profile_steps`` and the preemption save (``interrupt_checkpoint``,
+then no final phase) as in train_full.  The JAX package's multi-host
+branch (the cache turned off on more than one process) does not exist
+here: the port trains in one process.
 """
 
 from __future__ import annotations
@@ -148,7 +150,7 @@ def train_decoder(args) -> TrainState:
     head = build_decoder(len(class_names), args.use_attention,
                          attention_config,
                          latent_channels=vae.config.latent_channels,
-                         seed=seed)
+                         seed=seed, dtype=policy.compute_dtype)
     if args.decoder_checkpoint and os.path.exists(args.decoder_checkpoint):
         print(f"loading pretrained decoder: {args.decoder_checkpoint}")
         try:
@@ -232,8 +234,11 @@ def train_decoder(args) -> TrainState:
     loop = EpochLoop(args, train_loader, val_loader, run_train, run_eval,
                      on_best, on_periodic)
     loop.run(state, lr_schedule=schedule)
-    print("training complete; final evaluation...")
     loop.save_history(args.output_dir)
+    if loop.interrupted:  # preempted: the state is saved, exit fast
+        print("training interrupted; skipping final evaluation")
+        return state
+    print("training complete; final evaluation...")
     if cache is not None:
         print(f"training latent cache: {cache.hits} cached batches, "
               f"{cache.misses} encoded batches, {len(cache.latents)} "

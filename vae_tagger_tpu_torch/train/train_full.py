@@ -19,8 +19,11 @@ search (``optimal_thresholds.json``) and the evaluation at the global
 threshold (``evaluation_results.csv``, ``evaluation_results_overall.json``).
 
 ``--use_bucketing`` batches by aspect-ratio bucket; ``--transfer_format
-yuv420`` ships planar 4:2:0 to the card.  Refused at start, not yet
-ported: ``--spatial_parallel``, ``--profile_steps``.
+yuv420`` ships planar 4:2:0 to the card; ``--profile_steps N`` writes a
+chrome trace to ``<output_dir>/profile``.  On SIGTERM (or
+``VAE_TAGGER_PREEMPT_AFTER_STEPS``) the run saves ``interrupt_checkpoint``
+and exits without the final phase (train/loop.py).  Refused at start,
+not yet ported: ``--spatial_parallel``.
 """
 
 from __future__ import annotations
@@ -105,7 +108,7 @@ def train_full(args) -> TrainState:
     decoder = build_decoder(len(dataset.tags), args.use_attention,
                             attention_config,
                             latent_channels=cfg_vae.latent_channels,
-                            seed=seed)
+                            seed=seed, dtype=policy.compute_dtype)
     if args.decoder_checkpoint and os.path.exists(args.decoder_checkpoint):
         print(f"loading pretrained decoder: {args.decoder_checkpoint}")
         load_decoder(decoder, args.decoder_checkpoint)
@@ -185,8 +188,11 @@ def train_full(args) -> TrainState:
                      steps.eval_step, on_best, on_periodic,
                      log_metric_keys=log_keys)
     loop.run(state, lr_schedule=schedule)
-    print("training complete; final evaluation...")
     loop.save_history(args.output_dir)
+    if loop.interrupted:  # preempted: the state is saved, exit fast
+        print("training interrupted; skipping final evaluation")
+        return state
+    print("training complete; final evaluation...")
     final_evaluation(state, val_loader, dataset.tags, policy.compute_dtype,
                      args.output_dir)
     print("training and evaluation complete")
@@ -208,7 +214,7 @@ def final_evaluation(state: TrainState, val_loader, class_names,
             batch_to_device(batch, device, ("anchor",)))["anchor"]
         posterior = vae.encode(normalize_uint8(px, compute_dtype))
         latents = encode_scaled(posterior.mode(), vae.config)
-        return torch.sigmoid(head(latents.float()).float())
+        return torch.sigmoid(head(latents.to(compute_dtype)).float())
 
     collected = collect_predictions(predict_fn, val_loader)
     thresholds = find_optimal_threshold(predict_fn, val_loader, class_names,

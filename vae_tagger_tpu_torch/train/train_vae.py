@@ -14,9 +14,9 @@ takes either; the schedule's horizon is extended past the restored step),
 and exports ``best_vae/`` and ``vae/`` (diffusers safetensors +
 ``config.json``).
 
-``--use_bucketing`` and ``--transfer_format yuv420`` as in train_full.
-Refused at start, not yet ported: ``--spatial_parallel``,
-``--profile_steps``.
+``--use_bucketing``, ``--transfer_format yuv420``, ``--profile_steps``
+and the preemption save as in train_full.  Refused at start, not yet
+ported: ``--spatial_parallel``.
 """
 
 from __future__ import annotations
@@ -127,6 +127,9 @@ def train_vae(args) -> TrainState:
                                       "triplet_loss", "kl_loss"))
     loop.run(state, lr_schedule=schedule)
     loop.save_history(args.output_dir)
+    if loop.interrupted:  # preempted: the state is saved
+        print("training interrupted; history saved")
+        return state
     print("VAE training complete")
     return state
 

@@ -1,4 +1,6 @@
 from .pipelining import OneInFlight
-from .profiling import ThroughputMeter
+from .profiling import ThroughputMeter, trace
+from .synthetic import create_synthetic_dataset
 
-__all__ = ["OneInFlight", "ThroughputMeter"]
+__all__ = ["OneInFlight", "ThroughputMeter", "create_synthetic_dataset",
+           "trace"]
