@@ -4074,6 +4074,446 @@ def phase_drills(art, json_path):
     return report
 
 
+# --------------------------------------------------------------------------
+# data parallelism (parallel/mesh.py)
+# --------------------------------------------------------------------------
+
+DP_RES = 512          # (b): two fp32 ranks at 1024px would not fit beside
+DP_BATCH = 2          # the parent; the global batch of (b), one a rank
+DP_IMAGES = 9         # (a): an odd batch, so the pad row runs
+DP_LOSS = dict(reconstruction_weight=0.5, kl_weight=0.1)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_replicas(art):
+    """(a) ``TaggerEngine.with_devices`` over every local GPU, two replicas
+    on cuda:0 where there is one: a batch of 9 at 1024px against one
+    engine's classify of the same batch (SERVE_TOL), with the exact
+    launches of one batch a chunk."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from vae_tagger_tpu_torch.infer.engine import TaggerEngine
+    from vae_tagger_tpu_torch.ops import backend
+
+    n = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(n)] if n > 1
+               else [torch.device(DEVICE)] * 2)
+    paths = sorted(Path(art["images"]).glob("*.png"))
+    pixels = np.stack([np.asarray(Image.open(p).convert("RGB"))
+                       for p in (paths * 2)[:DP_IMAGES]])
+    out = {"devices": [str(d) for d in devices]}
+    for key, precision in (("fp32", "no"), ("bf16", "bf16")):
+        engine = TaggerEngine.load(
+            vae_checkpoint=art["vae"], decoder_checkpoint=art["decoder"],
+            tags_csv_path=art["tags"], vae_config_path=art["config"],
+            mixed_precision=precision, device=DEVICE)
+        replicated = engine.with_devices(devices)
+        want = engine.classify(pixels)
+        replicated.classify(pixels)  # first call: cuDNN's choice per shape
+        torch.cuda.synchronize()
+        backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = replicated.classify(pixels)
+        wall = time.perf_counter() - t0
+        counts = backend.launch_counts()
+        expect = _expected(ENCODE_LAUNCHES[key], len(devices))
+        assert counts == expect, (key, counts, expect)
+        assert got.shape == want.shape and np.isfinite(got).all()
+        worst = float(np.abs(got - want).max())
+        log(f"  (a) {len(devices)} replicas ({', '.join(map(str, devices))}"
+            f"), {key}: a batch of {DP_IMAGES} at {RES}px in chunks of "
+            f"{-(-DP_IMAGES // len(devices))} (pad rows dropped), "
+            f"{wall * 1e3:.1f} ms (host clock), against one engine "
+            f"{worst:.3e} (gate {SERVE_TOL[key]:.0e}); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert worst <= SERVE_TOL[key], (key, worst)
+        out[key] = dict(max_abs_diff=worst, wall_ms=wall * 1e3,
+                        launches=counts, chunks=len(devices))
+        del engine, replicated
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_data(art, json_path):
+    """data.json of the first 3 images: one step of a global batch of 2
+    and one validation image (the 90/10 split)."""
+    data = json.loads(Path(json_path).read_text())
+    path = WORK / "dp_data.json"
+    path.write_text(json.dumps(dict(list(data.items())[:3]), indent=1))
+    return str(path)
+
+
+def _dp_step(art, dp_json):
+    """One fp32 full-loss ``FullSteps.train_step`` (reconstruction and KL
+    on, the head in train mode: BatchNorm on batch statistics, dropout)
+    at DP_RES on the global batch of DP_BATCH, this process's slice of it
+    under a process group, then a second, warm step that is timed.
+    Returns (the first step's metrics, its averaged gradients on the host,
+    the BatchNorm running statistics after it, its launches, the warm
+    step's ms, the all-reduce ms of each update)."""
+    import torch
+    from vae_tagger_tpu_torch.data.dataset import TaggedImageDataset
+    from vae_tagger_tpu_torch.data.loader import DataLoader
+    from vae_tagger_tpu_torch.infer.engine import build_decoder
+    from vae_tagger_tpu_torch.io.checkpoints import load_decoder, load_vae
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.parallel import mesh
+    from vae_tagger_tpu_torch.train import state as state_mod
+    from vae_tagger_tpu_torch.train.state import Optimizer, TrainState
+    from vae_tagger_tpu_torch.train.steps import FullSteps
+
+    dev = torch.device(DEVICE)
+    vae = load_vae(art["vae"], art["config"], with_decoder=True)
+    head = load_decoder(build_decoder(NUM_TAGS, True, None, 16, SEED + 1),
+                        art["decoder"])
+    vae, head = vae.to(dev).train(), head.to(dev).train()
+    dataset = TaggedImageDataset(json_path=dp_json, tags_csv_path=art["tags"],
+                                 resolution=DP_RES, seed=SEED,
+                                 return_triplets=True)
+    loader = DataLoader(dataset, DP_BATCH, shuffle=False, num_workers=2,
+                        seed=SEED, indices=[0, 1],
+                        process_index=mesh.process_index(),
+                        process_count=mesh.process_count())
+    batch = next(iter(loader))
+    named = ([(f"vae.{n}", p) for n, p in vae.named_parameters()]
+             + [(f"head.{n}", p) for n, p in head.named_parameters()])
+    opt = Optimizer([p for _, p in named], lambda count: 1e-4)
+    grads, reduce_ms = {}, []
+
+    def record_then_step(step=opt.adamw.step):
+        if not grads:
+            grads.update({n: p.grad.detach().float().cpu() for n, p in named
+                          if p.grad is not None})
+        step()
+
+    def timed_reduce(tensors, reduce=state_mod.all_reduce_mean_):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(tensors)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    opt.adamw.step = record_then_step
+    reduce = state_mod.all_reduce_mean_
+    state_mod.all_reduce_mean_ = timed_reduce
+    try:
+        steps = FullSteps(LossConfig(**DP_LOSS), use_simplified=False,
+                          compute_dtype=torch.float32, seed=SEED)
+        state = TrainState(vae=vae, decoder=head, optimizer=opt)
+        backend.reset_launch_counts()
+        metrics = steps.train_step(state, batch, 0)
+        torch.cuda.synchronize()
+        launches = backend.launch_counts()
+        bn = {k: v.detach().cpu().clone()
+              for k, v in head.state_dict().items()
+              if k.startswith("feature_compress.1.running")}
+        t0 = time.perf_counter()
+        steps.train_step(state, batch, 1)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        state_mod.all_reduce_mean_ = reduce
+    metrics = {k: v.item() for k, v in metrics.items() if v.dim() == 0}
+    return metrics, grads, bn, launches, step_ms, reduce_ms
+
+
+def _dp_cli_argv(art, dp_json, out, *flags):
+    return ["--json_path", dp_json, "--tags_csv_path", art["tags"],
+            "--vae_checkpoint", art["vae"], "--vae_config_path",
+            art["config"], "--decoder_checkpoint", art["decoder"],
+            "--output_dir", str(out), "--resolution", str(DP_RES),
+            "--num_epochs", "1", "--mixed_precision", "no",
+            "--no_simplified_loss", "--lr_warmup_steps", "0",
+            "--save_steps", "1", "--logging_steps", "1", "--num_workers",
+            "2", "--seed", str(SEED), "--device", DEVICE, *flags]
+
+
+def dp_gloo_rank(workdir):
+    """A rank of (b), under ``torch.distributed.run``: its own gloo group
+    on cuda:0 (NCCL refuses two ranks on one GPU), which the trainer's
+    ``initialize_distributed`` keeps; the step of ``_dp_step``, then one
+    epoch of the train_full CLI into an output directory of this rank's
+    own (a write by rank 1 would show)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.train import train_full
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://",
+                            timeout=datetime.timedelta(minutes=5))
+    workdir = Path(workdir)
+    rank = dist.get_rank()
+    art = json.loads((workdir / "art.json").read_text())
+    dp_json = str(workdir / "dp_data.json")
+    metrics, grads, bn, launches, step_ms, reduce_ms = _dp_step(art, dp_json)
+    grad_mb = sum(g.numel() * 4 for g in grads.values()) / 2**20
+    if rank == 0:
+        torch.save({"metrics": metrics, "grads": grads, "bn": bn},
+                   workdir / "rank0_step.pt")
+    del grads
+    torch.cuda.empty_cache()
+    backend.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_full.main(_dp_cli_argv(art, dp_json, workdir / f"rank{rank}",
+                                 "--train_batch_size", "1"))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    (workdir / f"rank{rank}.json").write_text(json.dumps(dict(
+        launches=launches, step_ms=step_ms, reduce_ms=reduce_ms,
+        grad_mb=grad_mb, cli_s=cli_s,
+        cli_launches=backend.launch_counts())))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_nccl(workdir):
+    """(c), in a child process under a one-rank launcher environment: one
+    bf16 train_full step at 1024px without a process group, the same step
+    again (the control), then ``initialize_distributed`` (NCCL) and the
+    same step on the NCCL path (the gradient all-reduce, the averaged
+    metrics), which must be bit-equal to the first: the loss, every
+    parameter after the update, the BatchNorm running statistics; then
+    ``gather_to_host`` through the group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from vae_tagger_tpu_torch.data.dataset import TaggedImageDataset
+    from vae_tagger_tpu_torch.data.loader import DataLoader
+    from vae_tagger_tpu_torch.infer.engine import build_decoder
+    from vae_tagger_tpu_torch.io.checkpoints import load_decoder, load_vae
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.parallel import mesh
+    from vae_tagger_tpu_torch.train.state import Optimizer, TrainState
+    from vae_tagger_tpu_torch.train.steps import FullSteps
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    workdir = Path(workdir)
+    art = json.loads((workdir / "art.json").read_text())
+    dataset = TaggedImageDataset(json_path=art["json_path"],
+                                 tags_csv_path=art["tags"], resolution=RES,
+                                 seed=SEED, return_triplets=True)
+
+    def step():
+        dev = torch.device(DEVICE)
+        vae = load_vae(art["vae"], art["config"], with_decoder=True)
+        head = load_decoder(build_decoder(NUM_TAGS, True, None, 16, SEED + 1,
+                                          dtype=torch.bfloat16),
+                            art["decoder"])
+        vae, head = vae.to(dev).train(), head.to(dev).train()
+        loader = DataLoader(dataset, 1, shuffle=False, num_workers=2,
+                            seed=SEED, indices=[0],
+                            process_index=mesh.process_index(),
+                            process_count=mesh.process_count())
+        state = TrainState(vae=vae, decoder=head, optimizer=Optimizer(
+            [*vae.parameters(), *head.parameters()], lambda count: 1e-4))
+        steps = FullSteps(LossConfig(triplet_weight=1.0), seed=SEED,
+                          compute_dtype=torch.bfloat16)
+        batch = next(iter(loader))
+        backend.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = steps.train_step(state, batch, 0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = {f"vae.{k}": v.detach().cpu().clone()
+                 for k, v in vae.state_dict().items()}
+        after.update({f"head.{k}": v.detach().cpu().clone()
+                      for k, v in head.state_dict().items()})
+        out = (metrics["loss"].item(), after, backend.launch_counts(), ms)
+        del state, vae, head
+        torch.cuda.empty_cache()
+        return out
+
+    def same(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1][k], b[1][k])
+                                    for k in a[1])
+
+    plain = step()
+    control = step()
+    device = mesh.initialize_distributed(DEVICE)
+    backend_name = dist.get_backend()
+    nccl = step()
+    probs = np.random.default_rng(0).random((3, 5)).astype(np.float32)
+    gathered = mesh.gather_to_host(torch.from_numpy(probs).to(device))
+    mask = mesh.gather_to_host(np.array([True, False, True]))
+    dist.destroy_process_group()
+    (workdir / "nccl.json").write_text(json.dumps(dict(
+        device=str(device), backend=backend_name, loss_plain=plain[0],
+        loss_nccl=nccl[0],
+        control_bit_equal=same(plain, control),
+        nccl_bit_equal=same(plain, nccl),
+        tensors=len(plain[1]), launches=nccl[2], plain_ms=plain[3],
+        control_ms=control[3], nccl_ms=nccl[3],
+        gather_ok=bool(np.array_equal(gathered, probs)
+                       and np.array_equal(mask, [True, False, True])))))
+
+
+def _run_child(cmd, env, log_path, timeout):
+    """Run a child of this phase, its output to ``log_path``; fatal with
+    the tail of that output on a non-zero exit."""
+    import os
+
+    with open(log_path, "w", encoding="utf-8") as f:
+        proc = subprocess.run(cmd, cwd=ROOT, stdout=f,
+                              stderr=subprocess.STDOUT, timeout=timeout,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT),
+                                       **env))
+    if proc.returncode != 0:
+        tail = Path(log_path).read_text()[-4000:]
+        raise AssertionError(f"{cmd[2:5]} exited {proc.returncode}:\n{tail}")
+
+
+def phase_data_parallel(art, json_path):
+    """Data parallelism (parallel/mesh.py), each check fatal: (a) engine
+    replicas in one process; (b) two gloo ranks on cuda:0 against one
+    process's step on the same global batch, rank 0 alone writing, its
+    checkpoint resumed in one process; (c) one NCCL rank, bit-equal to the
+    run without a process group.  The times of (b) are two ranks sharing
+    one card: no scaling figure."""
+    import gc
+
+    import torch
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.train import train_full
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log("data parallelism:")
+    report = {"replicas": _dp_replicas(art)}
+    work = WORK / "dp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dp_json = _dp_data(art, json_path)
+    shutil.copy(dp_json, work / "dp_data.json")
+    (work / "art.json").write_text(json.dumps({**art,
+                                               "json_path": json_path}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks on cuda:0
+    t0 = time.perf_counter()
+    _run_child([sys.executable, "-m", "torch.distributed.run",
+                "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
+                "--master_port", str(_free_port()),
+                str(ROOT / "chip_smoke.py"),
+                "--dp-gloo-rank", str(work)], {}, work / "gloo.log", 600)
+    gloo_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in (0, 1)]
+    dp = torch.load(work / "rank0_step.pt", weights_only=False)
+    assert not (work / "rank1").exists(), "rank 1 wrote files"
+    for name in ("optimal_thresholds.json", "evaluation_results.csv",
+                 "training_history.json", "checkpoint-0/train_state.pt",
+                 "decoder/pytorch_model.bin"):
+        assert (work / "rank0" / name).exists(), name
+    for r, rank in enumerate(ranks):
+        expect = _expected(VAE_STEP_LAUNCHES["fp32"], 1)
+        assert rank["launches"] == expect, (r, rank["launches"], expect)
+    metrics, grads, bn, _, step_ms, _ = _dp_step(art, dp_json)
+    # the gradient gate's rule: absolute where the gradient is zero in
+    # exact arithmetic (a key projection's bias; in train mode also the
+    # conv bias before the head's BatchNorm), relative elsewhere
+    worst, errs = ("", 0.0), []
+    for n, g in grads.items():
+        diff, norm = (dp["grads"][n] - g).norm().item(), g.norm().item()
+        absolute = (norm < ZERO_GRAD_NORM
+                    or n == "head.feature_compress.0.bias")
+        err = diff if absolute else diff / norm
+        errs.append(err)
+        worst = max(worst, (n, err), key=lambda t: t[1])
+    loss_rel = abs(dp["metrics"]["loss"] - metrics["loss"]) / abs(
+        metrics["loss"])
+    bn_err = max((dp["bn"][k] - v).abs().max().item() for k, v in bn.items())
+    log(f"  (b) two gloo ranks on cuda:0 (two ranks sharing one card: no "
+        f"scaling figure): fp32 full-loss step at {DP_RES}px, global batch "
+        f"{DP_BATCH}: loss {dp['metrics']['loss']:.7f} vs one process "
+        f"{metrics['loss']:.7f} (rel {loss_rel:.2e}, gate 1e-5); "
+        f"{len(grads)} gradients, worst {worst[0]} {worst[1]:.3e}, median "
+        f"{sorted(errs)[len(errs) // 2]:.3e} (gate 1e-3); BatchNorm running "
+        f"statistics {bn_err:.2e} apart; metrics {dp['metrics']}")
+    log(f"  (b) times (host clock; two ranks sharing one card, no scaling "
+        f"figure): the warm step of each rank {ranks[0]['step_ms']:.1f} / "
+        f"{ranks[1]['step_ms']:.1f} ms, of one process at batch {DP_BATCH} "
+        f"{step_ms:.1f} ms; the gradient all-reduce "
+        f"({ranks[0]['grad_mb']:.0f} MiB, gloo through the host) "
+        f"{' / '.join(f'{ms:.1f}' for ms in ranks[0]['reduce_ms'])} ms an "
+        f"update (first, warm); the two-rank CLI epoch "
+        f"{ranks[0]['cli_s']:.1f} s, the launcher {gloo_s:.1f} s")
+    assert set(grads) == set(dp["grads"]) and len(grads) > 0
+    assert loss_rel <= 1e-5, loss_rel
+    assert all(e <= 1e-3 for e in errs), worst
+    assert bn_err <= 1e-5 * max(v.abs().max().item() for v in bn.values())
+    del grads, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = work / "resumed"
+    backend.reset_launch_counts()
+    train_full.main(_dp_cli_argv(art, dp_json, resumed, "--train_batch_size",
+                                 str(DP_BATCH), "--resume_from",
+                                 str(work / "rank0" / "checkpoint-0")))
+    saved = torch.load(resumed / "checkpoint-0" / "train_state.pt",
+                       weights_only=True)
+    assert saved["step"] == 2, saved["step"]
+    log(f"  (b) rank 0's checkpoint-0 resumed in one process: step "
+        f"{saved['step']}; rank 1 wrote nothing")
+    report["gloo"] = dict(loss_rel=loss_rel, worst_param=worst[0],
+                          worst_err=worst[1],
+                          median_err=sorted(errs)[len(errs) // 2],
+                          bn_err=bn_err, one_process_step_ms=step_ms,
+                          ranks=ranks, launcher_s=gloo_s,
+                          launches=ranks[0]["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one NCCL rank
+    t0 = time.perf_counter()
+    _run_child([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-nccl",
+                str(work)], dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                                 MASTER_ADDR="127.0.0.1",
+                                 MASTER_PORT=str(_free_port()),
+                                 CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+               work / "nccl.log", 600)
+    nccl = json.loads((work / "nccl.json").read_text())
+    log(f"  (c) one NCCL rank on {nccl['device']}: bf16 step at {RES}px "
+        f"bit-equal to the run without a process group: "
+        f"{nccl['nccl_bit_equal']} ({nccl['tensors']} tensors, loss "
+        f"{nccl['loss_nccl']!r} vs {nccl['loss_plain']!r}; the control, the "
+        f"same step twice without a group: {nccl['control_bit_equal']}); "
+        f"step {nccl['nccl_ms']:.1f} ms (the control {nccl['control_ms']:.1f}"
+        f", the first, cold {nccl['plain_ms']:.1f}); "
+        f"gather {nccl['gather_ok']}; the child "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert nccl["backend"] == "nccl", nccl["backend"]
+    assert nccl["nccl_bit_equal"], nccl
+    assert nccl["gather_ok"], nccl
+    expect = _expected(TRAIN_STEP_LAUNCHES["bf16"], 1)
+    assert nccl["launches"] == expect, (nccl["launches"], expect)
+    report["nccl"] = nccl
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  data parallelism: {report['seconds']:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return report
+
+
 def _image_size(path):
     """(width, height) of an image file, from its header."""
     from PIL import Image
@@ -4094,10 +4534,19 @@ def main():
                         help="only print kernel A's device time by kernel as "
                              "one JSON line (the child process of the last "
                              "phase)")
+    parser.add_argument("--dp-gloo-rank", type=Path, default=None,
+                        help="run as a rank of phase_data_parallel's two "
+                             "gloo ranks (under torch.distributed.run)")
+    parser.add_argument("--dp-nccl", type=Path, default=None,
+                        help="run phase_data_parallel's one NCCL rank")
     args = parser.parse_args()
     if args.device_breakdown:
         print(json.dumps(device_breakdown()))
         return
+    if args.dp_gloo_rank is not None:
+        return dp_gloo_rank(args.dp_gloo_rank)
+    if args.dp_nccl is not None:
+        return dp_nccl(args.dp_nccl)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4140,6 +4589,8 @@ def main():
     report["serve"] = phase_serve(art)
     report["attention_maps"] = phase_attention_maps(art)
     report["drills"] = phase_drills(art, json_path)
+    torch.cuda.empty_cache()
+    report["data_parallel"] = phase_data_parallel(art, json_path)
     shutil.rmtree(WORK, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_device_breakdown(results)
@@ -4189,7 +4640,13 @@ def main():
                **{f"attention_maps_{k}": report["attention_maps"][k][
                    "launches"] for k in ("fp32", "bf16")},
                "drill_bf16": report["drills"]["drill"]["launches"],
-               "drill_resume_bf16": report["drills"]["resume"]["launches"]}
+               "drill_resume_bf16": report["drills"]["resume"]["launches"],
+               **{f"dp_replicas_{k}": report["data_parallel"]["replicas"][
+                   k]["launches"] for k in ("fp32", "bf16")},
+               "dp_gloo_rank0_step_fp32":
+                   report["data_parallel"]["gloo"]["launches"],
+               "dp_nccl_step_bf16":
+                   report["data_parallel"]["nccl"]["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]

@@ -455,5 +455,27 @@ def test_infer_cli_yuv_tags_like_rgb(engine_dir):
                                   ["--model_checkpoint", "ckpt"]])
 def test_infer_cli_refuses_the_multi_gpu_and_legacy_flags(engine_dir,
                                                           tmp_path, flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        _infer(engine_dir, tmp_path, *flag)
+    """No longer refused: on one device --no_data_parallel and
+    --spatial_parallel change nothing, and --model_checkpoint stands in
+    for a missing --decoder_checkpoint; each run's JSON equals the run
+    without the flag."""
+    from vae_tagger_tpu_torch.infer.__main__ import main
+
+    plain = _infer(engine_dir, tmp_path / "plain")
+    if flag[0] == "--model_checkpoint":
+        vae = engine_dir / "vae"
+        argv = ["--device", "cpu", "--vae_checkpoint",
+                str(vae / "diffusion_pytorch_model.safetensors"),
+                "--vae_config_path", str(vae / "config.json"),
+                "--model_checkpoint", str(engine_dir / "head.bin"),
+                "--image_path", str(engine_dir / "images"), "--tags_csv_path",
+                str(engine_dir / "tags.csv"), "--output_dir",
+                str(tmp_path / "flag"), "--resolution", "64", "--batch_size",
+                "3", "--confidence_threshold", "0"]
+        got = main(argv)
+        with pytest.raises(SystemExit):  # neither path nor a stand-in
+            main([a for a in argv if a != str(engine_dir / "head.bin")
+                  and a != "--model_checkpoint"])
+    else:
+        got = _infer(engine_dir, tmp_path / "flag", *flag)
+    assert got == plain

@@ -551,3 +551,39 @@ def test_tf32x3_repeats_bit_for_bit(gen):
     counts = backend.launch_counts()
     assert counts["gn_silu_conv3x3_tf32x3"] == 2
     assert counts["flash_attention_fwd_tf32x3"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wrappers_launch_on_their_tensors_device(gen, dtype):
+    """Every wrapper launches on its input's device, not the current one:
+    A, the stats pass, B'/B'', C'/C'' and D'/D'', E'/E'' on cuda:1 while
+    cuda:0 is current, held to the same kernels on cuda:0 (the same
+    kernels on the same card model: bit-equal).  Needs two GPUs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    x = _rnd(gen, 2, 24, 20, 64).to(dtype)
+    scale, bias = _rnd(gen, 64) + 1, _rnd(gen, 64)
+    kern, kb = _rnd(gen, 3, 3, 64, 64) * 0.05, _rnd(gen, 64)
+    q, k, v = (_rnd(gen, 1, 200, 512).to(dtype) for _ in range(3))
+    do = _rnd(gen, 1, 200, 512).to(dtype)
+
+    def run(dev):
+        t = [a.to(dev) for a in (x, scale, bias, kern, kb, q, k, v, do)]
+        o, lse = flash_attention_fwd(t[5], t[6], t[7])
+        delta = bwd_delta(o, t[8])
+        outs = [group_norm_silu(t[0], t[1], t[2], num_groups=8),
+                *group_stats(t[0], 8),
+                gn_silu_conv3x3(t[0], t[1], t[2], t[3], t[4], num_groups=8),
+                o, lse, flash_attention_bwd_dq(t[5], t[6], t[7], t[8], lse,
+                                               delta),
+                *flash_attention_bwd_dkv(t[5], t[6], t[7], t[8], lse, delta)]
+        torch.cuda.synchronize(dev)
+        return [a.float().cpu() for a in outs]
+
+    with torch.cuda.device(0):
+        want = run(torch.device("cuda", 0))
+        backend.reset_launch_counts()
+        got = run(torch.device("cuda", 1))
+    assert sum(backend.launch_counts().values()) > 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

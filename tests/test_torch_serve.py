@@ -384,15 +384,33 @@ def test_http_yuv420_transfer_tags_like_rgb(engine):
 
 
 def test_server_refuses_odd_yuv_resolutions_and_unported_flags(engine, art):
+    """Odd resolutions in yuv420 are refused; --no_data_parallel and
+    --spatial_parallel, no longer refused, change nothing on one device:
+    the same server settings and the same probabilities."""
     with pytest.raises(ValueError):
         TaggerServer(engine, resolution=63, transfer_format="yuv420",
                      warmup=False, port=0)
-    for flag in ("--no_data_parallel", "--spatial_parallel"):
+    pixels = np.random.default_rng(3).integers(0, 256, (3, RES, RES, 3),
+                                               dtype=np.uint8)
+    served = {}
+    for flag in ((), ("--no_data_parallel",), ("--spatial_parallel",)):
         args = build_parser().parse_args([
             *[x for k, v in art.items() for x in (f"--{k}", v)],
-            "--device", "cpu", flag])
-        with pytest.raises(SystemExit, match="not ported"):
-            build_server(args)
+            "--device", "cpu", "--no_warmup", "--port", "0", *flag])
+        server = build_server(args)
+        try:
+            worker = server.worker
+            assert worker.engine.replicas is None
+            served[flag] = (worker.max_batch,
+                            worker.engine.classify(pixels))
+        finally:
+            server.httpd.server_close()
+            server.worker.stop()
+    (mb, probs), *others = served.values()
+    assert mb == 8
+    for other_mb, other in others:
+        assert other_mb == mb
+        np.testing.assert_array_equal(other, probs)
 
 
 def test_serve_cli_on_the_cpu(art):

@@ -324,9 +324,11 @@ def test_resume_continues_the_step_count(tiny_run):
     assert saved["step"] == 18 and saved["optimizer"]["count"] == 9
 
 
-# the flags that were refused until bucketing, the YUV wire format and the
-# profiler capture were ported, and those still refused
-LIFTED = ("--use_bucketing", "--transfer_format", "--profile_steps")
+# the flags that were refused until bucketing, the YUV wire format, the
+# profiler capture and data parallelism were ported (--spatial_parallel is
+# a no-op in one process)
+LIFTED = ("--use_bucketing", "--transfer_format", "--profile_steps",
+          "--spatial_parallel")
 
 
 @pytest.mark.parametrize("flag", [
@@ -338,8 +340,10 @@ LIFTED = ("--use_bucketing", "--transfer_format", "--profile_steps")
     ["train_full", "--profile_steps", "3"]])
 def test_unported_flags_are_refused(tiny_run, tmp_path, flag):
     """Both trainers refuse the flags whose path the port does not run;
-    --use_bucketing, --transfer_format yuv420 and --profile_steps now run
-    one epoch on the CPU, with finite losses, the last writing its trace
+    --use_bucketing, --transfer_format yuv420, --profile_steps and
+    --spatial_parallel now run one epoch on the CPU, with finite losses,
+    --profile_steps writing its trace and --spatial_parallel, a no-op in
+    one process, the same history as the run without it
     (--no_simplified_loss and --use_adaptive_weights run since the full
     loss was ported: test_torch_train_vae.py)."""
     from vae_tagger_tpu_torch.train import train_vae
@@ -365,6 +369,12 @@ def test_unported_flags_are_refused(tiny_run, tmp_path, flag):
     assert np.isfinite(history["train_loss"] + history["val_loss"]).all()
     if flag[1] == "--profile_steps":
         assert (tmp_path / "profile" / "trace.json").stat().st_size > 0
+    if flag[1] == "--spatial_parallel":
+        plain = tmp_path / "plain"
+        main[flag[0]]([*base, "--output_dir", str(plain), "--num_epochs",
+                       "1"])
+        assert json.loads((plain / "training_history.json").read_text()
+                          ) == history
 
 
 def test_trainer_needs_a_gpu_unless_told_cpu(tmp_path):

@@ -2,6 +2,8 @@ from .config import (
     AttentionDecoderConfig,
     VAEConfig,
     default_flux_vae_config,
+    default_sd_vae_config,
+    get_vae_latent_info,
     vae_config_from_dict,
     vae_config_from_file,
 )
@@ -15,6 +17,8 @@ __all__ = [
     "Policy",
     "VAEConfig",
     "default_flux_vae_config",
+    "default_sd_vae_config",
+    "get_vae_latent_info",
     "resolve_device",
     "resolve_mixed_precision",
     "vae_config_from_dict",

@@ -7,9 +7,11 @@ and those of ``scripts/train_decoder.py``), plus ``--device``.
 The reference's quirks are kept: ``--use_attention`` and its two
 sub-flags are store_true with default True (``--no_attention`` turns the
 attention head off), and ``--mixed_precision`` takes "no", "fp16" or
-"bf16", fp16 and bf16 both running bf16 (core/precision.py).  Flags whose
-path the port has not taken yet are accepted by the parser and refused by
-:func:`refuse_unported` at start, so none is silently ignored.
+"bf16", fp16 and bf16 both running bf16 (core/precision.py).
+``--spatial_parallel`` is accepted and is a no-op on one device, as in the
+JAX package; over more than one device or rank :func:`refuse_unported`
+refuses it at start (height-sharded parallelism is not ported yet), so it
+is never silently ignored.
 """
 
 from __future__ import annotations
@@ -98,8 +100,8 @@ def add_train_args(p: argparse.ArgumentParser, default_lr: float = 1e-4):
                    "state, instead of from a host snapshot on a background "
                    "writer")
     p.add_argument("--spatial_parallel", action="store_true",
-                   help="height-sharded multi-device training (not ported "
-                   "yet: refused)")
+                   help="height-sharded multi-device training: a no-op in "
+                   "one process, refused over more (not ported yet)")
     p.add_argument("--transfer_format", type=str, default="rgb",
                    choices=("rgb", "yuv420"),
                    help="host->device image wire format: yuv420 ships "
@@ -168,17 +170,14 @@ def add_decoder_train_args(p: argparse.ArgumentParser):
                    "it stay on the encode path")
 
 
-def refuse_unported(args, extra=()) -> None:
-    """Raise for a flag whose path the port does not run yet; ``extra``
-    adds (flag, is set) pairs of one CLI's own."""
-    refused = [flag for flag, on in (
-        ("--spatial_parallel", getattr(args, "spatial_parallel", False)),
-        *extra,
-    ) if on]
-    if refused:
+def refuse_unported(args, n_devices: int = 1) -> None:
+    """Raise for ``--spatial_parallel`` over ``n_devices`` > 1 devices (or
+    ranks): height sharding is not ported yet.  On one device there is
+    nothing to shard and the flag is a no-op, as in the JAX package."""
+    if getattr(args, "spatial_parallel", False) and n_devices > 1:
         raise SystemExit(
-            f"not ported to vae_tagger_tpu_torch yet: {', '.join(refused)} "
-            f"(ROADMAP.md lists what is left)")
+            f"not ported to vae_tagger_tpu_torch yet: --spatial_parallel "
+            f"over {n_devices} devices (ROADMAP.md lists what is left)")
 
 
 def resolve_attention_flags(args) -> dict | None:

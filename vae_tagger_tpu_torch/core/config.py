@@ -73,6 +73,16 @@ def default_flux_vae_config(**overrides) -> VAEConfig:
     return dataclasses.replace(VAEConfig(), **overrides)
 
 
+def default_sd_vae_config(**overrides) -> VAEConfig:
+    """The SD 1.x/2.x VAE family (e.g. sd-vae-ft-mse): 4-channel latents,
+    1x1 quant convs around the latent space, scaling 0.18215, no shift."""
+    base = dict(latent_channels=4, sample_size=256, scaling_factor=0.18215,
+                shift_factor=0.0, use_quant_conv=True,
+                use_post_quant_conv=True)
+    base.update(overrides)
+    return dataclasses.replace(VAEConfig(), **base)
+
+
 _VAE_FIELDS = {f.name for f in dataclasses.fields(VAEConfig)}
 
 # diffusers AutoencoderKL constructor defaults for keys a config JSON may
@@ -106,6 +116,16 @@ def vae_config_from_dict(d: dict) -> VAEConfig:
 def vae_config_from_file(path: str) -> VAEConfig:
     with open(path, "r", encoding="utf-8") as f:
         return vae_config_from_dict(json.load(f))
+
+
+def get_vae_latent_info(resolution: int, latent_channels: int = 16,
+                        downsample_factor: int = 8) -> dict:
+    """Latent geometry of a square input of side ``resolution``; pass
+    ``config.downsample_factor`` for other block counts."""
+    side = resolution // downsample_factor
+    return {"latent_channels": latent_channels, "latent_height": side,
+            "latent_width": side,
+            "total_dim": latent_channels * side * side}
 
 
 @dataclasses.dataclass(frozen=True)

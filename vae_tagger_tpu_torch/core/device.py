@@ -16,3 +16,12 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' (--device cpu) "
             "to run the plain PyTorch path on the CPU")
     return dev
+
+
+def indexed_device(device) -> torch.device:
+    """``cuda`` as ``cuda:<the current device>``; other devices as they
+    are (two names of one device compare equal afterwards)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

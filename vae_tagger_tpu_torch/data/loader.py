@@ -1,5 +1,5 @@
 """Bucket-aware batching and a threaded prefetching loader (the port's
-copy of ``vae_tagger_tpu/data/loader.py`` for one process).
+copy of ``vae_tagger_tpu/data/loader.py``).
 
 - ``BucketBatchSampler`` groups samples by aspect-ratio bucket (one group
   without bucketing), so every batch is one shape, and yields
@@ -10,11 +10,16 @@ copy of ``vae_tagger_tpu/data/loader.py`` for one process).
   drops (``batch_mask``).
 - ``DataLoader`` decodes on a thread pool (PIL releases the GIL) and keeps
   ``prefetch_factor`` collated numpy batches ahead of the device.
+- Data parallelism: every process builds the same global batches from the
+  same indices and seed and loads only its contiguous slice of each
+  (``process_index`` of ``process_count``), so the processes agree on
+  batch counts and shapes by construction.  Each batch carries
+  ``global_real_count``, the real rows of the global batch, from the
+  global mask, so every process weights its metrics alike.
 
 The TPU's rounding of the batch up to a multiple of 8 rows (``pad_multiple``)
-is a sublane rule of the v5e and is left out: a batch here has exactly
-``batch_size`` rows.  The per-process slicing of the multi-host loader is
-not carried over either.
+is a sublane rule of the v5e and is left out: a global batch here has
+exactly ``batch_size`` rows.
 """
 
 from __future__ import annotations
@@ -86,18 +91,27 @@ def _collate(items: List[dict], mask: List[bool]) -> Dict[str, np.ndarray]:
 
 
 class DataLoader:
-    """Threaded prefetching loader yielding collated numpy batches."""
+    """Threaded prefetching loader yielding collated numpy batches;
+    ``batch_size`` is the global batch, which ``process_count`` must
+    divide."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, prefetch_factor: int = 2,
                  seed: Optional[int] = 0,
-                 indices: Optional[Sequence[int]] = None):
+                 indices: Optional[Sequence[int]] = None,
+                 process_index: int = 0, process_count: int = 1):
+        if batch_size % max(1, process_count):
+            raise ValueError(
+                f"process_count {process_count} must divide the global "
+                f"batch size {batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = BucketBatchSampler(dataset, batch_size, shuffle,
                                           seed=seed, indices=indices)
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch_factor)
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
         self._skip_next = 0
 
     def __len__(self) -> int:
@@ -111,9 +125,21 @@ class DataLoader:
         mid-epoch resume); skipped batches are never decoded."""
         self._skip_next = int(n)
 
+    def _local_slice(self, indices, mask):
+        """(local indices, local mask, global real count): this process's
+        contiguous slice of a global batch; the count comes from the
+        global mask, so every process agrees on the batch's weight."""
+        n_real_global = sum(mask)
+        if self.process_count == 1:
+            return indices, mask, n_real_global
+        per = len(indices) // self.process_count
+        lo = self.process_index * per
+        return indices[lo:lo + per], mask[lo:lo + per], n_real_global
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-        batches = list(self.sampler)[self._skip_next:]
+        batches = [self._local_slice(idx, mask)
+                   for idx, mask in self.sampler][self._skip_next:]
         self._skip_next = 0
         stop = threading.Event()
 
@@ -130,12 +156,14 @@ class DataLoader:
         def producer():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for indices, mask in batches:
+                    for indices, mask, n_real_global in batches:
                         if stop.is_set():
                             return
                         items = list(pool.map(self.dataset.__getitem__,
                                               indices))
-                        if not put(_collate(items, mask)):
+                        batch = _collate(items, mask)
+                        batch["global_real_count"] = np.int64(n_real_global)
+                        if not put(batch):
                             return
                 put(None)
             except BaseException as e:  # surface in the consumer, not hang

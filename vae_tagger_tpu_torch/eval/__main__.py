@@ -13,8 +13,9 @@ Takes the flags of the JAX package's ``scripts/evaluate.py``, plus
 Writes the trainers' evaluation files (optimal_thresholds.json,
 evaluation_results.csv and evaluation_results_overall.json).
 ``--use_bucketing`` with the training run's bucket grid scores the
-bucketed transform.  ``--no_data_parallel`` is accepted and selects
-nothing (one device).
+bucketed transform.  On a host with several GPUs it runs one engine
+replica on each and splits every batch over them, the batch raised to at
+least 8 a GPU; ``--no_data_parallel`` keeps one GPU.
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ from ..core.cli import (
     add_bucketing_args,
     add_decoder_ckpt_arg,
     add_vae_args,
-    refuse_unported,
     resolve_attention_flags,
 )
+from ..parallel.mesh import auto_data_parallel
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "split seed)")
     p.add_argument("--mixed_precision", type=str, default=None)
     p.add_argument("--no_data_parallel", action="store_true",
-                   help="(compat) the port evaluates on one device")
+                   help="one GPU instead of a replica on every local GPU")
     add_bucketing_args(p)
     add_attention_args(p)
     p.add_argument("--device", type=str, default="cuda",
@@ -66,7 +67,9 @@ def main(argv=None) -> dict:
     from .standalone import evaluate_checkpoint
 
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
+    args.devices, args.batch_size = auto_data_parallel(
+        args.batch_size, not args.no_data_parallel, what="evaluation",
+        device=args.device)
     args.attention_config = resolve_attention_flags(args)
     os.makedirs(args.output_dir, exist_ok=True)
     metrics = evaluate_checkpoint(args)

@@ -9,7 +9,9 @@ and ``evaluation_results_overall.json``).  ``use_val_split`` reproduces the
 trainers' 90/10 split (split seed ``seed or 42``), so a checkpoint can be
 scored on the validation subset it was selected on, and
 ``use_bucketing`` with the training run's bucket grid its bucketed
-validation transform.
+validation transform.  ``args.devices`` (the eval CLI's
+``auto_data_parallel``) spreads every batch over one engine replica a
+device.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ def evaluate_checkpoint(args, engine: TaggerEngine | None = None) -> dict:
             attention_config=getattr(args, "attention_config", None),
             mixed_precision=getattr(args, "mixed_precision", None),
             device=getattr(args, "device", None))
+    if getattr(args, "devices", None):
+        engine = engine.with_devices(args.devices)
 
     seed = getattr(args, "seed", 42)
     dataset = TaggedImageDataset(

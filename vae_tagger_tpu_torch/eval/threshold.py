@@ -5,7 +5,11 @@ of ``vae_tagger_tpu/eval/threshold.py``).
 serves ``train_full``'s final phase and standalone evaluation alike; one
 batch stays in flight, so the card runs batch N+1 while the host copies
 batch N's probabilities.  Padded rows are dropped through ``batch_mask``
-where a loader sets one (the port's loaders do not pad).
+where a loader sets one.  Under data parallelism (parallel/mesh.py) each
+process predicts its slice of every batch; the collection gathers the
+probabilities, labels and masks of every process in rank order, so every
+process searches and evaluates the global set, and rank 0 alone prints
+and writes the files.
 
 Kept from the reference: the threshold search casts weighted labels to int
 (``y_true.astype(int)``), so a partial weight below 1.0 counts as 0; the
@@ -23,6 +27,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..parallel.mesh import gather_to_host, is_main_process
 from ..utils.pipelining import OneInFlight
 from .metrics import MultiLabelEvaluator, prf
 
@@ -42,9 +47,10 @@ def collect_predictions(predict_fn: Callable, loader) -> tuple:
     probs_all, targets_all = [], []
 
     def resolve(probs, labels, mask):
-        probs, labels = _host(probs), np.asarray(labels)
+        probs = gather_to_host(_host(probs))
+        labels = gather_to_host(np.asarray(labels))
         if mask is not None:
-            mask = np.asarray(mask)
+            mask = gather_to_host(np.asarray(mask, dtype=bool))
             probs, labels = probs[mask], labels[mask]
         probs_all.append(probs)
         targets_all.append(labels)
@@ -67,6 +73,8 @@ def evaluate_model(predict_fn: Callable, loader, class_names: List[str],
     y_pred = (y_prob > threshold).astype(np.float32)
     evaluator.update(y_pred, y_true, y_prob)
     metrics = evaluator.compute_metrics()
+    if not is_main_process():
+        return metrics
     evaluator.print_metrics(metrics)
     if output_dir:
         os.makedirs(output_dir, exist_ok=True)
@@ -212,6 +220,8 @@ def _emit_threshold_results(optimal: Dict, best_global_thr: float,
         "global_f1": best_global_f1,
         "per_class_thresholds": optimal,
     }
+    if not is_main_process():
+        return results
     print(f"Global Threshold: {best_global_thr:.3f} "
           f"(Macro F1: {best_global_f1:.4f})")
     print("\nPer-Class Thresholds:")

@@ -2,9 +2,13 @@
 
 Takes the flags of the JAX package's ``scripts/infer_full.py``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
-``--transfer_format yuv420`` ships planar 4:2:0 to the card.  Accepted
-and refused at start, not yet ported: ``--no_data_parallel``,
-``--spatial_parallel`` (multi-GPU) and ``--model_checkpoint``.
+``--transfer_format yuv420`` ships planar 4:2:0 to the card.  On a host
+with several GPUs it runs one engine replica on each and splits every
+batch over them, the batch raised to at least 8 a GPU
+(parallel/mesh.py::auto_data_parallel); ``--no_data_parallel`` keeps one
+GPU.  ``--spatial_parallel`` is a no-op on one device and refused over
+more (not ported yet).  ``--model_checkpoint`` (deprecated) stands in for
+a missing ``--vae_checkpoint`` or ``--decoder_checkpoint``.
 """
 
 from __future__ import annotations
@@ -12,17 +16,18 @@ from __future__ import annotations
 import argparse
 
 from ..core.cli import refuse_unported, resolve_attention_flags
+from ..parallel.mesh import auto_data_parallel, local_devices
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m vae_tagger_tpu_torch.infer",
         description="Classify images with the VAE + tagger decoder.")
-    p.add_argument("--vae_checkpoint", type=str, required=True,
+    p.add_argument("--vae_checkpoint", type=str, default=None,
                    help="pretrained VAE weights (.safetensors/.bin)")
     p.add_argument("--vae_config_path", type=str, default=None,
                    help="VAE config file (diffusers-style JSON)")
-    p.add_argument("--decoder_checkpoint", type=str, required=True,
+    p.add_argument("--decoder_checkpoint", type=str, default=None,
                    help="decoder weights (.bin/.pth)")
     p.add_argument("--image_path", type=str, required=True,
                    help="an image file or a directory of images")
@@ -43,14 +48,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "4:2:0 at half of RGB's bytes; tags match RGB within "
                    "the chroma subsampling's noise")
     p.add_argument("--no_data_parallel", action="store_true",
-                   help="multi-GPU data parallelism (not ported yet: "
-                   "refused)")
+                   help="one GPU instead of a replica on every local GPU")
     p.add_argument("--spatial_parallel", action="store_true",
-                   help="height-sharded multi-GPU inference (not ported "
-                   "yet: refused)")
+                   help="height-sharded multi-GPU inference: a no-op on "
+                   "one device, refused over more (not ported yet)")
     p.add_argument("--model_checkpoint", type=str, default=None,
-                   help="(deprecated) parent path of both checkpoints (not "
-                   "ported: refused)")
+                   help="(deprecated) parent path for both checkpoints")
     p.add_argument("--use_attention", action="store_true", default=True,
                    help="use the attention decoder (default on)")
     p.add_argument("--no_attention", action="store_true",
@@ -70,10 +73,21 @@ def main(argv=None) -> dict:
     from .classify import infer_and_classify
     from .engine import TaggerEngine
 
-    args = build_parser().parse_args(argv)
-    refuse_unported(args, (
-        ("--no_data_parallel", args.no_data_parallel),
-        ("--model_checkpoint", args.model_checkpoint is not None)))
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.model_checkpoint and (not args.vae_checkpoint
+                                  or not args.decoder_checkpoint):
+        print("back-compat mode: deriving checkpoint paths from "
+              "--model_checkpoint")
+        args.vae_checkpoint = args.vae_checkpoint or args.model_checkpoint
+        args.decoder_checkpoint = (args.decoder_checkpoint
+                                   or args.model_checkpoint)
+    if not args.vae_checkpoint or not args.decoder_checkpoint:
+        parser.error("--vae_checkpoint and --decoder_checkpoint are "
+                     "required (or --model_checkpoint)")
+    refuse_unported(args, len(local_devices(args.device)))
+    devices, batch_size = auto_data_parallel(
+        args.batch_size, not args.no_data_parallel, device=args.device)
     attention_config = resolve_attention_flags(args)
     engine = TaggerEngine.load(
         vae_checkpoint=args.vae_checkpoint,
@@ -85,11 +99,13 @@ def main(argv=None) -> dict:
         mixed_precision=args.mixed_precision,
         device=args.device,
     )
+    if devices:
+        engine = engine.with_devices(devices)
     return infer_and_classify(
         engine, args.image_path, output_dir=args.output_dir,
         resolution=args.resolution,
         confidence_threshold=args.confidence_threshold,
-        batch_size=args.batch_size, num_workers=args.num_workers,
+        batch_size=batch_size, num_workers=args.num_workers,
         prefetch_factor=args.prefetch_factor,
         transfer_format=args.transfer_format)
 

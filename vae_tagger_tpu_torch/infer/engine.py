@@ -23,19 +23,30 @@ tagger head -> sigmoid, under ``torch.inference_mode()``.
   luma plane and (B, 2, H/2, W/2) chroma, half of RGB's bytes; the card
   turns them back into uint8 RGB (ops/image.py) before the same encode.
 
-The TPU's padding of batches to 8 rows is not carried over; the mesh and
-spatial methods wait for a later slice.
+- :meth:`VAEOnlyEngine.with_devices` (the JAX engine's ``with_mesh``)
+  returns a copy holding one replica of the models per device (a device
+  may repeat: two replicas on one card); its ``encode_async``,
+  ``classify_async`` and their YUV forms pad the batch with zero rows to
+  a multiple of the replicas, give each replica its contiguous chunk,
+  launch every chunk before reading any result, and drop the pad rows
+  (the VAE's GroupNorm and the eval-mode head are per sample, so pads
+  cannot touch real rows).  The results come back concatenated on the
+  first replica's device.
+
+The TPU's padding of batches to 8 rows is not carried over; the spatial
+(height-sharded) methods wait for a later slice.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core.config import AttentionDecoderConfig
-from ..core.device import resolve_device
+from ..core.device import indexed_device, resolve_device
 from ..core.precision import Policy, resolve_mixed_precision
 from ..data.dataset import load_tag_names
 from ..io.checkpoints import load_decoder, load_vae
@@ -64,16 +75,68 @@ def build_decoder(num_classes: int, use_attention: bool = True,
     return seeded_init_(head, seed)
 
 
+def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
+    """``a`` with zero rows appended up to ``rows``."""
+    a = np.asarray(a)
+    if len(a) == rows:
+        return a
+    pad = np.zeros((rows - len(a), *a.shape[1:]), a.dtype)
+    return np.concatenate([a, pad])
+
+
 class VAEOnlyEngine:
     """The encode half of the VAE on one device: uint8 pixels -> scaled
     posterior-mode latents (latent extraction, and the base of
     :class:`TaggerEngine`).  The VAE decoder is not loaded."""
+
+    # the modules a replica holds on its device (with_devices)
+    _MODULES = ("vae",)
+    replicas = None
 
     def __init__(self, vae: AutoencoderKL, policy: Policy = Policy(),
                  device=None):
         self.device = resolve_device(device)
         self.policy = policy
         self.vae = vae.to(self.device).eval()
+
+    def with_devices(self, devices) -> "VAEOnlyEngine":
+        """A copy of this engine with one replica of its models on each of
+        ``devices``, over which the ``*_async`` methods split every
+        batch."""
+        own = indexed_device(self.device)
+        moved = {}
+        replicas = []
+        for device in (indexed_device(d) for d in devices):
+            replica = copy.copy(self)
+            replica.device, replica.replicas = device, None
+            for name in self._MODULES:
+                if (name, device) not in moved:
+                    module = getattr(self, name)
+                    moved[name, device] = (
+                        module if device == own
+                        else copy.deepcopy(module).to(device))
+                setattr(replica, name, moved[name, device])
+            replicas.append(replica)
+        engine = copy.copy(self)
+        engine.replicas = replicas
+        return engine
+
+    def _split(self, method: str, *arrays):
+        """``method`` of every replica on its contiguous chunk of the batch,
+        padded with zero rows to a multiple of the replicas; every chunk
+        is launched before any result is read.  Returns (the results
+        without the pad rows, on the first replica's device, real
+        count)."""
+        n, b = len(self.replicas), len(arrays[0])
+        per = -(-b // n)
+        arrays = [_pad_rows(a, per * n) for a in arrays]
+        outs = [getattr(r, method)(*(a[i * per:(i + 1) * per]
+                                     for a in arrays))[0]
+                for i, r in enumerate(self.replicas)]
+        first = self.replicas[0].device
+        with torch.inference_mode():
+            return torch.cat([o.to(first, non_blocking=True)
+                              for o in outs])[:b], b
 
     @classmethod
     def load(cls, vae_checkpoint: str,
@@ -100,6 +163,8 @@ class VAEOnlyEngine:
 
     def encode_async(self, pixels_uint8: np.ndarray):
         """Dispatch without synchronizing: (device latents, real count)."""
+        if self.replicas:
+            return self._split("encode_async", pixels_uint8)
         with torch.inference_mode():
             latents = self._encode(self._place(pixels_uint8))
         return latents, len(pixels_uint8)
@@ -116,6 +181,8 @@ class VAEOnlyEngine:
 
     def encode_yuv_async(self, y_uint8: np.ndarray, cbcr_uint8: np.ndarray):
         """:meth:`encode_async` of the YUV 4:2:0 planes."""
+        if self.replicas:
+            return self._split("encode_yuv_async", y_uint8, cbcr_uint8)
         with torch.inference_mode():
             latents = self._encode(self._place_yuv(y_uint8, cbcr_uint8))
         return latents, len(y_uint8)
@@ -129,6 +196,8 @@ class VAEOnlyEngine:
 class TaggerEngine(VAEOnlyEngine):
     """VAE encoder + tagger head on one device; the head runs in the
     policy's compute dtype."""
+
+    _MODULES = ("vae", "decoder")
 
     def __init__(self, vae: AutoencoderKL, decoder: torch.nn.Module,
                  tag_names: list, policy: Policy = Policy(),
@@ -165,6 +234,8 @@ class TaggerEngine(VAEOnlyEngine):
 
     def classify_async(self, pixels_uint8: np.ndarray):
         """Dispatch without synchronizing: (device_probs, real_count)."""
+        if self.replicas:
+            return self._split("classify_async", pixels_uint8)
         with torch.inference_mode():
             _, probs = self._encode_classify(self._place(pixels_uint8))
         return probs, len(pixels_uint8)
@@ -177,6 +248,8 @@ class TaggerEngine(VAEOnlyEngine):
     def classify_yuv_async(self, y_uint8: np.ndarray,
                            cbcr_uint8: np.ndarray):
         """:meth:`classify_async` of the YUV 4:2:0 planes."""
+        if self.replicas:
+            return self._split("classify_yuv_async", y_uint8, cbcr_uint8)
         with torch.inference_mode():
             _, probs = self._encode_classify(
                 self._place_yuv(y_uint8, cbcr_uint8))

@@ -156,8 +156,6 @@ def main(argv=None) -> dict:
     ``cuda``; ``cpu`` runs the plain PyTorch path)."""
     import argparse
 
-    from ..core.cli import refuse_unported
-
     p = argparse.ArgumentParser(
         prog="python -m vae_tagger_tpu_torch.infer.latents",
         description="Run VAE inference and save latent vectors.")
@@ -190,7 +188,6 @@ def main(argv=None) -> dict:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    refuse_unported(args)
     engine = VAEOnlyEngine.load(args.vae_checkpoint, args.vae_config_path,
                                 args.mixed_precision, args.device)
     if args.tiled:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import global_mean
 from .classification import bce_with_logits, class_balanced_loss, focal_loss
 from .metric_learning import contrastive_loss, triplet_loss
 
@@ -100,8 +101,9 @@ def simplified_combined_loss(cfg: LossConfig, z_a, z_p, z_n=None,
 
 def log_damped_kl(kl_a, kl_p, kl_n):
     """log(1 + mean KL / 10000) over the three triplet posteriors' per-sample
-    KLs."""
-    kl_mean = ((kl_a + kl_p + kl_n) / 3.0).mean()
+    KLs; under data parallelism the mean is the global batch's (the log
+    does not commute with averaging over processes)."""
+    kl_mean = global_mean((kl_a + kl_p + kl_n) / 3.0)
     return torch.log1p(kl_mean / 10000.0)
 
 

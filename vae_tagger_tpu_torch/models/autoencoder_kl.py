@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from ..core.config import VAEConfig
+from ..parallel.mesh import draw_global
 from ..nn.blocks import (
     Conv2D,
     DownEncoderBlock,
@@ -32,13 +33,23 @@ from ..nn.blocks import (
 )
 
 
+def _randn(shape, generator, device) -> torch.Tensor:
+    """Standard normal fp32 noise of ``shape`` from ``generator``."""
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+
+
 @dataclasses.dataclass
 class DiagonalGaussian:
     """Diagonal Gaussian posterior over NHWC latents (diffusers
-    ``DiagonalGaussianDistribution``): logvar clamped to [-30, 20]."""
+    ``DiagonalGaussianDistribution``): logvar clamped to [-30, 20].
+    ``parts`` is the number of equal blocks the batch stacks (3 for the
+    anchor/positive/negative stack), which tells a data-parallel draw
+    which rows of the global batch's noise are this process's."""
 
     mean: torch.Tensor    # (B, h, w, C)
     logvar: torch.Tensor  # (B, h, w, C)
+    parts: int = 1
 
     @classmethod
     def from_moments(cls, moments: torch.Tensor) -> "DiagonalGaussian":
@@ -50,9 +61,11 @@ class DiagonalGaussian:
 
     def sample(self, generator: torch.Generator) -> torch.Tensor:
         """mean + exp(logvar / 2) * eps, eps ~ N(0, I) from ``generator``
-        (on the tensors' device)."""
-        eps = torch.randn(self.mean.shape, generator=generator,
-                          device=self.mean.device, dtype=torch.float32)
+        (on the tensors' device); under data parallelism eps is this
+        process's rows of the global batch's draw."""
+        eps = draw_global(
+            lambda shape: _randn(shape, generator, self.mean.device),
+            self.mean.shape, self.parts)
         return self.mean + torch.exp(0.5 * self.logvar) * eps.to(
             self.mean.dtype)
 

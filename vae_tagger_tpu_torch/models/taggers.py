@@ -19,7 +19,11 @@ NCHW ``reshape``, so Linear weights carry over without permutation.  The
 ``train()`` mode dropout draws from the ``generator`` passed to the
 forward (the JAX package's explicit dropout key), and BatchNorm normalizes
 with the batch statistics and updates its running statistics as flax's
-``BatchNorm(momentum=0.9)`` does: with the *biased* batch variance.
+``BatchNorm(momentum=0.9)`` does: with the *biased* batch variance.  Under
+data parallelism (parallel/mesh.py) both see the global batch, as XLA's
+SPMD step does: the dropout masks are this process's rows of the global
+batch's draw, and the BatchNorm statistics are all-reduced (with their
+gradient).
 
 Each head has a compute ``dtype`` (fp32 by default; the policy's compute
 dtype, bf16 under mixed precision, where the engine and the trainers build
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 
 from ..core.config import AttentionDecoderConfig
 from ..ops.conv import conv2d_nhwc
+from ..parallel.mesh import draw_global, global_sum, process_count
 from ..ops.pooling import adaptive_avg_pool_nhwc, adaptive_max_pool_nhwc
 
 
@@ -96,12 +101,19 @@ def _layer_norm(ln: nn.LayerNorm, x, dtype):
     return _normalize(xf, mean, var, ln.weight, ln.bias, ln.eps, dtype)
 
 
+def _rand(shape, generator, device) -> torch.Tensor:
+    """Uniform [0, 1) noise of ``shape`` from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def dropout(x, p: float, training: bool, generator=None):
     """Inverted dropout whose mask is drawn from ``generator`` (the default
-    generator when None); the identity outside training."""
+    generator when None), this process's rows of the global batch's draw;
+    the identity outside training."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = draw_global(lambda shape: _rand(shape, generator, x.device),
+                       x.shape) >= p
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
@@ -124,19 +136,37 @@ def _sequential(layers: nn.Sequential, x, dtype, generator=None):
     return x
 
 
+def _global_batch_stats(xf):
+    """(mean, biased variance) per channel of an NHWC fp32 tensor over the
+    global batch, two-pass, with their gradients."""
+    count = xf.shape[0] * xf.shape[1] * xf.shape[2] * process_count()
+    mean = global_sum(xf.sum(dim=(0, 1, 2))) / count
+    var = global_sum((xf - mean).square().sum(dim=(0, 1, 2))) / count
+    return mean, var
+
+
+@torch.no_grad()
+def _update_running(bn: nn.BatchNorm2d, mean, var):
+    m = bn.momentum
+    bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+    bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+    bn.num_batches_tracked += 1
+
+
 def batch_norm_nhwc(bn: nn.BatchNorm2d, x, dtype=torch.float32):
     """BatchNorm over an NHWC tensor, its statistics and affine in fp32,
     output in ``dtype``.  In training it normalizes with the batch
     statistics (two-pass variance) and moves the running ones by
     ``bn.momentum`` toward the batch mean and the biased batch variance
-    (flax's update; torch's own would take the unbiased variance)."""
+    (flax's update; torch's own would take the unbiased variance).  Under
+    data parallelism the statistics are the global batch's."""
+    if bn.training and process_count() > 1:
+        mean, var = _global_batch_stats(x.float())
+        _update_running(bn, mean.detach(), var.detach())
+        return _normalize(x, mean, var, bn.weight, bn.bias, bn.eps, dtype)
     if bn.training:
         var, mean = torch.var_mean(x.float(), dim=(0, 1, 2), correction=0)
-        with torch.no_grad():
-            m = bn.momentum
-            bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            bn.num_batches_tracked += 1
+        _update_running(bn, mean, var)
     if dtype != torch.float32:
         if not bn.training:
             mean, var = bn.running_mean, bn.running_var

@@ -16,6 +16,7 @@ kernel is rebuilt and a stale one is never loaded.  ``build_all`` starts one
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -204,6 +205,23 @@ def check_tma_aligned(*tensors) -> None:
             raise ValueError(f"a tensor-core kernel's operand must be "
                              f"16-byte aligned, got address "
                              f"{t.data_ptr():#x} ({tuple(t.shape)})")
+
+
+def on_tensor_device(fn):
+    """Run the kernel launch ``fn`` with the device of its first tensor
+    argument current: ``<<<...>>>`` and ``cudaFuncSetAttribute`` act on
+    the calling thread's current device, not on the device of the stream
+    handed to them, so a replica on ``cuda:1`` launching while ``cuda:0``
+    is current would fail with an invalid handle or worse."""
+    @functools.wraps(fn)
+    def launch(*args, **kwargs):
+        import torch
+
+        t = next(a for a in args if isinstance(a, torch.Tensor))
+        with torch.cuda.device(t.device):
+            return fn(*args, **kwargs)
+
+    return launch
 
 
 def stream_of(t) -> int:

@@ -48,7 +48,14 @@ import ctypes
 import torch
 
 from . import backend
-from ._build import check, check_tma_aligned, dtype_code, lib, stream_of
+from ._build import (
+    check,
+    check_tma_aligned,
+    dtype_code,
+    lib,
+    on_tensor_device,
+    stream_of,
+)
 from .tf32x3 import split_tf32, transpose_permuted
 
 # dtype of a CUDA tensor -> (library, C entry, launch counter) of the
@@ -246,6 +253,7 @@ def bwd_kernels_for(q):
     return _kernel_entry(BWD_KERNELS, q, "bwd")
 
 
+@on_tensor_device
 def _flash_attention_fwd_kernel(q, k, v):
     _check_qkv(q, k, v)
     stem, fn, counter = fwd_kernel_for(q)
@@ -296,6 +304,7 @@ def _bwd_args(q, k, v, do, lse, delta):
     return keep, args
 
 
+@on_tensor_device
 def _bwd_kernel(part, q, k, v, do, lse, delta):
     """Launch the backward kernel ``part`` ("dq" or "dkv") that
     :data:`BWD_KERNELS` names for q's dtype; returns its outputs."""

@@ -36,7 +36,14 @@ import torch
 import torch.nn.functional as F
 
 from . import backend
-from ._build import check, check_tma_aligned, dtype_code, lib, stream_of
+from ._build import (
+    check,
+    check_tma_aligned,
+    dtype_code,
+    lib,
+    on_tensor_device,
+    stream_of,
+)
 from .tf32x3 import split_tf32
 from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
     effective_affine,
@@ -143,6 +150,7 @@ def gn_silu_conv3x3_plain(x, gn_scale, gn_bias, kernel, bias, residual=None,
     return out.to(dt)
 
 
+@on_tensor_device
 def _gn_silu_conv3x3_kernel(x, gn_scale, gn_bias, kernel, bias, residual,
                             shortcut_kernel, shortcut_bias, num_groups, eps):
     n, h, w, c_in = x.shape

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from . import backend
-from ._build import check, dtype_code, lib, stream_of
+from ._build import check, dtype_code, lib, on_tensor_device, stream_of
 
 
 def group_norm(x, scale, bias, *, num_groups: int, eps: float = 1e-6):
@@ -183,6 +183,7 @@ def _scratch(x, stream: int, floats: int):
     return entry
 
 
+@on_tensor_device
 def _gn_stats_launch(x, num_groups: int, eps: float, gamma=None, beta=None,
                      out=None):
     """Launch the stats pass (one kernel) on a contiguous CUDA tensor x.
@@ -251,6 +252,7 @@ def group_norm_affine(x, gn_scale, gn_bias, *, num_groups: int,
     return effective_affine(mean, meansq, gn_scale, gn_bias, x.shape[-1], eps)
 
 
+@on_tensor_device
 def _group_norm_silu_kernel(x, scale, bias, num_groups, eps, apply_silu):
     """The stats pass, then the apply pass in the same plan: two launches;
     eff_scale/eff_bias stay in the scratch between them."""

@@ -4,9 +4,11 @@ Takes the flags of the JAX package's ``scripts/serve.py``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 Loads the infer CLI's artifacts (VAE safetensors + config JSON, the head's
 ``pytorch_model.bin``, tags CSV) and serves ``POST /classify``,
-``GET /healthz`` and ``GET /tags`` (serve/server.py).  ``--max_batch``
-defaults to 8.  Accepted and refused at start, not yet ported:
-``--no_data_parallel`` and ``--spatial_parallel`` (multi-GPU).
+``GET /healthz`` and ``GET /tags`` (serve/server.py).  On a host with
+several GPUs it serves from one engine replica on each, every coalesced
+batch split over them, and ``--max_batch`` defaults to 8 a GPU (8 on
+one); ``--no_data_parallel`` keeps one GPU.  ``--spatial_parallel`` is a
+no-op on one device and refused over more (not ported yet).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import argparse
 
 from ..core.cli import refuse_unported
+from ..parallel.mesh import auto_data_parallel, local_devices
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,8 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bind address (no auth: 0.0.0.0 is an explicit "
                    "opt-in)")
     p.add_argument("--port", type=int, default=8000)
-    p.add_argument("--max_batch", type=int, default=8,
-                   help="most images a device batch coalesces")
+    p.add_argument("--max_batch", type=int, default=None,
+                   help="most images a batch coalesces (default 8, times "
+                   "the GPUs under data parallelism)")
     p.add_argument("--batch_timeout_ms", type=float, default=10.0)
     p.add_argument("--request_timeout_s", type=float, default=600.0)
     p.add_argument("--max_body_mb", type=float, default=32.0,
@@ -41,11 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="pending-request cap; beyond it requests get 503")
     p.add_argument("--no_warmup", action="store_true")
     p.add_argument("--no_data_parallel", action="store_true",
-                   help="multi-GPU data parallelism (not ported yet: "
-                   "refused)")
+                   help="one GPU instead of a replica on every local GPU")
     p.add_argument("--spatial_parallel", action="store_true",
-                   help="height-sharded multi-GPU serving (not ported yet: "
-                   "refused)")
+                   help="height-sharded multi-GPU serving: a no-op on one "
+                   "device, refused over more (not ported yet)")
     p.add_argument("--no_attention", action="store_true")
     p.add_argument("--transfer_format", type=str, default="rgb",
                    choices=["rgb", "yuv420"],
@@ -63,7 +66,10 @@ def build_server(args):
     from ..infer.engine import TaggerEngine
     from .server import TaggerServer
 
-    refuse_unported(args, (("--no_data_parallel", args.no_data_parallel),))
+    refuse_unported(args, len(local_devices(args.device)))
+    devices, default_max_batch = auto_data_parallel(
+        8, not args.no_data_parallel, what="serving",
+        batch_label="default max_batch", device=args.device)
     engine = TaggerEngine.load(
         vae_checkpoint=args.vae_checkpoint,
         decoder_checkpoint=args.decoder_checkpoint,
@@ -72,10 +78,12 @@ def build_server(args):
         use_attention=not args.no_attention,
         mixed_precision=args.mixed_precision,
         device=args.device)
+    if devices:
+        engine = engine.with_devices(devices)
     return TaggerServer(engine, resolution=tuple(args.resolution),
                         threshold=args.confidence_threshold,
                         host=args.host, port=args.port,
-                        max_batch=args.max_batch,
+                        max_batch=args.max_batch or default_max_batch,
                         batch_timeout_ms=args.batch_timeout_ms,
                         request_timeout_s=args.request_timeout_s,
                         warmup=not args.no_warmup,

@@ -1,5 +1,5 @@
 """Dataset and loaders, and the epoch loop of the trainer (the port's
-counterpart of ``vae_tagger_tpu/train/loop.py``, one device).
+counterpart of ``vae_tagger_tpu/train/loop.py``).
 
 - 90/10 train/val split, one dataset shared by both loaders;
 - epochs with ``set_epoch`` on the dataset (triplet mining) and the
@@ -31,7 +31,15 @@ counterpart of ``vae_tagger_tpu/train/loop.py``, one device).
   train steps of the run (a drill);
 - ``--profile_steps N``: a torch.profiler capture (CPU and CUDA) of train
   steps first+2 to first+2+N, written as a chrome trace to
-  ``<output_dir>/profile/trace.json``, also when the run ends first.
+  ``<output_dir>/profile/trace.json``, also when the run ends first;
+- data parallelism (one process per GPU under torchrun,
+  parallel/mesh.py): the global batch is ``--train_batch_size`` times the
+  number of processes, each loading its slice; the epoch means weight by
+  the global batch's real rows; rank 0 alone logs, profiles and writes
+  (checkpoints, exports, history).  torchrun passes SIGTERM to every rank,
+  each at its own moment, so the stop flag is agreed (a max all-reduce on
+  the host) at every point the loop reads it: all ranks stop after the
+  same step, rank 0 saves, and the others wait for the save.
 """
 
 from __future__ import annotations
@@ -50,6 +58,13 @@ import torch
 from ..data.dataset import TaggedImageDataset
 from ..data.loader import DataLoader, train_val_split
 from ..io.checkpoints import save_train_state
+from ..parallel.mesh import (
+    agree,
+    barrier,
+    is_main_process,
+    process_count,
+    process_index,
+)
 from ..utils import profiling
 from ..utils.pipelining import OneInFlight
 
@@ -60,7 +75,9 @@ _VAL_MINING_EPOCH = -1
 def build_dataset_and_loaders(args, return_triplets: bool = True):
     """Dataset + train/val loaders from the trainer's args: aspect-ratio
     buckets with ``--use_bucketing`` (and its three size flags), the YUV
-    wire format with ``--transfer_format yuv420``."""
+    wire format with ``--transfer_format yuv420``; under data parallelism
+    a global batch of ``train_batch_size`` a process, of which each
+    process loads its slice."""
     dataset = TaggedImageDataset(
         json_path=args.json_path, tags_csv_path=args.tags_csv_path,
         resolution=args.resolution, seed=args.seed,
@@ -72,21 +89,27 @@ def build_dataset_and_loaders(args, return_triplets: bool = True):
         transfer_format=getattr(args, "transfer_format", "rgb") or "rgb")
     train_idx, val_idx = train_val_split(len(dataset), 0.1,
                                          seed=args.seed or 42)
-    train_loader = DataLoader(dataset, args.train_batch_size, shuffle=True,
+    world = process_count()
+    global_batch = args.train_batch_size * world
+    proc = dict(process_index=process_index(), process_count=world)
+    train_loader = DataLoader(dataset, global_batch, shuffle=True,
                               num_workers=args.num_workers,
                               prefetch_factor=args.prefetch_factor,
-                              seed=args.seed, indices=train_idx)
-    val_loader = DataLoader(dataset, args.train_batch_size, shuffle=False,
+                              seed=args.seed, indices=train_idx, **proc)
+    val_loader = DataLoader(dataset, global_batch, shuffle=False,
                             num_workers=max(1, args.num_workers // 2),
                             prefetch_factor=args.prefetch_factor,
-                            seed=args.seed, indices=val_idx)
+                            seed=args.seed, indices=val_idx, **proc)
     print(f"train size: {len(train_idx)}, val size: {len(val_idx)}, "
-          f"batch: {args.train_batch_size}")
+          f"batch: {global_batch}"
+          + (f" (global, {world} processes)" if world > 1 else ""))
     return dataset, train_loader, val_loader
 
 
 def _real_rows(batch) -> int:
-    """Rows of a batch that are not the sampler's repeats."""
+    """Rows of the global batch that are not the sampler's repeats."""
+    if "global_real_count" in batch:
+        return int(batch["global_real_count"])
     mask = batch.get("batch_mask")
     return len(batch["labels"]) if mask is None else int(mask.sum())
 
@@ -178,8 +201,9 @@ class EpochLoop:
         self.history = {"train_loss": [], "val_loss": [],
                         "learning_rates": [], "train_metrics": {}}
         self.best_val_loss = float("inf")
+        self._main = is_main_process()
         self._ckpt_writer = (None if getattr(args, "sync_checkpoints", False)
-                             else CheckpointWriter())
+                             or not self._main else CheckpointWriter())
         self.interrupted = False
         self._preempt = False
         self._preempt_after = int(
@@ -203,6 +227,11 @@ class EpochLoop:
         finally:
             signal.signal(signal.SIGTERM, previous)
 
+    def _stop(self, drill: bool = False) -> bool:
+        """Whether to save and stop here: SIGTERM seen (or the drill's
+        step reached) on any rank."""
+        return agree(self._preempt or drill)
+
     def _profile_start(self):
         self._profiler = torch.profiler.profile(
             activities=profiling.activities())
@@ -223,7 +252,8 @@ class EpochLoop:
         args = self.args
         n_batches = max(1, len(self.train_loader))
         global_step = first_step = state.step
-        profile_steps = getattr(args, "profile_steps", 0) or 0
+        profile_steps = (getattr(args, "profile_steps", 0) or 0
+                         if self._main else 0)
         profile_range = ((first_step + 2, first_step + 2 + profile_steps)
                          if profile_steps else None)
         # a resumed run continues the epoch numbering (fresh triplets and
@@ -237,8 +267,9 @@ class EpochLoop:
             self.train_loader.set_epoch(mining_epoch)
             self.val_loader.set_epoch(mining_epoch)
             if epoch == 0 and resume_skip:
-                print(f"mid-epoch resume: skipping {resume_skip} "
-                      f"already-trained batches of epoch {epoch_offset}")
+                if self._main:
+                    print(f"mid-epoch resume: skipping {resume_skip} "
+                          f"already-trained batches of epoch {epoch_offset}")
                 self.train_loader.skip_next(resume_skip)
             epoch_t0 = time.perf_counter()
             metric_acc = {}   # key -> [(value, weight)]
@@ -250,7 +281,7 @@ class EpochLoop:
                         if v.dim() == 0}
                 for k, v in host.items():
                     metric_acc.setdefault(k, []).append((v, n_real))
-                if step % args.logging_steps == 0:
+                if self._main and step % args.logging_steps == 0:
                     parts = [f"Epoch: {epoch}", f"Step: {step}"]
                     parts += [f"{k}: {host[k]:.4f}"
                               for k in self.log_metric_keys if k in host]
@@ -272,15 +303,14 @@ class EpochLoop:
                 train_pipeline.submit(step, global_step, metrics, n_real)
                 images_seen += n_real
                 global_step += 1
-                if self._preempt or (
-                        self._preempt_after
-                        and global_step - first_step >= self._preempt_after):
+                if self._stop(self._preempt_after and global_step
+                              - first_step >= self._preempt_after):
                     train_pipeline.flush()
                     if self._profiler is not None:
                         self._profile_stop()
                     return self._interrupt_save(state)
             train_pipeline.flush()
-            if self._preempt:  # arrived between the last step and validation
+            if self._stop():  # arrived between the last step and validation
                 return self._interrupt_save(state)
 
             val_pairs = []
@@ -288,18 +318,20 @@ class EpochLoop:
                 lambda loss, n: val_pairs.append((float(loss), n)))
             dataset.set_epoch(_VAL_MINING_EPOCH)
             val_draws = max(1, int(getattr(args, "val_draws", 1) or 1))
+            stop = False
             for i, batch in enumerate(self.val_loader):
                 for d in range(val_draws):
-                    if self._preempt:  # save now: a slow validation could
-                        break          # outlast the grace window
+                    stop = self._stop()
+                    if stop:  # save now: a slow validation could outlast
+                        break  # the grace window
                     metrics = self.run_eval_step(state, batch,
                                                  i * val_draws + d)
                     val_pipeline.submit(metrics["loss"], _real_rows(batch))
-                if self._preempt:
+                if stop:
                     break
             val_pipeline.flush()
             dataset.set_epoch(mining_epoch)
-            if self._preempt:
+            if stop or self._stop():
                 return self._interrupt_save(state)
 
             avg_train = _weighted_mean(metric_acc.get("loss", []))
@@ -313,21 +345,23 @@ class EpochLoop:
             self.history["val_loss"].append(avg_val)
             self.history["learning_rates"].append(lr)
             dt = time.perf_counter() - epoch_t0
-            print(f"Epoch {epoch} completed - Train Loss: {avg_train:.4f}, "
-                  f"Val Loss: {avg_val:.4f} "
-                  f"({images_seen / max(dt, 1e-9):.2f} images/sec)",
-                  flush=True)
+            if self._main:
+                print(f"Epoch {epoch} completed - Train Loss: "
+                      f"{avg_train:.4f}, Val Loss: {avg_val:.4f} "
+                      f"({images_seen / max(dt, 1e-9):.2f} images/sec)",
+                      flush=True)
             callbacks = []
             if avg_val < self.best_val_loss:
                 self.best_val_loss = avg_val
-                print(f"New best validation loss: {avg_val:.4f}")
+                if self._main:
+                    print(f"New best validation loss: {avg_val:.4f}")
                 callbacks.append(self.on_best)
             if (self.on_periodic is not None
                     and (epoch + 1) % args.save_steps == 0):
                 callbacks.append(self.on_periodic)
-            if callbacks:
+            if callbacks and self._main:
                 self._checkpoint(callbacks, state, epoch)
-            if self._preempt:  # during the checkpoint: save now, not an
+            if self._stop():  # during the checkpoint: save now, not an
                 return self._interrupt_save(state)  # epoch later
         if self._profiler is not None:
             self._profile_stop(" (run shorter than --profile_steps)")
@@ -352,18 +386,23 @@ class EpochLoop:
         self._ckpt_writer.submit(write_all)
 
     def _interrupt_save(self, state):
-        """The synchronous full-state save of a preemption; sets
-        ``interrupted`` so the trainers skip their final phase."""
-        if self._ckpt_writer is not None:
-            self._ckpt_writer.wait()  # no race with an epoch's write
-        path = os.path.join(self.args.output_dir, "interrupt_checkpoint")
-        save_train_state(state, path)
+        """The synchronous full-state save of a preemption (rank 0; the
+        other ranks wait for it); sets ``interrupted`` so the trainers
+        skip their final phase."""
         self.interrupted = True
-        print(f"interrupt checkpoint saved at step {state.step}: {path}\n"
-              f"resume with --resume_from {path}", flush=True)
+        if self._main:
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.wait()  # no race with an epoch's write
+            path = os.path.join(self.args.output_dir, "interrupt_checkpoint")
+            save_train_state(state, path)
+            print(f"interrupt checkpoint saved at step {state.step}: "
+                  f"{path}\nresume with --resume_from {path}", flush=True)
+        barrier()
         return state
 
     def save_history(self, output_dir: str):
+        if not self._main:
+            return
         with open(os.path.join(output_dir, "training_history.json"), "w",
                   encoding="utf-8") as f:
             json.dump(self.history, f, indent=2)

@@ -14,6 +14,18 @@ reference's torch optimizer does: under the simplified loss the VAE
 decoder gets no gradient (its ``.grad`` stays None; gradients are cleared
 with ``set_to_none``), so the decay the JAX package applies to its
 untrained tensors does not happen here.
+
+Under data parallelism (parallel/mesh.py) the update first averages the
+gradients over the processes: one all-reduce of a flat bucket of every
+gradient that is not None, once per update (after k micro-steps of
+accumulation), before the clip, so the clip and AdamW see the global
+batch's gradient, as the JAX package's SPMD step does.  Wrapping the
+modules in DDP is avoided on purpose: a tensor that gets no gradient
+keeps ``.grad`` None (DDP's ``find_unused_parameters`` would fill it
+with zeros, and AdamW would then decay it), the state-dict keys carry no
+``module.`` prefix, and the autograd Functions of the kernels stay as
+they are.  DDP's overlap of the all-reduce with the backward is left for
+when a multi-GPU measurement asks for it.
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ from typing import Iterable, Optional
 
 import torch
 
+from ..parallel.mesh import all_reduce_mean_
 from .schedule import Schedule
 
 
@@ -50,6 +63,7 @@ class Optimizer:
         if self.micro < self.accumulation_steps:
             return False
         grads = [p.grad for p in self.params if p.grad is not None]
+        all_reduce_mean_(grads)
         if self.accumulation_steps > 1:
             torch._foreach_div_(grads, float(self.accumulation_steps))
         if self.max_grad_norm and self.max_grad_norm > 0:

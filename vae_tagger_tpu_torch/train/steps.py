@@ -35,6 +35,30 @@ second generator of the same step (``step_generator(..., stream=1)``).  The
 JAX package measured that one shared draw destabilizes training (its
 ``make_vae_steps``; ``benchmarks/vae_dynamics_probe.py``).
 
+Data parallelism (one process per GPU, parallel/mesh.py): each process
+runs these steps on its slice of the global batch, and a step equals one
+process's step on the global batch, as XLA's SPMD step equals the
+single-device one.  What makes it so:
+
+- the optimizer averages the gradients over the processes once per
+  update (train/state.py).  That is exact for every term that is a mean
+  of per-sample values over the batch, because the local batches are
+  equal: the triplet term, the focal, BCE and class-balanced terms, the
+  reconstruction MSE, and ``AdaptiveLossWeights``, which is linear in
+  the term means (its weights depend on its parameters, not on the
+  batch);
+- the terms that mix samples see the global batch: the head's
+  train-mode BatchNorm all-reduces its statistics, with their gradient
+  (models/taggers.py), and the log-damped KL takes ``log1p`` of the
+  global mean KL (losses/combined.py), whose all-reduce's backward sums
+  what every process's copy of the term sends back;
+- the noise is the global batch's: every process draws the whole global
+  batch's posterior and dropout noise from the step's generator and
+  keeps its own rows (of each third of the anchor/positive/negative
+  stack), so the generators advance as in one process;
+- the metrics a step returns are averaged over the processes, so rank 0
+  logs what one process would.
+
 The TPU's sublane padding of the stacked batch and its per-member bs1
 encodes are not carried over.  The head is fed its latents in the compute
 dtype, in which the trainers build it (models/taggers.py), as the JAX
@@ -57,6 +81,7 @@ from ..losses.combined import (
 from ..losses.metric_learning import triplet_loss
 from ..models.autoencoder_kl import DiagonalGaussian, encode_scaled
 from ..ops.image import normalize_uint8, yuv420_to_rgb_uint8
+from ..parallel.mesh import mean_over_processes
 from .state import TrainState
 
 _BATCH_KEYS = ("anchor", "positive", "negative", "labels", "positive_labels")
@@ -132,7 +157,7 @@ def triplet_posterior(vae, batch: dict, compute_dtype,
         mean, logvar = checkpoint(encode, images, use_reentrant=False)
     else:
         mean, logvar = encode(images)
-    return DiagonalGaussian(mean=mean, logvar=logvar)
+    return DiagonalGaussian(mean=mean, logvar=logvar, parts=3)
 
 
 def anchor_reconstruction(vae, posterior: DiagonalGaussian, batch: dict,
@@ -171,7 +196,7 @@ class _Steps:
         total.backward()
         state.optimizer.step()
         state.step += 1
-        return metrics
+        return mean_over_processes(metrics)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict, index: int) -> dict:
@@ -185,7 +210,7 @@ class _Steps:
             recon_generator=g_recon)
         if probs is not None:
             metrics["probs"] = probs
-        return metrics
+        return mean_over_processes(metrics)
 
 
 class FullSteps(_Steps):
@@ -335,7 +360,7 @@ class DecoderSteps:
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach()}
+        return mean_over_processes({"loss": loss.detach()})
 
     @torch.no_grad()
     def eval_step_from_latents(self, state: TrainState, latents,
@@ -344,7 +369,8 @@ class DecoderSteps:
         state.decoder.eval()
         logits = state.decoder(latents.to(self.compute_dtype))
         loss = classification_term(self.cfg, logits, labels, self.cb_weights)
-        return {"loss": loss, "probs": torch.sigmoid(logits.float())}
+        return mean_over_processes(
+            {"loss": loss, "probs": torch.sigmoid(logits.float())})
 
     def train_step(self, state: TrainState, batch: dict,
                    global_step: int) -> dict:

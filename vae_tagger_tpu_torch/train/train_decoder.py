@@ -24,10 +24,11 @@ the placeholder of an unreadable image (``load_ok``), and it stops growing
 at ``--cache_latents_max_gb``, with one message.  Hits and misses are
 counted per batch; the final phase reports its own.
 
-``--profile_steps`` and the preemption save (``interrupt_checkpoint``,
-then no final phase) as in train_full.  The JAX package's multi-host
-branch (the cache turned off on more than one process) does not exist
-here: the port trains in one process.
+``--profile_steps``, the preemption save (``interrupt_checkpoint``, then
+no final phase) and data parallelism under ``torchrun`` as in
+train_full.  A run of more than one process ignores ``--cache_latents``
+(the cache is keyed by the indices of one process's rows), as the JAX
+package does on more than one host.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from ..core.cli import (
     refuse_unported,
     resolve_attention_flags,
 )
+from ..core.config import get_vae_latent_info
 from ..core.device import resolve_device
 from ..core.precision import resolve_mixed_precision
 from ..eval.threshold import (
@@ -66,6 +68,12 @@ from ..io.checkpoints import (
 )
 from ..losses.classification import class_balanced_weights
 from ..losses.combined import LossConfig
+from ..parallel.mesh import (
+    broadcast_from_main,
+    initialize_distributed,
+    is_main_process,
+    process_count,
+)
 from .loop import EpochLoop, build_dataset_and_loaders
 from .schedule import build_lr_schedule
 from .state import TrainState, build_optimizer
@@ -129,9 +137,10 @@ class LatentCache:
 
 
 def train_decoder(args) -> TrainState:
-    refuse_unported(args)
-    device = resolve_device(args.device)
-    os.makedirs(args.output_dir, exist_ok=True)
+    device = initialize_distributed(resolve_device(args.device))
+    refuse_unported(args, process_count())
+    if is_main_process():
+        os.makedirs(args.output_dir, exist_ok=True)
     policy = resolve_mixed_precision(args.mixed_precision)
     attention_config = resolve_attention_flags(args)
     seed = args.seed or 0
@@ -141,8 +150,10 @@ def train_decoder(args) -> TrainState:
                    use_quant_conv=args.use_quant_conv,
                    use_post_quant_conv=args.use_post_quant_conv)
     vae.to(device).eval().requires_grad_(False)
-    side = args.resolution // vae.config.downsample_factor
-    print(f"VAE latents: {vae.config.latent_channels} x {side} x {side}")
+    latent_info = get_vae_latent_info(args.resolution,
+                                      vae.config.latent_channels,
+                                      vae.config.downsample_factor)
+    print(f"VAE latent info: {latent_info}")
 
     dataset, train_loader, val_loader = build_dataset_and_loaders(
         args, return_triplets=False)
@@ -158,6 +169,7 @@ def train_decoder(args) -> TrainState:
         except Exception as e:
             print(f"decoder load failed, training from scratch: {e}")
     head.to(device).train()
+    broadcast_from_main(vae, head)
 
     cfg = LossConfig(use_focal_loss=args.use_focal_loss,
                      use_class_balanced=args.use_class_balanced,
@@ -178,11 +190,13 @@ def train_decoder(args) -> TrainState:
     deterministic = dataset.crop_mode == "center"
     cache = None
     if args.cache_latents:
-        if deterministic:
+        if deterministic and process_count() == 1:
             cache = LatentCache(int(args.cache_latents_max_gb * 1e9))
         else:
-            print(f"--cache_latents ignored: non-deterministic image "
-                  f"transform (crop_mode={dataset.crop_mode!r})")
+            print("--cache_latents ignored: "
+                  + ("multi-host run" if process_count() > 1
+                     else "non-deterministic image transform "
+                          f"(crop_mode={dataset.crop_mode!r})"))
 
     def batch_latents(batch):
         """(latents, labels) on the device: the latents from the cache on

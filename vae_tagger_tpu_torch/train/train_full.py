@@ -22,8 +22,15 @@ threshold (``evaluation_results.csv``, ``evaluation_results_overall.json``).
 yuv420`` ships planar 4:2:0 to the card; ``--profile_steps N`` writes a
 chrome trace to ``<output_dir>/profile``.  On SIGTERM (or
 ``VAE_TAGGER_PREEMPT_AFTER_STEPS``) the run saves ``interrupt_checkpoint``
-and exits without the final phase (train/loop.py).  Refused at start,
-not yet ported: ``--spatial_parallel``.
+and exits without the final phase (train/loop.py).
+
+Data parallelism: ``torchrun --nproc_per_node N -m
+vae_tagger_tpu_torch.train.train_full ...`` trains on N GPUs, one process
+each, at a global batch of N x ``--train_batch_size``; a step equals one
+process's step on the global batch (train/steps.py), rank 0 writes every
+file, and the final phase gathers every process's predictions.  A plain
+``python -m`` run is one process on one GPU.  ``--spatial_parallel`` is a
+no-op in one process and refused over more (not ported yet).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ..core.cli import (
     refuse_unported,
     resolve_attention_flags,
 )
+from ..core.config import get_vae_latent_info
 from ..core.device import resolve_device
 from ..core.precision import resolve_mixed_precision
 from ..eval.threshold import (
@@ -64,6 +72,12 @@ from ..losses.classification import class_balanced_weights
 from ..losses.combined import AdaptiveLossWeights, LossConfig
 from ..models.autoencoder_kl import encode_scaled
 from ..ops.image import normalize_uint8
+from ..parallel.mesh import (
+    broadcast_from_main,
+    initialize_distributed,
+    is_main_process,
+    process_count,
+)
 from .loop import EpochLoop, build_dataset_and_loaders
 from .schedule import build_lr_schedule
 from .state import TrainState, build_optimizer
@@ -88,9 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def train_full(args) -> TrainState:
-    refuse_unported(args)
-    device = resolve_device(args.device)
-    os.makedirs(args.output_dir, exist_ok=True)
+    device = initialize_distributed(resolve_device(args.device))
+    refuse_unported(args, process_count())
+    if is_main_process():
+        os.makedirs(args.output_dir, exist_ok=True)
     policy = resolve_mixed_precision(args.mixed_precision)
     attention_config = resolve_attention_flags(args)
     seed = args.seed or 0
@@ -101,8 +116,10 @@ def train_full(args) -> TrainState:
                    use_post_quant_conv=args.use_post_quant_conv,
                    with_decoder=True)
     cfg_vae = vae.config
-    side = args.resolution // cfg_vae.downsample_factor
-    print(f"VAE latents: {cfg_vae.latent_channels} x {side} x {side}")
+    latent_info = get_vae_latent_info(args.resolution,
+                                      cfg_vae.latent_channels,
+                                      cfg_vae.downsample_factor)
+    print(f"VAE latent info: {latent_info}")
 
     dataset, train_loader, val_loader = build_dataset_and_loaders(args)
     decoder = build_decoder(len(dataset.tags), args.use_attention,
@@ -114,6 +131,7 @@ def train_full(args) -> TrainState:
         load_decoder(decoder, args.decoder_checkpoint)
     vae.to(device).train()
     decoder.to(device).train()
+    broadcast_from_main(vae, decoder)
 
     cfg = LossConfig(
         classification_weight=args.bce_weight,

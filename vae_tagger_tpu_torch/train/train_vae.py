@@ -14,9 +14,9 @@ takes either; the schedule's horizon is extended past the restored step),
 and exports ``best_vae/`` and ``vae/`` (diffusers safetensors +
 ``config.json``).
 
-``--use_bucketing``, ``--transfer_format yuv420``, ``--profile_steps``
-and the preemption save as in train_full.  Refused at start, not yet
-ported: ``--spatial_parallel``.
+``--use_bucketing``, ``--transfer_format yuv420``, ``--profile_steps``,
+the preemption save and data parallelism under ``torchrun`` as in
+train_full.
 """
 
 from __future__ import annotations
@@ -41,6 +41,12 @@ from ..io.checkpoints import (
     save_vae_pretrained,
 )
 from ..losses.combined import LossConfig
+from ..parallel.mesh import (
+    broadcast_from_main,
+    initialize_distributed,
+    is_main_process,
+    process_count,
+)
 from .loop import EpochLoop, build_dataset_and_loaders
 from .schedule import build_lr_schedule
 from .state import TrainState, build_optimizer
@@ -64,9 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def train_vae(args) -> TrainState:
-    refuse_unported(args)
-    device = resolve_device(args.device)
-    os.makedirs(args.output_dir, exist_ok=True)
+    device = initialize_distributed(resolve_device(args.device))
+    refuse_unported(args, process_count())
+    if is_main_process():
+        os.makedirs(args.output_dir, exist_ok=True)
     policy = resolve_mixed_precision(args.mixed_precision)
     seed = args.seed or 0
 
@@ -77,6 +84,7 @@ def train_vae(args) -> TrainState:
                    with_decoder=True)
     _, train_loader, val_loader = build_dataset_and_loaders(args)
     vae.to(device).train()
+    broadcast_from_main(vae)
 
     cfg = LossConfig(reconstruction_weight=args.reconstruction_weight,
                      kl_weight=args.kl_weight,
