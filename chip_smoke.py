@@ -157,16 +157,40 @@ failure (non-zero exit, no ``ok`` line):
    epochs with ``--profile_steps 2`` (A, B', C', D' and E' named in the
    trace; each epoch's background checkpoint bit-equal to a synchronous
    snapshot at the same call), and a real SIGTERM to the CLI's process;
-10. kernel A's device time by kernel (torch.profiler), new and its first
+10. data parallelism (``phase_data_parallel``), then height-sharded
+   spatial parallelism over two slabs (two names of cuda:0 on a one-card
+   machine, every GPU on more), each check fatal:
+   ``phase_spatial_kernels``: (a) C' and C'' at B=4 and D', E', D'' and
+   E'' at B=3 at the rectangular shapes of a 1024px image over two slabs
+   (Sq=8,192, Skv=16,384), each against its plain version, timed beside
+   its bound and SDPA on the same shapes; (b) B' and B'' fed given
+   statistics on halo-extended slabs at three encoder sites of a batch of
+   4, and the stats pass on a slab's own rows, against their plain
+   versions; ``phase_spatial``: (c) ``TaggerEngine.with_spatial`` at
+   1024px, fp32 and bf16, batch 4 and 1, against one engine on the same
+   pixels (fp32 latents MSE < 1e-10, probabilities 1e-5 fp32 and 1e-2
+   bf16, exact launches: every kernel once a slab, and the slab's stats
+   pass at each A site); (d) one train_full step (simplified loss) in
+   bf16 and fp32 against the unsharded step on the same batch and
+   generator (loss rel 1e-5 fp32, 1e-2 bf16; every fp32 gradient rel
+   1e-3; exact launches, D and E once a slab; the step time and peak
+   memory of both); (e) one train_vae step the same way, its decoder on
+   the slabs too, the fp32 gradient gate over every parameter and the
+   bf16 step time; (f) the infer CLI and train_full's fp32 CLI in this
+   process with ``parallel.mesh.local_devices`` giving the slab devices:
+   the JSON within 1e-5 (one 4-decimal rounding) and the training loss
+   within rel 1e-4 of the runs without --spatial_parallel, exact launches;
+11. kernel A's device time by kernel (torch.profiler), new and its first
    form's (csrc/groupnorm_silu.cu), at
    each stats site with its bandwidth, and of A's two passes: last, since a
    profiler session may slow the host's launches after it;
-11. one JSON line ``{"kernels": [...]}`` (each kernel's launches on every
+12. one JSON line ``{"kernels": [...]}`` (each kernel's launches on every
    path, ``launches_by_path``, the train_vae, tiled, train_decoder,
-   bucket, serve, attention-map and drill paths included, its
-   decoder-site numbers under ``decoder`` and the tile and bucket shapes'
-   under ``tile_bucket``), then as the last line ``{"ok": true, "device":
-   {...}}``.
+   bucket, serve, attention-map, drill, data-parallel and spatial paths
+   included, ``spatial_launches`` on its spatial train_full step, its
+   decoder-site numbers under ``decoder``, the tile and bucket shapes'
+   under ``tile_bucket`` and the spatial shapes' under ``spatial``), then
+   as the last line ``{"ok": true, "device": {...}}``.
 
 With ``--report PATH`` the full report is also written there as JSON.
 """
@@ -2157,7 +2181,7 @@ def _gradient_gate(art, batch):
 
 
 def _train_cli(art, json_path, precision, trainer="train_full", flags=(),
-               n_images=N_IMAGES):
+               n_images=N_IMAGES, shards=1):
     """One epoch of ``python -m vae_tagger_tpu_torch.train.<trainer>``'s
     entry point at ``--mixed_precision precision`` ("bf16" or "no"), with
     ``flags`` added, the launch counts reset just before it and read just
@@ -2167,8 +2191,9 @@ def _train_cli(art, json_path, precision, trainer="train_full", flags=(),
     loss), exported exactly as loaded where it does not (the simplified
     loss); train_full's head changed and its final evaluation's files
     written; the adaptive loss weights moved from zero where they are
-    trained.  Returns the trained state, the output directory and a
-    report."""
+    trained.  ``shards`` > 1: the run shards each image over that many
+    height slabs (--spatial_parallel), which multiplies the launches.
+    Returns the trained state, the output directory and a report."""
     import numpy as np
     import torch
     from safetensors.torch import load_file
@@ -2180,7 +2205,8 @@ def _train_cli(art, json_path, precision, trainer="train_full", flags=(),
     full_loss = "--no_simplified_loss" in flags
     vae_trained = trainer == "train_vae" or full_loss
     out = WORK / (f"{trainer}_out_{key}{'_full_loss' if full_loss else ''}"
-                  f"{'_buckets' if '--use_bucketing' in flags else ''}")
+                  f"{'_buckets' if '--use_bucketing' in flags else ''}"
+                  f"{'_spatial' if shards > 1 else ''}")
     argv = ["--json_path", json_path, "--tags_csv_path", art["tags"],
             "--vae_checkpoint", art["vae"], "--vae_config_path",
             art["config"], "--output_dir", str(out), "--resolution",
@@ -2212,6 +2238,9 @@ def _train_cli(art, json_path, precision, trainer="train_full", flags=(),
     val = (VAE_FORWARD_LAUNCHES if vae_trained else ENCODE_LAUNCHES)[key]
     # train_full's final phase encodes each validation batch once more
     final = ENCODE_LAUNCHES[key] if trainer == "train_full" else {}
+    if shards > 1:
+        step, val, final = (_spatial_launches(c, shards)
+                            for c in (step, val, final))
     expect = {k: n_train * step.get(k, 0) + n_val * val.get(k, 0)
               + n_val * final.get(k, 0) for k in counts}
     for k, want in expect.items():
@@ -2723,14 +2752,14 @@ def _rnd_dev(g, *shape, scale=1.0, shift=0.0):
     return (t.mul_(scale).add_(shift)).bfloat16().float()
 
 
-def _tile_bucket(results, name, label, chk, **timed):
-    """One case of the tile and bucket shapes under its kernel's
-    ``tile_bucket`` report: the worst errors of ``chk`` (a check of this
-    case alone) and the times."""
+def _tile_bucket(results, name, label, chk, key="tile_bucket", **timed):
+    """One case of the tile and bucket shapes (or, with ``key``, of another
+    set of shapes) under its kernel's ``key`` report: the worst errors of
+    ``chk`` (a check of this case alone) and the times."""
     worst = {k: max(r[k] for r in chk.rows if k in r)
              for k in ("rel_err_fp32", "rel_err_bf16", "abs_err_fp32",
                        "abs_err_bf16") if any(k in r for r in chk.rows)}
-    results[name].setdefault("tile_bucket", {})[label] = dict(worst, **timed)
+    results[name].setdefault(key, {})[label] = dict(worst, **timed)
 
 
 def phase_tile_bucket_kernels(results):
@@ -4514,6 +4543,588 @@ def phase_data_parallel(art, json_path):
     return report
 
 
+# --------------------------------------------------------------------------
+# spatial parallelism: height slabs, one controller
+# --------------------------------------------------------------------------
+
+SPATIAL_SHARDS = 2
+# the mid-block attention of a 1024px image over two slabs: each slab's
+# queries against every slab's keys and values
+SPATIAL_SKV = (RES // 8) ** 2
+SPATIAL_SQ = SPATIAL_SKV // SPATIAL_SHARDS
+# encoder sites of phase_spatial (b), a batch of 4 at 1024px cut in two:
+# (H=W of the stage, Cin, Cout, variant, Cres); each slab H/2 rows plus
+# one halo row (both slabs of two touch one image edge)
+SPATIAL_B_CASES = [(1024, 128, 128, "residual", 128),
+                   (512, 256, 256, "shortcut", 128),
+                   (128, 512, 512, "residual", 512)]
+SPATIAL_TOL = {"fp32": 1e-5, "bf16": 1e-2}  # probabilities, as served
+
+
+def _spatial_launches(per_forward, n=SPATIAL_SHARDS):
+    """The launches of a path run on n height slabs: every kernel n times,
+    and at each kernel-A site the slab's own stats pass besides (A's apply
+    pass then runs from the combined statistics)."""
+    out = {k: n * v for k, v in per_forward.items()}
+    out["group_stats"] = (out.get("group_stats", 0)
+                          + out.get("group_norm_silu", 0))
+    return out
+
+
+def _spatial_devices():
+    """Every local GPU, or two names of cuda:0 on a one-card machine."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [torch.device("cuda", 0)] * SPATIAL_SHARDS)
+
+
+def phase_spatial_kernels(results):
+    """(a) C', C'' at B=4 and D', E', D'', E'' at B=3 at the rectangular
+    shapes of a 1024px image over two slabs (Sq=8,192, Skv=16,384), each
+    against its plain version, timed beside its bound and SDPA on the same
+    shapes; (b) B', B'' and the stats pass on halo-extended slabs at three
+    encoder sites of a batch of 4, B fed given statistics (the form the
+    slabs use), and A's apply pass from given statistics on a mid-block
+    slab, against their plain versions on the same slab."""
+    import torch
+    import torch.nn.functional as F
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.ops.attention import (
+        bwd_delta,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_fwd,
+    )
+    from vae_tagger_tpu_torch.ops.conv import gn_silu_conv3x3_from_stats
+    from vae_tagger_tpu_torch.ops.normalization import (
+        group_norm_silu_from_stats,
+        group_stats_plain,
+        group_stats_with_grad,
+    )
+
+    log(f"spatial kernels: the attention at Sq={SPATIAL_SQ}, "
+        f"Skv={SPATIAL_SKV} (a {RES}px image over {SPATIAL_SHARDS} slabs), "
+        f"B and the stats pass on halo-extended slabs")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    d, sq, skv = 512, SPATIAL_SQ, SPATIAL_SKV
+    parts = {"dq": flash_attention_bwd_dq, "dkv": flash_attention_bwd_dkv}
+    for b, names in ((BATCH, ("flash_attention_fwd_tc",
+                              "flash_attention_fwd_tf32x3")),
+                     (TRAIN_ROWS, ("flash_attention_bwd_dq_tc",
+                                   "flash_attention_bwd_dkv_tc",
+                                   "flash_attention_bwd_dq_tf32x3",
+                                   "flash_attention_bwd_dkv_tf32x3"))):
+        q, do = (_rnd_dev(g, b, sq, d) for _ in range(2))
+        k, v = (_rnd_dev(g, b, skv, d) for _ in range(2))
+        ins = {dt: tuple(t.to(dt) for t in (q, k, v, do))
+               for dt in (torch.float32, torch.bfloat16)}
+        label = f"B={b} Sq={sq} Skv={skv}"
+        io_bytes = 2 * b * sq * d + 2 * b * skv * d
+        lib_bwd = {}
+        if b == TRAIN_ROWS:
+            with backend.backend("torch"):
+                o, lse = flash_attention_fwd(q, k, v)
+            delta = bwd_delta(o, do)
+            for dt in (torch.bfloat16, torch.float32):
+                with torch.enable_grad():
+                    qb, kb, vb = (t.detach().requires_grad_()
+                                  for t in ins[dt][:3])
+                    out = sdpa(qb, kb, vb)
+                    dob = ins[dt][3][:, None]
+                    lib_bwd[dt] = time_ms(lambda: torch.autograd.grad(
+                        out, (qb, kb, vb), dob, retain_graph=True))
+                    del out, qb, kb, vb
+        for name in names:
+            dt = torch.bfloat16 if name.endswith("_tc") else torch.float32
+            esize = 2.0 if dt == torch.bfloat16 else 4.0
+            chk = Check(name, ("bf16",) if dt == torch.bfloat16 else
+                        ("fp32",))
+            if "fwd" in name:
+                def op(dt_):
+                    return flash_attention_fwd(*ins[dt_][:3])
+
+                library = (lambda dt=dt: sdpa(*ins[dt][:3]))
+                nbytes = esize * io_bytes + 4.0 * b * sq
+                flops = 4.0 * b * sq * skv * d
+                calls = 1
+            else:
+                part = "dq" if "_dq_" in name else "dkv"
+
+                def op(dt_, part=part):
+                    out = parts[part](*ins[dt_], lse, delta)
+                    return out if isinstance(out, tuple) else (out,)
+
+                library = None
+                nbytes = (esize * io_bytes + 4.0 * 2 * b * sq
+                          + esize * (b * sq * d if part == "dq"
+                                     else 2 * b * skv * d))
+                flops = (6.0 if part == "dq" else 8.0) * b * sq * skv * d
+                calls = 1 if part == "dq" else 2
+            chk.run(label, op)
+            ms, plain_ms, lib_ms = time_kernel(op, dt, library)
+            lib_ms = lib_bwd.get(dt, lib_ms) if library is None else lib_ms
+            b_ms, b_by = (bound(nbytes, flops) if dt == torch.bfloat16
+                          else _fp32_bounds(nbytes, flops)[1])
+            log(f"  {name} {label}: {ms:.3f} ms (bound {b_ms:.3f}, "
+                f"{b_ms / ms:.1%}, {b_by}), plain {plain_ms:.3f}, SDPA "
+                f"{'(its whole backward) ' if library is None else ''}"
+                f"{lib_ms:.3f}")
+            _tile_bucket(results, name, label, chk, key="spatial", ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, launches_per_call=calls)
+        del q, k, v, do, ins
+        torch.cuda.empty_cache()
+
+    conv_dts = {"gn_silu_conv3x3_tc": torch.bfloat16,
+                "gn_silu_conv3x3_tf32x3": torch.float32}
+    for hw, cin, cout, variant, cres in SPATIAL_B_CASES:
+        rows = hw // SPATIAL_SHARDS
+        ext = _rnd_dev(g, BATCH, rows + 1, hw, cin)  # the slab + a halo row
+        mean, meansq = group_stats_plain(ext[:, :rows], GROUPS)
+        gs = _rnd_dev(g, cin, scale=0.2, shift=1.0)
+        gb = _rnd_dev(g, cin, scale=0.1)
+        k = _rnd_dev(g, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        b = _rnd_dev(g, cout, scale=0.1)
+        res = _rnd_dev(g, BATCH, rows + 1, hw, cres)
+        sck = (_rnd_dev(g, cres, cout, scale=cres ** -0.5)
+               if variant == "shortcut" else None)
+        scb = _rnd_dev(g, cout, scale=0.1) if variant == "shortcut" else None
+        xs, rs = _both(ext), _both(res)
+        own = _both(ext[:, :rows].contiguous())
+        del ext, res
+        label = (f"N={BATCH} ({rows}+1)x{hw} {cin}->{cout} {variant}"
+                 + (f" Cres={cres}" if variant == "shortcut" else ""))
+
+        def op(dt):
+            return gn_silu_conv3x3_from_stats(xs[dt], mean, meansq, gs, gb, k,
+                                              b, rs[dt], sck, scb)
+
+        m = BATCH * (rows + 1) * hw
+        k_dim = 9 * cin + (cres if variant == "shortcut" else 0)
+        for name, dt in conv_dts.items():
+            chk = Check(name, ("bf16",) if dt == torch.bfloat16 else
+                        ("fp32",))
+            chk.run(label, op)
+            w_oihw = k.to(dt).permute(3, 2, 0, 1).contiguous()
+            sc_oihw = (None if sck is None
+                       else sck.to(dt).t()[:, :, None, None].contiguous())
+
+            def library(dt=dt, w_oihw=w_oihw, sc_oihw=sc_oihw):
+                y = F.silu(F.group_norm(xs[dt].permute(0, 3, 1, 2), GROUPS,
+                                        gs.to(dt), gb.to(dt), 1e-6))
+                out = F.conv2d(y, w_oihw, b.to(dt), padding=1)
+                if sc_oihw is not None:
+                    return out + F.conv2d(rs[dt].permute(0, 3, 1, 2),
+                                          sc_oihw, scb.to(dt))
+                return out + rs[dt].permute(0, 3, 1, 2)
+
+            ms, plain_ms, lib_ms = time_kernel(op, dt, library)
+            esize = 2.0 if dt == torch.bfloat16 else 4.0
+            nbytes = esize * (m * cin + m * cout + m * cres + k_dim * cout)
+            flops = 2.0 * m * k_dim * cout
+            b_ms, b_by = (bound(nbytes, flops) if dt == torch.bfloat16
+                          else _fp32_bounds(nbytes, flops)[1])
+            log(f"  {name} {label}: {ms:.3f} ms (bound {b_ms:.3f}, "
+                f"{b_ms / ms:.1%}, {b_by}), plain {plain_ms:.3f}, cuDNN "
+                f"(GN+SiLU+conv) {lib_ms:.3f}")
+            _tile_bucket(results, name, label, chk, key="spatial", ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by, launches_per_call=1)
+        if hw == RES // 8:  # the mid-block: A's apply pass on the slab
+            a_label = f"N={BATCH} {rows}x{hw} C={cin} (a slab, given stats)"
+            chk = Check("group_norm_silu")
+
+            def aop(dt):
+                return group_norm_silu_from_stats(own[dt], mean, meansq, gs,
+                                                  gb, apply_silu=False)
+
+            chk.run(a_label, aop)
+            for dt in (torch.bfloat16, torch.float32):
+                xd = own[dt]
+
+                def library(xd=xd, dt=dt):
+                    return F.group_norm(xd.permute(0, 3, 1, 2), GROUPS,
+                                        gs.to(dt), gb.to(dt), 1e-6)
+
+                ms, plain_ms, lib_ms = time_kernel(aop, dt, library)
+                b_ms = 2 * xd.numel() * xd.element_size() / PEAK_BYTES * 1e3
+                key = str(dt).removeprefix("torch.")
+                log(f"  group_norm_silu {a_label} {key}: {ms:.3f} ms (bound "
+                    f"{b_ms:.3f}, {b_ms / ms:.0%}), plain {plain_ms:.3f}, "
+                    f"F.group_norm {lib_ms:.3f}")
+                _tile_bucket(results, "group_norm_silu", f"{a_label} {key}",
+                             chk, key="spatial", ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=b_ms,
+                             bound_by="bytes", launches_per_call=1)
+        chk = Check("group_stats")
+        s_label = f"N={BATCH} {rows}x{hw} C={cin} (a slab's own rows)"
+
+        def sop(dt):
+            return group_stats_with_grad(own[dt], GROUPS)
+
+        chk.run(s_label, sop)
+        for dt in (torch.bfloat16, torch.float32):
+            xd = own[dt]
+
+            def library(xd=xd):
+                return torch.var_mean(
+                    xd.view(BATCH, rows * hw, GROUPS, -1).float(),
+                    dim=(1, 3), correction=0)
+
+            ms, plain_ms, lib_ms = time_kernel(sop, dt, library)
+            b_ms = xd.numel() * xd.element_size() / PEAK_BYTES * 1e3
+            key = str(dt).removeprefix("torch.")
+            log(f"  group_stats {s_label} {key}: {ms:.3f} ms (bound "
+                f"{b_ms:.3f}, {b_ms / ms:.0%}), plain {plain_ms:.3f}, "
+                f"var_mean {lib_ms:.3f}")
+            _tile_bucket(results, "group_stats", f"{s_label} {key}", chk,
+                         key="spatial", ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by="bytes",
+                         launches_per_call=1)
+        del xs, rs, own
+        torch.cuda.empty_cache()
+
+
+def _device_ms_by_kind(fn, *args):
+    """Device ms of ``fn(*args)`` by kind, from the second of two profiled
+    calls: the port's kernels, the copies (the halo's ``torch.cat``,
+    ``contiguous()`` of a cropped slab, the casts) and the rest (cuDNN
+    convs, cuBLAS, elementwise); then the port's kernels by name
+    (``_kernel_breakdown``) and the top kernels as (ms, calls, name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ours = ("conv3x3_tc_kernel", "conv3x3_tf32x3_kernel", "flash_fwd_tc",
+            "flash_fwd_tf32x3", "gn_stats_vec_kernel", "gn_apply_vec_kernel")
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+    kinds = {"kernels": 0.0, "copies": 0.0, "rest": 0.0}
+    top = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", 0) or 0
+        if evt.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        name = evt.key.lower()
+        kind = ("kernels" if any(k in name for k in ours) else
+                "copies" if ("copy" in name or "catarray" in name)
+                else "rest")
+        kinds[kind] += us / 1e3
+        top.append((round(us / 1e3, 3), evt.count, evt.key[:80]))
+    by_kernel, _ = _kernel_breakdown(prof)
+    return dict(kinds, by_kernel=by_kernel, top=sorted(top, reverse=True)[:12])
+
+
+def _spatial_classify(art, devices):
+    """(c) ``TaggerEngine.with_spatial`` over ``devices`` at 1024px, fp32
+    and bf16, batch 4 and batch 1, against one engine on the same pixels:
+    fp32 latents MSE < 1e-10, probabilities within SPATIAL_TOL, the exact
+    launches of a batch on the slabs; steady times (host clock) of both."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from vae_tagger_tpu_torch.infer.engine import TaggerEngine
+    from vae_tagger_tpu_torch.ops import backend
+
+    paths = sorted(Path(art["images"]).glob("*.png"))[:BATCH]
+    pixels = np.stack([np.asarray(Image.open(p).convert("RGB"))
+                       for p in paths])
+    out = {}
+    for key, precision in (("fp32", "no"), ("bf16", "bf16")):
+        engine = TaggerEngine.load(
+            vae_checkpoint=art["vae"], decoder_checkpoint=art["decoder"],
+            tags_csv_path=art["tags"], vae_config_path=art["config"],
+            mixed_precision=precision, device=DEVICE)
+        sp = engine.with_spatial(devices)
+        for b in (BATCH, 1):
+            px = pixels[:b]
+            want_lat, want = engine.encode_and_classify(px)
+            sp.classify(px)  # first call: cuDNN's choice per slab shape
+            torch.cuda.synchronize()
+            backend.reset_launch_counts()
+            got_lat, got = sp.encode_and_classify(px)
+            counts = backend.launch_counts()
+            expect = _expected(_spatial_launches(ENCODE_LAUNCHES[key]), 1)
+            assert counts == expect, (key, b, counts, expect)
+            assert got.shape == want.shape and np.isfinite(got).all()
+            mse = float(np.mean((got_lat.astype(np.float64) - want_lat)
+                                ** 2))
+            worst = float(np.abs(got - want).max())
+            iters = 5 if key == "fp32" else 10
+            times = {}
+            for name, eng in (("one engine", engine), ("spatial", sp)):
+                eng.classify(px)
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    eng.classify(px)
+                times[name] = (time.perf_counter() - t0) / iters * 1e3
+            if key == "bf16" and b == BATCH:
+                breakdown = {name: _device_ms_by_kind(eng.classify, px)
+                             for name, eng in (("one engine", engine),
+                                               ("spatial", sp))}
+                log(f"  (c) device ms of one bf16 batch of {b} by kind: "
+                    f"{breakdown}")
+                out["bf16_breakdown_ms"] = breakdown
+            log(f"  (c) spatial classify over {len(devices)} slabs "
+                f"({', '.join(map(str, devices))}), {key}, batch {b}: "
+                f"latents MSE {mse:.3e} against one engine, probabilities "
+                f"{worst:.3e} (gate {SPATIAL_TOL[key]:.0e}); "
+                f"{times['spatial']:.1f} ms a batch against one engine's "
+                f"{times['one engine']:.1f} (host clock, {iters} batches; "
+                f"slabs on one card: no scaling figure); launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            if key == "fp32":
+                assert mse < 1e-10, mse
+            assert worst <= SPATIAL_TOL[key], (key, b, worst)
+            out[f"{key}_b{b}"] = dict(latents_mse=mse, max_abs_diff=worst,
+                                      spatial_ms=times["spatial"],
+                                      one_engine_ms=times["one engine"],
+                                      launches=counts)
+        del engine, sp
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_step(art, batch, devices, trainer):
+    """(d) one ``train_full`` step (simplified loss, the head in train
+    mode) or (e) one ``train_vae`` step (the KL optimized: the anchor's
+    decode on the slabs too) at 1024px, batch 1, unsharded and over
+    ``devices`` on the same batch and generator: the loss (fp32 rel 1e-5,
+    bf16 1e-2), every fp32 gradient (rel 1e-3; absolute where the
+    unsharded norm is below ZERO_GRAD_NORM, and for the conv bias before
+    the head's train-mode BatchNorm), the exact launches on the slabs; the
+    steady step (host clock) and peak memory of both.  train_vae runs the
+    gradient gate in fp32 and its steady step in bf16."""
+    import torch
+    from vae_tagger_tpu_torch.infer.engine import build_decoder
+    from vae_tagger_tpu_torch.io.checkpoints import load_decoder, load_vae
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.parallel.spatial import SpatialMesh
+    from vae_tagger_tpu_torch.train.state import TrainState, build_optimizer
+    from vae_tagger_tpu_torch.train.steps import (
+        FullSteps,
+        VaeSteps,
+        batch_to_device,
+        step_generators,
+    )
+
+    dev = torch.device(DEVICE)
+    mesh = SpatialMesh(devices)
+    full = trainer == "train_full"
+    per_step = (TRAIN_STEP_LAUNCHES if full else VAE_STEP_LAUNCHES)
+    out = {}
+    for key, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        vae = load_vae(art["vae"], art["config"],
+                       with_decoder=not full).to(dev).train()
+        head = (load_decoder(build_decoder(NUM_TAGS, True, None, 16,
+                                           SEED + 1, dtype=dt),
+                             art["decoder"]).to(dev).train()
+                if full else None)
+        params = ([(f"vae.{n}", p) for n, p in vae.named_parameters()]
+                  + ([(f"head.{n}", p) for n, p in head.named_parameters()]
+                     if full else []))
+        opt = build_optimizer([p for _, p in params], lambda count: 1e-6)
+        state = TrainState(vae=vae, decoder=head, optimizer=opt)
+
+        def make_steps(sp, dt=dt):
+            if full:
+                return FullSteps(LossConfig(triplet_weight=1.0,
+                                            use_focal_loss=False),
+                                 compute_dtype=dt, seed=SEED, spatial=sp)
+            return VaeSteps(LossConfig(reconstruction_weight=1.0),
+                            use_simplified=False, compute_dtype=dt,
+                            seed=SEED, spatial=sp)
+
+        runs = {}
+        for mode in ("plain", "spatial"):
+            steps = make_steps(mesh if mode == "spatial" else None)
+            for _, p in params:
+                p.grad = None
+            g, g_recon = step_generators(dev, SEED, 7)
+            torch.cuda.synchronize()
+            backend.reset_launch_counts()
+            total, _, _ = steps.forward_losses(
+                state, batch_to_device(batch, dev), g, train=True,
+                recon_generator=g_recon)
+            total.backward()
+            torch.cuda.synchronize()
+            counts = backend.launch_counts()
+            if mode == "spatial":
+                expect = _expected(_spatial_launches(per_step[key]), 1)
+                assert counts == expect, (trainer, key, counts, expect)
+            runs[mode] = dict(loss=total.item(), counts=counts, grads=(
+                {n: p.grad.detach().clone() for n, p in params
+                 if p.grad is not None} if key == "fp32" else None))
+        loss_rel = abs(runs["spatial"]["loss"] - runs["plain"]["loss"]) / abs(
+            runs["plain"]["loss"])
+        rep = dict(loss=runs["spatial"]["loss"],
+                   loss_unsharded=runs["plain"]["loss"], loss_rel=loss_rel,
+                   launches=runs["spatial"]["counts"])
+        said = (f"loss {runs['spatial']['loss']:.7f} vs unsharded "
+                f"{runs['plain']['loss']:.7f} (rel {loss_rel:.2e}, gate "
+                f"{1e-5 if key == 'fp32' else 1e-2:.0e})")
+        assert loss_rel <= (1e-5 if key == "fp32" else 1e-2), said
+        if key == "fp32":
+            gp, gs = runs["plain"]["grads"], runs["spatial"]["grads"]
+            assert set(gp) == set(gs) and gp, (len(gp), len(gs))
+            worst, errs = ("", 0.0), []
+            for n, gt in gp.items():
+                diff, norm = (gs[n] - gt).norm().item(), gt.norm().item()
+                absolute = (norm < ZERO_GRAD_NORM
+                            or n == "head.feature_compress.0.bias")
+                err = diff if absolute else diff / norm
+                errs.append(err)
+                worst = max(worst, (n, err), key=lambda t: t[1])
+            median = sorted(errs)[len(errs) // 2]
+            said += (f"; {len(gp)} gradients, worst {worst[0]} "
+                     f"{worst[1]:.3e}, median {median:.3e} (gate 1e-3)")
+            assert all(e <= 1e-3 for e in errs), worst
+            rep.update(gradients=len(gp), worst_param=worst[0],
+                       worst_err=worst[1], median_err=median)
+            del gp, gs
+        for r in runs.values():
+            r.pop("grads")
+        if full or key == "bf16":
+            iters = 3
+            for mode in ("plain", "spatial"):
+                steps = make_steps(mesh if mode == "spatial" else None)
+                step_s, peak, _ = _steady_step(state, batch, dt, iters,
+                                               8000, steps)
+                rep[f"step_ms_{mode}"] = step_s * 1e3
+                rep[f"peak_mem_bytes_{mode}"] = peak
+            said += (f"; steady step {rep['step_ms_spatial']:.1f} ms, peak "
+                     f"{rep['peak_mem_bytes_spatial'] / 2**30:.2f} GiB, "
+                     f"against unsharded {rep['step_ms_plain']:.1f} ms, "
+                     f"{rep['peak_mem_bytes_plain'] / 2**30:.2f} GiB (host "
+                     f"clock, {iters} steps; slabs on one card: no scaling "
+                     f"figure)")
+        log(f"  ({'d' if full else 'e'}) spatial {trainer} step over "
+            f"{len(devices)} slabs, {key}: {said}; launches "
+            f"{ {k: v for k, v in rep['launches'].items() if v} }")
+        out[key] = rep
+        del state, vae, head, opt, params, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_clis(art, json_path, devices, train_history):
+    """(f) the infer CLI and train_full's CLI in this process with
+    ``parallel.mesh.local_devices`` giving ``devices``: --spatial_parallel
+    against the runs without it (--no_data_parallel; train_full's fp32 CLI
+    of phase_training), the JSON within SPATIAL_TOL["fp32"], the training
+    loss within rel 1e-4 and the validation loss within rel 5e-2 (it reads
+    the head's BatchNorm in eval mode after a conv bias whose gradient is
+    zero in exact arithmetic: AdamW turns either run's rounding noise into
+    +-lr steps there); exact launches on the slabs."""
+    import numpy as np
+    import torch
+    from vae_tagger_tpu_torch.infer.__main__ import main as infer_main
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.parallel import mesh
+
+    local = mesh.local_devices
+    mesh.local_devices = lambda device="cuda": list(devices)
+    try:
+        results = {}
+        for mode, flag in (("plain", "--no_data_parallel"),
+                           ("spatial", "--spatial_parallel")):
+            out_dir = WORK / f"infer_{mode}"
+            torch.cuda.synchronize()
+            backend.reset_launch_counts()
+            t0 = time.perf_counter()
+            infer_main(["--vae_checkpoint", art["vae"], "--vae_config_path",
+                        art["config"], "--decoder_checkpoint",
+                        art["decoder"], "--image_path", art["images"],
+                        "--tags_csv_path", art["tags"], "--output_dir",
+                        str(out_dir), "--resolution", str(RES),
+                        "--batch_size", str(BATCH), "--num_workers", "4",
+                        "--confidence_threshold", "0", "--device", DEVICE,
+                        flag])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = backend.launch_counts()
+            results[mode] = json.loads(
+                (out_dir / "classification_results.json").read_text())
+            results[mode + "_wall_s"] = wall
+            results[mode + "_launches"] = counts
+        n_batches = -(-N_IMAGES // BATCH)
+        expect = _expected(_spatial_launches(ENCODE_LAUNCHES["fp32"]),
+                           n_batches)
+        assert results["spatial_launches"] == expect, (
+            results["spatial_launches"], expect)
+        assert set(results["spatial"]) == set(results["plain"])
+        worst = 0.0
+        for k, v in results["plain"].items():
+            a = {t["tag"]: t["confidence"] for t in v["predicted_tags"]}
+            b = {t["tag"]: t["confidence"] for t in
+                 results["spatial"][k]["predicted_tags"]}
+            assert a.keys() == b.keys() and len(a) == NUM_TAGS
+            worst = max(worst, max(abs(a[t] - b[t]) for t in a))
+        log(f"  (f) infer CLI --spatial_parallel (fp32, {N_IMAGES} images in "
+            f"batches of {BATCH}): confidences within {worst:.3e} of the "
+            f"run without it (gate {SPATIAL_TOL['fp32']:.0e} and one step of "
+            f"the JSON's 4-decimal rounding); "
+            f"{results['spatial_wall_s']:.2f} s against "
+            f"{results['plain_wall_s']:.2f} s (load included)")
+        assert worst <= SPATIAL_TOL["fp32"] + 1e-4, worst
+        _, _, rep = _train_cli(art, json_path, "no",
+                               flags=("--spatial_parallel",),
+                               shards=len(devices))
+        hist = rep["history"]
+        train_rel = float(np.max(np.abs(
+            np.subtract(hist["train_loss"], train_history["train_loss"]))
+            / np.abs(train_history["train_loss"])))
+        val_rel = float(np.max(np.abs(
+            np.subtract(hist["val_loss"], train_history["val_loss"]))
+            / np.abs(train_history["val_loss"])))
+        log(f"  (f) train_full CLI --spatial_parallel (fp32): train loss "
+            f"rel {train_rel:.2e} (gate 1e-4), validation loss rel "
+            f"{val_rel:.2e} (gate 5e-2) against phase_training's fp32 run")
+        assert train_rel <= 1e-4 and val_rel <= 5e-2, (train_rel, val_rel)
+    finally:
+        mesh.local_devices = local
+    return dict(infer=dict(max_abs_diff=worst,
+                           launches=results["spatial_launches"],
+                           wall_s=results["spatial_wall_s"],
+                           wall_s_plain=results["plain_wall_s"]),
+                train_full=dict(rep, train_loss_rel=train_rel,
+                                val_loss_rel=val_rel))
+
+
+def phase_spatial(art, json_path, batch, train_fp32_history):
+    """Height-sharded spatial parallelism (parallel/spatial.py) over two
+    slabs, on cuda:0 twice where there is one card, each check fatal: (c)
+    spatial classify, (d) a train_full step, (e) a train_vae step, (f) the
+    infer and train_full CLIs.  Slabs on one card run one after the other:
+    no time here is a scaling figure."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    devices = _spatial_devices()
+    log(f"spatial parallelism over {len(devices)} slabs "
+        f"({', '.join(map(str, devices))}):")
+    report = {"devices": [str(d) for d in devices]}
+    report["classify"] = _spatial_classify(art, devices)
+    report["train_full_step"] = _spatial_step(art, batch, devices,
+                                              "train_full")
+    report["train_vae_step"] = _spatial_step(art, batch, devices,
+                                             "train_vae")
+    report["cli"] = _spatial_clis(art, json_path, devices, train_fp32_history)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  spatial parallelism: {report['seconds']:.1f} s")
+    return report
+
+
 def _image_size(path):
     """(width, height) of an image file, from its header."""
     from PIL import Image
@@ -4591,6 +5202,12 @@ def main():
     report["drills"] = phase_drills(art, json_path)
     torch.cuda.empty_cache()
     report["data_parallel"] = phase_data_parallel(art, json_path)
+    torch.cuda.empty_cache()
+    with torch.no_grad():  # the backward's library call takes a graph
+        phase_spatial_kernels(results)
+    torch.cuda.empty_cache()
+    report["spatial"] = phase_spatial(art, json_path, batch,
+                                      report["training"]["fp32"]["history"])
     shutil.rmtree(WORK, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_device_breakdown(results)
@@ -4646,15 +5263,33 @@ def main():
                "dp_gloo_rank0_step_fp32":
                    report["data_parallel"]["gloo"]["launches"],
                "dp_nccl_step_bf16":
-                   report["data_parallel"]["nccl"]["launches"]}
+                   report["data_parallel"]["nccl"]["launches"],
+               **{f"spatial_classify_{k}": report["spatial"]["classify"][k][
+                   "launches"] for k in ("fp32_b4", "fp32_b1", "bf16_b4",
+                                         "bf16_b1")},
+               **{f"spatial_{t}_step_{k}": report["spatial"][f"{t}_step"][k][
+                   "launches"] for t in ("train_full", "train_vae")
+                  for k in ("bf16", "fp32")},
+               "spatial_infer_cli_fp32":
+                   report["spatial"]["cli"]["infer"]["launches"],
+               "spatial_train_full_cli_fp32":
+                   report["spatial"]["cli"]["train_full"]["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         r = results[name]
         path = KERNEL_PATH.get(name, "train_bf16")
         launches = by_path[path][name]
         assert launches > 0, f"{name} was not launched on its path {path}"
+        # the spatial path of each kernel: the train_full step over the
+        # slabs in the kernel's dtype
+        spatial_path = ("spatial_train_full_step_fp32"
+                        if name.endswith("_tf32x3") else
+                        "spatial_train_full_step_bf16")
+        spatial_launches = by_path[spatial_path][name]
+        assert spatial_launches > 0, (name, spatial_path)
         kernels.append(dict(
             name=name, **meta, launches=launches, path=path,
+            spatial_path=spatial_path, spatial_launches=spatial_launches,
             launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=r["max_abs_err"],
             max_rel_err_fp32=r["max_rel_err_fp32"],
@@ -4676,7 +5311,8 @@ def main():
             **({"decoder": {k: v for k, v in r["decoder"].items()
                             if k != "cases"}} if "decoder" in r else {}),
             **({"tile_bucket": r["tile_bucket"]} if "tile_bucket" in r
-               else {})))
+               else {}),
+            **({"spatial": r["spatial"]} if "spatial" in r else {})))
     report["kernel_line"] = kernels
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -587,3 +587,115 @@ def test_wrappers_launch_on_their_tensors_device(gen, dtype):
     assert sum(backend.launch_counts().values()) > 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _two_slabs(devices=None):
+    from vae_tagger_tpu_torch.parallel.spatial import SpatialMesh
+
+    return SpatialMesh(devices or [torch.device("cuda", 0)] * 2)
+
+
+def _mse(a, b):
+    return float(((a.float() - b.float()) ** 2).mean())
+
+
+def test_spatial_encode_and_decode_over_two_slabs_of_one_card(gen):
+    """The narrow VAE's encode of a ragged 80x72 batch and its decode,
+    height-sharded over two slabs of cuda:0: every kernel once a slab and
+    each slab's stats pass at the A sites, B'' and B' on slabs of 40+1
+    rows, C'' and C' at Sq = S/2; the fp32 kernel path against the
+    unsharded one (MSE < 1e-10), bf16 within 4x the plain bf16 path's own
+    MSE against the plain fp32 path."""
+    vae = _narrow_vae(6).eval()
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, size=(2, 80, 72, 3)).astype(np.float32)).cuda()
+    z = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(1, 10, 9, 16)).astype(np.float32)).cuda()
+    mesh = _two_slabs()
+    with torch.inference_mode():
+        backend.reset_launch_counts()
+        lat_s = vae.encode(x, mesh).mean
+        enc = backend.launch_counts()
+        backend.reset_launch_counts()
+        rec_s = vae.decode(z, spatial=mesh)
+        dec = backend.launch_counts()
+        lat, rec = vae.encode(x).mean, vae.decode(z)
+        lat16_s = vae.encode(x.bfloat16(), mesh).mean
+        rec16_s = vae.decode(z, torch.bfloat16, mesh)
+        with backend.backend("torch"):
+            lat_t, rec_t = vae.encode(x).mean, vae.decode(z)
+            lat_t16 = vae.encode(x.bfloat16()).mean
+            rec_t16 = vae.decode(z, torch.bfloat16)
+    assert enc["gn_silu_conv3x3_tf32x3"] == 40 and enc["group_stats"] == 44
+    assert enc["group_norm_silu"] == 4
+    assert enc["flash_attention_fwd_tf32x3"] == 2
+    assert dec["gn_silu_conv3x3_tf32x3"] == 56 and dec["group_stats"] == 60
+    assert dec["group_norm_silu"] == 4
+    assert dec["flash_attention_fwd_tf32x3"] == 2
+    assert _mse(lat_s, lat) < 1e-10 and _mse(rec_s, rec) < 1e-10
+    assert _mse(lat16_s, lat_t) <= 4 * _mse(lat_t16, lat_t)
+    assert _mse(rec16_s, rec_t) <= 4 * _mse(rec_t16, rec_t)
+
+
+def test_spatial_vae_step_over_two_slabs_of_one_card(gen):
+    """One fp32 train_vae step with the encode and the anchor's decode on
+    two slabs of cuda:0: the loss (rel 1e-5) and every gradient (rel 1e-3;
+    absolute below a norm of 1e-8 and for the key projections' biases)
+    against the unsharded kernel path; D'' and E'' once a slab and
+    attention."""
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.train.state import TrainState
+    from vae_tagger_tpu_torch.train.steps import (
+        VaeSteps,
+        batch_to_device,
+        step_generators,
+    )
+
+    vae = _narrow_vae(7).train()
+    rng = np.random.default_rng(5)
+    batch = {k: rng.integers(0, 256, (1, 48, 64, 3), dtype=np.uint8)
+             for k in ("anchor", "positive", "negative")}
+    batch["labels"] = batch["positive_labels"] = np.ones((1, 4), np.float32)
+    batch = batch_to_device(batch, torch.device("cuda"))
+    state = TrainState(vae=vae, decoder=None, optimizer=None)
+    grads, losses = {}, {}
+    for mode in ("plain", "spatial"):
+        steps = VaeSteps(LossConfig(reconstruction_weight=1.0),
+                         use_simplified=False,
+                         spatial=_two_slabs() if mode == "spatial" else None)
+        vae.zero_grad(set_to_none=True)
+        g, g_recon = step_generators(torch.device("cuda"), 0, 3)
+        backend.reset_launch_counts()
+        total, _, _ = steps.forward_losses(state, batch, g, train=True,
+                                           recon_generator=g_recon)
+        total.backward()
+        counts = backend.launch_counts()
+        losses[mode] = total.item()
+        grads[mode] = {n: p.grad.clone() for n, p in vae.named_parameters()}
+    assert counts["flash_attention_bwd_dq_tf32x3"] == 4
+    assert counts["flash_attention_bwd_dkv_tf32x3"] == 8
+    assert abs(losses["spatial"] - losses["plain"]) <= 1e-5 * abs(
+        losses["plain"])
+    for n, gt in grads["plain"].items():
+        diff, norm = (grads["spatial"][n] - gt).norm().item(), gt.norm().item()
+        # a key projection's bias: zero in exact arithmetic
+        absolute = norm < 1e-8 or n.endswith("to_k.bias")
+        assert (diff if absolute else diff / norm) <= 1e-3, n
+
+
+def test_spatial_encode_over_two_gpus(gen):
+    """The encode over cuda:0 and cuda:1 (the slabs' halo rows, statistics
+    and keys crossing devices) against two slabs of cuda:0.  Needs two
+    GPUs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    vae = _narrow_vae(8).eval()
+    x = torch.from_numpy(np.random.default_rng(6).uniform(
+        -1, 1, size=(2, 64, 48, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        one = vae.encode(x, _two_slabs()).mean
+        backend.reset_launch_counts()
+        two = vae.encode(x, _two_slabs([torch.device("cuda", 0),
+                                        torch.device("cuda", 1)])).mean
+    assert backend.launch_counts()["gn_silu_conv3x3_tf32x3"] == 40
+    assert two.device == x.device and _mse(two, one) < 1e-12

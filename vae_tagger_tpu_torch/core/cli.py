@@ -8,10 +8,10 @@ The reference's quirks are kept: ``--use_attention`` and its two
 sub-flags are store_true with default True (``--no_attention`` turns the
 attention head off), and ``--mixed_precision`` takes "no", "fp16" or
 "bf16", fp16 and bf16 both running bf16 (core/precision.py).
-``--spatial_parallel`` is accepted and is a no-op on one device, as in the
-JAX package; over more than one device or rank :func:`refuse_unported`
-refuses it at start (height-sharded parallelism is not ported yet), so it
-is never silently ignored.
+``--spatial_parallel`` shards each image's height over every local device
+of one process (parallel/spatial.py) and is a no-op on one device, as in
+the JAX package; over more than one process :func:`refuse_unported`
+refuses it at start with the JAX package's message.
 """
 
 from __future__ import annotations
@@ -100,8 +100,9 @@ def add_train_args(p: argparse.ArgumentParser, default_lr: float = 1e-4):
                    "state, instead of from a host snapshot on a background "
                    "writer")
     p.add_argument("--spatial_parallel", action="store_true",
-                   help="height-sharded multi-device training: a no-op in "
-                   "one process, refused over more (not ported yet)")
+                   help="shard each image's height over every local device "
+                   "of one process (the batch is not multiplied); a no-op "
+                   "on one device, refused over more than one process")
     p.add_argument("--transfer_format", type=str, default="rgb",
                    choices=("rgb", "yuv420"),
                    help="host->device image wire format: yuv420 ships "
@@ -170,14 +171,15 @@ def add_decoder_train_args(p: argparse.ArgumentParser):
                    "it stay on the encode path")
 
 
-def refuse_unported(args, n_devices: int = 1) -> None:
-    """Raise for ``--spatial_parallel`` over ``n_devices`` > 1 devices (or
-    ranks): height sharding is not ported yet.  On one device there is
-    nothing to shard and the flag is a no-op, as in the JAX package."""
-    if getattr(args, "spatial_parallel", False) and n_devices > 1:
+def refuse_unported(args, n_processes: int = 1) -> None:
+    """Raise for ``--spatial_parallel`` over ``n_processes`` > 1 processes:
+    a slab of one image cannot be assembled from per-process loader
+    slices, as the JAX package's ``shard_batch_spatial`` says."""
+    if getattr(args, "spatial_parallel", False) and n_processes > 1:
         raise SystemExit(
-            f"not ported to vae_tagger_tpu_torch yet: --spatial_parallel "
-            f"over {n_devices} devices (ROADMAP.md lists what is left)")
+            f"--spatial_parallel over {n_processes} processes: spatial "
+            f"batch sharding is single-controller (one process driving all "
+            f"chips); use data parallelism across processes")
 
 
 def resolve_attention_flags(args) -> dict | None:

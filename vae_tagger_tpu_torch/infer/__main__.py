@@ -6,9 +6,11 @@ Takes the flags of the JAX package's ``scripts/infer_full.py``, plus
 with several GPUs it runs one engine replica on each and splits every
 batch over them, the batch raised to at least 8 a GPU
 (parallel/mesh.py::auto_data_parallel); ``--no_data_parallel`` keeps one
-GPU.  ``--spatial_parallel`` is a no-op on one device and refused over
-more (not ported yet).  ``--model_checkpoint`` (deprecated) stands in for
-a missing ``--vae_checkpoint`` or ``--decoder_checkpoint``.
+GPU.  ``--spatial_parallel`` instead shards each image's height over every
+local GPU (``TaggerEngine.with_spatial``; latency mode: the batch is not
+scaled, and ``--transfer_format yuv420`` is ignored for RGB); a no-op on
+one device.  ``--model_checkpoint`` (deprecated) stands in for a missing
+``--vae_checkpoint`` or ``--decoder_checkpoint``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from __future__ import annotations
 import argparse
 
 from ..core.cli import refuse_unported, resolve_attention_flags
-from ..parallel.mesh import auto_data_parallel, local_devices
+from ..parallel import mesh
+from ..parallel.spatial import spatial_parallel_enabled
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,8 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_data_parallel", action="store_true",
                    help="one GPU instead of a replica on every local GPU")
     p.add_argument("--spatial_parallel", action="store_true",
-                   help="height-sharded multi-GPU inference: a no-op on "
-                   "one device, refused over more (not ported yet)")
+                   help="shard each image's height over every local GPU "
+                   "(latency mode) instead of replicating; a no-op on one "
+                   "device")
     p.add_argument("--model_checkpoint", type=str, default=None,
                    help="(deprecated) parent path for both checkpoints")
     p.add_argument("--use_attention", action="store_true", default=True,
@@ -85,9 +89,14 @@ def main(argv=None) -> dict:
     if not args.vae_checkpoint or not args.decoder_checkpoint:
         parser.error("--vae_checkpoint and --decoder_checkpoint are "
                      "required (or --model_checkpoint)")
-    refuse_unported(args, len(local_devices(args.device)))
-    devices, batch_size = auto_data_parallel(
-        args.batch_size, not args.no_data_parallel, device=args.device)
+    refuse_unported(args, mesh.process_count())
+    local = mesh.local_devices(args.device)
+    spatial = spatial_parallel_enabled(args, local)
+    if spatial:
+        devices, batch_size = None, args.batch_size
+    else:
+        devices, batch_size = mesh.auto_data_parallel(
+            args.batch_size, not args.no_data_parallel, device=args.device)
     attention_config = resolve_attention_flags(args)
     engine = TaggerEngine.load(
         vae_checkpoint=args.vae_checkpoint,
@@ -101,6 +110,14 @@ def main(argv=None) -> dict:
     )
     if devices:
         engine = engine.with_devices(devices)
+    if spatial:
+        engine = engine.with_spatial(local)
+        print(f"spatial-parallel inference over {len(local)} devices "
+              f"(image height sharded; latency mode)")
+        if args.transfer_format != "rgb":
+            print("spatial parallelism uses RGB transfer "
+                  "(--transfer_format yuv420 ignored)")
+            args.transfer_format = "rgb"
     return infer_and_classify(
         engine, args.image_path, output_dir=args.output_dir,
         resolution=args.resolution,

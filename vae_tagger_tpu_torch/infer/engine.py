@@ -33,8 +33,19 @@ tagger head -> sigmoid, under ``torch.inference_mode()``.
   cannot touch real rows).  The results come back concatenated on the
   first replica's device.
 
-The TPU's padding of batches to 8 rows is not carried over; the spatial
-(height-sharded) methods wait for a later slice.
+- :meth:`VAEOnlyEngine.with_spatial` (the JAX engine's
+  ``with_spatial_mesh``) returns a copy that cuts each image's height into
+  slabs over a list of devices (parallel/spatial.py; a device may repeat)
+  and runs the VAE body on them, latency mode: a lone image uses every
+  device.  With ``data_ways`` > 1 the devices form that many rows (the JAX
+  grid's ``data`` axis), the batch is padded with zero rows to a multiple
+  of the rows and each row takes its contiguous chunk; in pure spatial
+  mode the batch is not padded.  The moments come back to the engine's
+  device, where the head runs on the whole batch.  Heights not divisible
+  by the downsample factor times the shards are refused, and so are the
+  YUV methods, as in the JAX package.
+
+The TPU's padding of batches to 8 rows is not carried over.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ from ..models.taggers import (
 )
 from ..nn.blocks import seeded_init_
 from ..ops.image import normalize_uint8, yuv420_to_rgb_uint8
+from ..parallel.spatial import SpatialMesh
 
 
 def build_decoder(num_classes: int, use_attention: bool = True,
@@ -92,6 +104,7 @@ class VAEOnlyEngine:
     # the modules a replica holds on its device (with_devices)
     _MODULES = ("vae",)
     replicas = None
+    spatial = None
 
     def __init__(self, vae: AutoencoderKL, policy: Policy = Policy(),
                  device=None):
@@ -120,6 +133,25 @@ class VAEOnlyEngine:
         engine = copy.copy(self)
         engine.replicas = replicas
         return engine
+
+    def with_spatial(self, devices, data_ways: int = 1) -> "VAEOnlyEngine":
+        """A copy of this engine that shards each image's height over
+        ``devices`` (``data_ways`` rows of them, each row a batch chunk's
+        slabs), its models on ``devices[0]``."""
+        mesh = SpatialMesh(devices, data_ways)
+        engine = copy.copy(self)
+        engine.spatial, engine.replicas = mesh, None
+        engine.device = mesh.devices[0]
+        if engine.device != indexed_device(self.device):
+            for name in self._MODULES:
+                setattr(engine, name,
+                        copy.deepcopy(getattr(self, name)).to(engine.device))
+        return engine
+
+    def _refuse_yuv(self):
+        if self.spatial is not None:
+            raise NotImplementedError(
+                "YUV transfer is not supported with spatial parallelism")
 
     def _split(self, method: str, *arrays):
         """``method`` of every replica on its contiguous chunk of the batch,
@@ -159,15 +191,35 @@ class VAEOnlyEngine:
 
     def _encode(self, px: torch.Tensor) -> torch.Tensor:
         x = normalize_uint8(px, self.policy.compute_dtype)
-        return encode_scaled(self.vae.encode(x).mode(), self.vae.config)
+        if self.spatial is None:
+            mode = self.vae.encode(x).mode()
+        else:  # each data row encodes its chunk over its slabs
+            rows = self.spatial.rows()
+            mode = torch.cat([self.vae.encode(chunk, spatial=row).mode()
+                              for chunk, row in zip(x.chunk(len(rows)),
+                                                    rows)])
+        return encode_scaled(mode, self.vae.config)
+
+    def _placed(self, pixels_uint8) -> torch.Tensor:
+        """The batch on the device.  In spatial mode a height the shards do
+        not split is refused first, and the batch is padded with zero rows
+        to a multiple of the data rows."""
+        if self.spatial is None:
+            return self._place(pixels_uint8)
+        self.spatial.check_height(np.shape(pixels_uint8)[1],
+                                  self.vae.config.downsample_factor)
+        rows = self.spatial.data_ways
+        return self._place(_pad_rows(pixels_uint8,
+                                     -(-len(pixels_uint8) // rows) * rows))
 
     def encode_async(self, pixels_uint8: np.ndarray):
         """Dispatch without synchronizing: (device latents, real count)."""
         if self.replicas:
             return self._split("encode_async", pixels_uint8)
+        b = len(pixels_uint8)
         with torch.inference_mode():
-            latents = self._encode(self._place(pixels_uint8))
-        return latents, len(pixels_uint8)
+            latents = self._encode(self._placed(pixels_uint8))[:b]
+        return latents, b
 
     def encode(self, pixels_uint8: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 -> (B, h, w, C) scaled/shifted latents."""
@@ -181,6 +233,7 @@ class VAEOnlyEngine:
 
     def encode_yuv_async(self, y_uint8: np.ndarray, cbcr_uint8: np.ndarray):
         """:meth:`encode_async` of the YUV 4:2:0 planes."""
+        self._refuse_yuv()
         if self.replicas:
             return self._split("encode_yuv_async", y_uint8, cbcr_uint8)
         with torch.inference_mode():
@@ -236,9 +289,10 @@ class TaggerEngine(VAEOnlyEngine):
         """Dispatch without synchronizing: (device_probs, real_count)."""
         if self.replicas:
             return self._split("classify_async", pixels_uint8)
+        b = len(pixels_uint8)
         with torch.inference_mode():
-            _, probs = self._encode_classify(self._place(pixels_uint8))
-        return probs, len(pixels_uint8)
+            _, probs = self._encode_classify(self._placed(pixels_uint8))
+        return probs[:b], b
 
     def classify(self, pixels_uint8: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) uint8 -> (B, num_tags) sigmoid probabilities."""
@@ -248,6 +302,7 @@ class TaggerEngine(VAEOnlyEngine):
     def classify_yuv_async(self, y_uint8: np.ndarray,
                            cbcr_uint8: np.ndarray):
         """:meth:`classify_async` of the YUV 4:2:0 planes."""
+        self._refuse_yuv()
         if self.replicas:
             return self._split("classify_yuv_async", y_uint8, cbcr_uint8)
         with torch.inference_mode():
@@ -261,17 +316,19 @@ class TaggerEngine(VAEOnlyEngine):
         return probs.cpu().numpy()
 
     def encode_and_classify(self, pixels_uint8: np.ndarray):
+        b = len(pixels_uint8)
         with torch.inference_mode():
             latents, probs = self._encode_classify(
-                self._place(pixels_uint8))
-        return latents.float().cpu().numpy(), probs.cpu().numpy()
+                self._placed(pixels_uint8))
+        return latents[:b].float().cpu().numpy(), probs[:b].cpu().numpy()
 
     def get_attention_maps(self, pixels_uint8: np.ndarray) -> dict:
         """The head's attention maps for a uint8 pixel batch
         (models/taggers.py::get_attention_maps), as fp32 numpy arrays;
         the head runs in the compute dtype, as in :meth:`classify`."""
+        b = len(pixels_uint8)
         with torch.inference_mode():
-            latents = self._encode(self._place(pixels_uint8))
+            latents = self._encode(self._placed(pixels_uint8))[:b]
             maps = get_attention_maps(
                 self.decoder, latents.to(self.policy.compute_dtype))
         return {k: v.float().cpu().numpy() for k, v in maps.items()}

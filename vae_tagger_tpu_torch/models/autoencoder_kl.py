@@ -13,6 +13,14 @@ extraction hold on the card.
 
 ``remat=True`` checkpoints every ResnetBlock and the mid-block attention
 (``torch.utils.checkpoint``, the JAX package's ``nn.remat``).
+
+``encode`` and ``decode`` take a :class:`~..parallel.spatial.SpatialMesh`
+of one data row (``spatial=``): the VAE body then runs on height slabs,
+one a device of the mesh (``conv_in`` through the mid block,
+``conv_norm_out``, ``conv_out`` and ``quant_conv``; the decoder's body
+after ``post_quant_conv``), and the moments or the image are gathered
+back to the input's device, where everything after them runs as it does
+unsharded.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch.nn as nn
 
 from ..core.config import VAEConfig
 from ..parallel.mesh import draw_global
+from ..parallel.spatial import gather_height, shard_height
 from ..nn.blocks import (
     Conv2D,
     DownEncoderBlock,
@@ -101,6 +110,13 @@ class Encoder(nn.Module):
         x = self.mid_block(x)
         return self.conv_out(self.conv_norm_out(x))  # (B, h, w, 2*latent)
 
+    def forward_slabs(self, xs):
+        xs = self.conv_in.forward_slabs(xs)
+        for block in self.down_blocks:
+            xs = block.forward_slabs(xs)
+        xs = self.mid_block.forward_slabs(xs)
+        return self.conv_out.forward_slabs(self.conv_norm_out.forward_slabs(xs))
+
 
 class Decoder(nn.Module):
     """conv_in -> mid block -> up blocks (``layers_per_block + 1`` resnets
@@ -132,6 +148,12 @@ class Decoder(nn.Module):
             x = block(x)
         return self.conv_out(self.conv_norm_out(x))
 
+    def forward_slabs(self, zs):
+        xs = self.mid_block.forward_slabs(self.conv_in.forward_slabs(zs))
+        for block in self.up_blocks:
+            xs = block.forward_slabs(xs)
+        return self.conv_out.forward_slabs(self.conv_norm_out.forward_slabs(xs))
+
 
 class AutoencoderKL(nn.Module):
     """The VAE: ``encoder`` (+ ``quant_conv``) and, with ``with_decoder``,
@@ -151,21 +173,36 @@ class AutoencoderKL(nn.Module):
                    padding=0)
             if with_decoder and config.use_post_quant_conv else None)
 
-    def encode(self, x) -> DiagonalGaussian:
-        """NHWC pixels in [-1, 1], in the compute dtype -> posterior (fp32)."""
-        moments = self.encoder(x)
-        if self.quant_conv is not None:
-            moments = self.quant_conv(moments)
+    def encode(self, x, spatial=None) -> DiagonalGaussian:
+        """NHWC pixels in [-1, 1], in the compute dtype -> posterior (fp32);
+        height-sharded over ``spatial`` (a one-row SpatialMesh) when it has
+        more than one device."""
+        if spatial is not None and spatial.shards > 1:
+            spatial.check_height(x.shape[1], self.config.downsample_factor)
+            xs = self.encoder.forward_slabs(shard_height(x, spatial.devices))
+            if self.quant_conv is not None:
+                xs = self.quant_conv.forward_slabs(xs)
+            moments = gather_height(xs, x.device)
+        else:
+            moments = self.encoder(x)
+            if self.quant_conv is not None:
+                moments = self.quant_conv(moments)
         return DiagonalGaussian.from_moments(moments.float())
 
-    def decode(self, z, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """NHWC latents -> reconstruction (fp32), computed in ``dtype``."""
+    def decode(self, z, dtype: torch.dtype = torch.float32,
+               spatial=None) -> torch.Tensor:
+        """NHWC latents -> reconstruction (fp32), computed in ``dtype``;
+        the decoder's body height-sharded over ``spatial`` when it has more
+        than one device."""
         if self.decoder is None:
             raise RuntimeError("this AutoencoderKL was built without its "
                                "decoder (with_decoder=False)")
         z = z.to(dtype)
         if self.post_quant_conv is not None:
             z = self.post_quant_conv(z)
+        if spatial is not None and spatial.shards > 1:
+            xs = self.decoder.forward_slabs(shard_height(z, spatial.devices))
+            return gather_height(xs, z.device).float()
         return self.decoder(z).float()
 
     def forward(self, x, generator: torch.Generator):

@@ -17,6 +17,17 @@ outside any TPU kernel in the JAX package too).  With ``remat`` each
 ResnetBlock and the attention run under ``torch.utils.checkpoint``
 (non-reentrant): the counterpart of ``nn.remat`` in the JAX package,
 O(block) activation memory for a second forward in the backward.
+
+Every block also has a slab form, ``forward_slabs``: a list of NHWC
+height slabs in, one a device, the same list out (parallel/spatial.py);
+what the unsharded ``forward`` computes is unchanged.  The 3x3 convs and the fused convs
+run on each slab extended by one halo row from each neighbour, and the
+output rows of the halo are dropped; every GroupNorm (the fused convs'
+prologues included) is fed the whole image's statistics, combined from
+each slab's own rows; the stride-2 ``Downsample`` takes one halo row from
+below, its zero row on the last slab only; the mid-block attention runs
+each slab's queries against the gathered keys and values.  A slab's
+parameters are read on its device through ``.to``.
 """
 
 from __future__ import annotations
@@ -28,9 +39,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import spatial_single_head_attention
-from ..ops.conv import conv2d_nhwc, gn_silu_conv3x3
-from ..ops.normalization import group_norm_silu
+from ..ops.attention import (
+    spatial_single_head_attention,
+    spatial_single_head_attention_sharded,
+)
+from ..ops.conv import (
+    conv2d_nhwc,
+    gn_silu_conv3x3,
+    gn_silu_conv3x3_from_stats,
+)
+from ..ops.normalization import group_norm_silu, group_norm_silu_from_stats
+from ..parallel import spatial
 
 
 def _call(module: nn.Module, x, remat: bool):
@@ -40,10 +59,27 @@ def _call(module: nn.Module, x, remat: bool):
     return module(x)
 
 
+def _call_slabs(module: nn.Module, xs: list, remat: bool) -> list:
+    """``module.forward_slabs(xs)``, under activation checkpointing when
+    ``remat`` (no RNG state is kept: the blocks draw nothing)."""
+    if remat:
+        return list(checkpoint(
+            lambda *slabs: tuple(module.forward_slabs(list(slabs))), *xs,
+            use_reentrant=False, preserve_rng_state=False))
+    return module.forward_slabs(xs)
+
+
+def _on(t, x):
+    """Parameter ``t`` on the device of activation x (itself when it is
+    already there)."""
+    return t.to(x.device)
+
+
 def linear(module: nn.Linear, x):
-    """``module`` applied in the dtype of x."""
-    bias = None if module.bias is None else module.bias.to(x.dtype)
-    return F.linear(x, module.weight.to(x.dtype), bias)
+    """``module`` applied in the dtype of x, on x's device."""
+    bias = (None if module.bias is None
+            else module.bias.to(x.device, x.dtype))
+    return F.linear(x, module.weight.to(x.device, x.dtype), bias)
 
 
 class GroupNorm(nn.Module):
@@ -64,10 +100,18 @@ class GroupNorm(nn.Module):
                                num_groups=self.num_groups, eps=self.eps,
                                apply_silu=self.with_silu)
 
+    def forward_slabs(self, xs):
+        stats = spatial.global_group_stats(xs, self.num_groups)
+        return [group_norm_silu_from_stats(
+            x, mean, meansq, _on(self.weight, x), _on(self.bias, x),
+            eps=self.eps, apply_silu=self.with_silu)
+            for x, (mean, meansq) in zip(xs, stats)]
+
 
 class Conv2D(nn.Module):
     """Conv with an OIHW ``weight`` and a ``bias``, applied to NHWC input
-    (``F.conv2d``, as the JAX package leaves these convs to ``lax.conv``)."""
+    on its device (``F.conv2d``, as the JAX package leaves these convs to
+    ``lax.conv``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1):
@@ -83,8 +127,21 @@ class Conv2D(nn.Module):
         return self.weight.permute(2, 3, 1, 0)
 
     def forward(self, x):
-        return conv2d_nhwc(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                           self.stride, self.padding)
+        return conv2d_nhwc(x, self.weight.to(x.device, x.dtype),
+                           self.bias.to(x.device, x.dtype), self.stride,
+                           self.padding)
+
+    def forward_slabs(self, xs):
+        """1x1: each slab alone; 3x3 (stride 1, SAME): each slab with a
+        halo row from each neighbour, the halo's output rows dropped."""
+        k = self.weight.shape[-1]
+        if k == 1 and self.stride == 1 and self.padding == 0:
+            return [self(x) for x in xs]
+        if k != 3 or self.stride != 1 or self.padding != 1:
+            raise ValueError(f"no slab form for a {k}x{k} conv with stride "
+                             f"{self.stride}, padding {self.padding}")
+        exts, tops = spatial.halo(xs, 1, 1)
+        return spatial.crop([self(e) for e in exts], tops, xs[0].shape[1])
 
 
 class ResnetBlock(nn.Module):
@@ -114,6 +171,35 @@ class ResnetBlock(nn.Module):
             shortcut_bias=None if sc is None else sc.bias,
             num_groups=n2.num_groups, eps=n2.eps)
 
+    def forward_slabs(self, xs):
+        """Both fused convs on halo-extended slabs, their prologues fed the
+        whole image's statistics; the residual (or its shortcut's input)
+        is the first conv's extended input, over the same rows."""
+        n1, n2, sc = self.norm1, self.norm2, self.conv_shortcut
+        rows = xs[0].shape[1]
+        ext_x, tops = spatial.halo(xs, 1, 1)
+        hs = spatial.crop([
+            gn_silu_conv3x3_from_stats(
+                e, mean, meansq, _on(n1.weight, e), _on(n1.bias, e),
+                _on(self.conv1.hwio(), e), _on(self.conv1.bias, e),
+                eps=n1.eps)
+            for e, (mean, meansq) in zip(
+                ext_x, spatial.global_group_stats(xs, n1.num_groups))],
+            tops, rows)
+        ext_h, _ = spatial.halo(hs, 1, 1)
+        outs = [
+            gn_silu_conv3x3_from_stats(
+                e, mean, meansq, _on(n2.weight, e), _on(n2.bias, e),
+                _on(self.conv2.hwio(), e), _on(self.conv2.bias, e),
+                residual=r,
+                shortcut_kernel=(None if sc is None
+                                 else _on(sc.weight[:, :, 0, 0].t(), e)),
+                shortcut_bias=None if sc is None else _on(sc.bias, e),
+                eps=n2.eps)
+            for e, r, (mean, meansq) in zip(
+                ext_h, ext_x, spatial.global_group_stats(hs, n2.num_groups))]
+        return spatial.crop(outs, tops, rows)
+
 
 class Downsample(nn.Module):
     """Stride-2 3x3 conv after one pixel of zero padding on the right and
@@ -126,6 +212,14 @@ class Downsample(nn.Module):
     def forward(self, x):
         return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
 
+    def forward_slabs(self, xs):
+        """Each slab (of even height) with one halo row from below, the zero
+        row on the last slab only, and the zero column on the right."""
+        exts, _ = spatial.halo(xs, 0, 1)
+        last = len(xs) - 1
+        return [self.conv(F.pad(e, (0, 0, 0, 1, 0, int(i == last))))
+                for i, e in enumerate(exts)]
+
 
 class Upsample(nn.Module):
     """Nearest-neighbour 2x, then a 3x3 conv."""
@@ -137,6 +231,11 @@ class Upsample(nn.Module):
     def forward(self, x):
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return self.conv(x)
+
+    def forward_slabs(self, xs):
+        return self.conv.forward_slabs(
+            [x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+             for x in xs])
 
 
 class VAEAttention(nn.Module):
@@ -160,6 +259,17 @@ class VAEAttention(nn.Module):
                                           linear(self.to_v, y))
         return linear(self.to_out[0], o).reshape(n, h, w, c) + x
 
+    def forward_slabs(self, xs):
+        """Each slab's queries against every slab's keys and values."""
+        ys = [y.reshape(y.shape[0], -1, y.shape[-1])
+              for y in self.group_norm.forward_slabs(xs)]
+        os = spatial_single_head_attention_sharded(
+            [linear(self.to_q, y) for y in ys],
+            [linear(self.to_k, y) for y in ys],
+            [linear(self.to_v, y) for y in ys])
+        return [linear(self.to_out[0], o).reshape(x.shape) + x
+                for o, x in zip(os, xs)]
+
 
 class MidBlock(nn.Module):
     """resnet -> (attention) -> resnet at the bottleneck."""
@@ -180,6 +290,12 @@ class MidBlock(nn.Module):
         for attn in self.attentions:
             x = _call(attn, x, self.remat)
         return _call(self.resnets[1], x, self.remat)
+
+    def forward_slabs(self, xs):
+        xs = _call_slabs(self.resnets[0], xs, self.remat)
+        for attn in self.attentions:
+            xs = _call_slabs(attn, xs, self.remat)
+        return _call_slabs(self.resnets[1], xs, self.remat)
 
 
 class DownEncoderBlock(nn.Module):
@@ -205,6 +321,13 @@ class DownEncoderBlock(nn.Module):
             x = self.downsamplers[0](x)
         return x
 
+    def forward_slabs(self, xs):
+        for r in self.resnets:
+            xs = _call_slabs(r, xs, self.remat)
+        if self.downsamplers is not None:
+            xs = self.downsamplers[0].forward_slabs(xs)
+        return xs
+
 
 class UpDecoderBlock(nn.Module):
     """``num_layers`` resnets (``layers_per_block + 1`` in the decoder),
@@ -229,6 +352,13 @@ class UpDecoderBlock(nn.Module):
         if self.upsamplers is not None:
             x = self.upsamplers[0](x)
         return x
+
+    def forward_slabs(self, xs):
+        for r in self.resnets:
+            xs = _call_slabs(r, xs, self.remat)
+        if self.upsamplers is not None:
+            xs = self.upsamplers[0].forward_slabs(xs)
+        return xs
 
 
 @torch.no_grad()

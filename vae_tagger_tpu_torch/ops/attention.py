@@ -36,9 +36,10 @@ composed by :func:`flash_attention_bwd_plain`).  A wrapper takes the plain
 version only for a CPU tensor or under the ``torch`` backend.  Sq may
 differ from Skv.
 
-The height-sharded (spatial) and shard_map forms wait for the multi-GPU
-slice.  The tagger head's 64-token MHSA stays plain PyTorch
-(models/taggers.py), as the JAX package keeps it on XLA.
+:func:`spatial_single_head_attention_sharded` is the height-sharded form:
+each slab's queries against the keys and values of every slab, the same
+kernels at Sq = S/n, Skv = S.  The tagger head's 64-token MHSA stays plain
+PyTorch (models/taggers.py), as the JAX package keeps it on XLA.
 """
 
 from __future__ import annotations
@@ -374,3 +375,16 @@ def flash_attention(q, k, v):
 def spatial_single_head_attention(q, k, v):
     """Single-head self-attention over spatial tokens, (B, S, D) -> (B, S, D)."""
     return flash_attention(q, k, v)
+
+
+def spatial_single_head_attention_sharded(qs, ks, vs):
+    """The height-sharded form (the JAX package's
+    ``_spatial_sharded_attention``): each slab's (B, S/n, D) queries
+    against every slab's keys and values gathered on its device, (B, S, D),
+    through :func:`flash_attention` -- kernels C', D', E' or C'', D'', E''
+    at Sq = S/n, Skv = S on the card.  The gradients of a slab's keys and
+    values are the sum of every slab's (parallel/spatial.py::gathered_kv)."""
+    from ..parallel.spatial import gathered_kv
+
+    return [flash_attention(q, k, v)
+            for q, (k, v) in zip(qs, gathered_kv(ks, vs))]

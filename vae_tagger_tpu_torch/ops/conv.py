@@ -20,6 +20,10 @@ chip_smoke.py launches it directly as a yardstick.  Beside them,
 ``group_norm`` -> SiLU -> ``F.conv2d`` -> residual or shortcut.  The op is
 a ``torch.autograd.Function`` whose backward recomputes the plain version
 and takes its VJP, so the forward keeps only its inputs for the backward.
+:func:`gn_silu_conv3x3_from_stats` is the same op fed given GroupNorm
+statistics (no stats pass), with gradients to them: the form a height slab
+extended by its neighbours' halo rows takes (parallel/spatial.py), its
+plain version :func:`gn_silu_conv3x3_from_stats_plain`.
 
 Every other conv of the encode path (``conv_in``, the stride-2
 downsamples, ``conv_out``, the tagger head's convs) is :func:`conv2d_nhwc`,
@@ -49,6 +53,7 @@ from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
     effective_affine,
     group_norm,
     group_norm_affine,
+    group_norm_silu_from_stats_plain,
     group_stats,
     vjp_of_plain,
 )
@@ -140,6 +145,28 @@ def gn_silu_conv3x3_plain(x, gn_scale, gn_bias, kernel, bias, residual=None,
     dt = x.dtype
     y = group_norm(x, gn_scale, gn_bias, num_groups=num_groups, eps=eps)
     y = y * torch.sigmoid(y.float()).to(dt)
+    return _conv3x3_tail(y, kernel, bias, residual, shortcut_kernel,
+                         shortcut_bias)
+
+
+def gn_silu_conv3x3_from_stats_plain(x, mean, meansq, gn_scale, gn_bias,
+                                     kernel, bias, residual=None,
+                                     shortcut_kernel=None,
+                                     shortcut_bias=None, *,
+                                     eps: float = 1e-6):
+    """Kernels B' and B'' fed given statistics, in PyTorch: the activation
+    from the effective affine of (mean, E[x^2]) in fp32 (kernel A's apply
+    pass), cast once, then the conv, the bias and the residual or
+    shortcut as in :func:`gn_silu_conv3x3_plain`."""
+    y = group_norm_silu_from_stats_plain(x, mean, meansq, gn_scale, gn_bias,
+                                         eps=eps)
+    return _conv3x3_tail(y, kernel, bias, residual, shortcut_kernel,
+                         shortcut_bias)
+
+
+def _conv3x3_tail(y, kernel, bias, residual, shortcut_kernel, shortcut_bias):
+    """conv3x3(y) + bias [+ residual or its 1x1 shortcut], in y's dtype."""
+    dt = y.dtype
     w = kernel.to(dt).permute(3, 2, 0, 1)  # HWIO -> OIHW
     out = conv2d_nhwc(y, w, padding=1).float() + bias.float()
     if shortcut_kernel is not None:
@@ -153,29 +180,60 @@ def gn_silu_conv3x3_plain(x, gn_scale, gn_bias, kernel, bias, residual=None,
 @on_tensor_device
 def _gn_silu_conv3x3_kernel(x, gn_scale, gn_bias, kernel, bias, residual,
                             shortcut_kernel, shortcut_bias, num_groups, eps):
+    _check_conv(x, kernel, residual, shortcut_kernel)
+    x = x.contiguous()
+    eff_scale, eff_bias = group_norm_affine(x, gn_scale, gn_bias,
+                                            num_groups=num_groups, eps=eps)
+    return _fused_conv_launch(x, eff_scale, eff_bias, kernel, bias, residual,
+                              shortcut_kernel, shortcut_bias)
+
+
+@on_tensor_device
+def _gn_silu_conv3x3_from_stats_kernel(x, mean, meansq, gn_scale, gn_bias,
+                                       kernel, bias, residual,
+                                       shortcut_kernel, shortcut_bias, eps):
+    """Kernel B' or B'' alone, its prologue fed the effective affine of the
+    given statistics (no stats pass)."""
+    _check_conv(x, kernel, residual, shortcut_kernel)
+    eff_scale, eff_bias = (t.contiguous() for t in effective_affine(
+        mean, meansq, gn_scale, gn_bias, x.shape[-1], eps))
+    return _fused_conv_launch(x.contiguous(), eff_scale, eff_bias, kernel,
+                              bias, residual, shortcut_kernel, shortcut_bias)
+
+
+def _check_conv(x, kernel, residual, shortcut_kernel):
+    """Raise for a kernel, residual or shortcut that does not fit x, and,
+    before anything is launched, for what the kernel cannot take."""
     n, h, w, c_in = x.shape
     c_out = kernel.shape[-1]
     if tuple(kernel.shape) != (3, 3, c_in, c_out):
         raise ValueError(f"kernel must be (3, 3, {c_in}, Cout) HWIO, got "
                          f"{tuple(kernel.shape)}")
-    dt = x.dtype
-    stem, fn, counter = conv_kernel_for(x)
-    c_res = 0
     if residual is not None:
         if residual.shape[:3] != x.shape[:3]:
             raise ValueError("residual must match x in (N, H, W)")
-        c_res = residual.shape[-1]
-        if shortcut_kernel is None and c_res != c_out:
-            raise ValueError(f"residual has {c_res} channels, output "
-                             f"{c_out}: pass the 1x1 shortcut")
+        if shortcut_kernel is None and residual.shape[-1] != c_out:
+            raise ValueError(f"residual has {residual.shape[-1]} channels, "
+                             f"output {c_out}: pass the 1x1 shortcut")
     elif shortcut_kernel is not None:
         raise ValueError("a shortcut needs the residual it projects")
-    # refuse what the kernel cannot take before anything is launched
+    conv_kernel_for(x)
     check_tc_conv_shape(n, h, w, c_in, c_out,
-                        0 if shortcut_kernel is None else c_res, dt)
-    x = x.contiguous()
-    eff_scale, eff_bias = group_norm_affine(x, gn_scale, gn_bias,
-                                            num_groups=num_groups, eps=eps)
+                        0 if shortcut_kernel is None else residual.shape[-1],
+                        x.dtype)
+
+
+def _fused_conv_launch(x, eff_scale, eff_bias, kernel, bias, residual,
+                       shortcut_kernel, shortcut_bias):
+    """Launch kernel B' (bf16) or B'' (fp32) on a contiguous CUDA tensor x
+    with its prologue's fp32 (N, Cin) eff_scale and eff_bias; returns
+    (output, launch counter)."""
+    n, h, w, c_in = x.shape
+    c_out = kernel.shape[-1]
+    dt = x.dtype
+    stem, fn, counter = conv_kernel_for(x)
+    c_res = 0 if residual is None else residual.shape[-1]
+
     def operands(wmat):  # B' reads a packed bf16 weight, B'' its hi and lo
         if dt == torch.bfloat16:
             return [wmat]
@@ -249,3 +307,45 @@ def gn_silu_conv3x3(x, gn_scale, gn_bias, kernel, bias, residual=None,
     return _GnSiluConv3x3.apply(num_groups, eps, x, gn_scale, gn_bias,
                                 kernel, bias, residual, shortcut_kernel,
                                 shortcut_bias)
+
+
+class _GnSiluConv3x3FromStats(torch.autograd.Function):
+    """Forward: kernel B' (bf16) or B'' (fp32) alone on a CUDA tensor, fed
+    the effective affine of given statistics, else the plain version;
+    backward: the VJP of :func:`gn_silu_conv3x3_from_stats_plain` for every
+    tensor input, the statistics included."""
+
+    @staticmethod
+    def forward(ctx, eps, *tensors):
+        ctx.save_for_backward(*(t for t in tensors if t is not None))
+        ctx.present = [t is not None for t in tensors]
+        ctx.eps = eps
+        if backend.use_kernel(tensors[0]):
+            out, counter = _gn_silu_conv3x3_from_stats_kernel(*tensors, eps)
+            backend.count_launch(counter)
+            return out
+        return gn_silu_conv3x3_from_stats_plain(*tensors, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = iter(ctx.saved_tensors)
+        tensors = [next(saved) if p else None for p in ctx.present]
+
+        def plain(*ts):
+            return gn_silu_conv3x3_from_stats_plain(*ts, eps=ctx.eps)
+
+        return (None,) + vjp_of_plain(plain, tensors, g)
+
+
+def gn_silu_conv3x3_from_stats(x, mean, meansq, gn_scale, gn_bias, kernel,
+                               bias, residual=None, shortcut_kernel=None,
+                               shortcut_bias=None, *, eps: float = 1e-6):
+    """:func:`gn_silu_conv3x3` with the GroupNorm statistics given, (mean,
+    E[x^2]) (N, G) fp32, with gradients to them too: the form of a height
+    slab extended by its neighbours' halo rows, whose statistics are the
+    whole image's (parallel/spatial.py).  The kernel zero-pads around
+    whatever it is given, so a halo row is an input row here, activated
+    like any other."""
+    return _GnSiluConv3x3FromStats.apply(eps, x, mean, meansq, gn_scale,
+                                         gn_bias, kernel, bias, residual,
+                                         shortcut_kernel, shortcut_bias)

@@ -19,6 +19,14 @@ its backward recomputes the JAX package's reference form under
 so the forward saves only its inputs.  The stats pass is forward-only (the
 fused conv's Function owns its gradient).
 
+The height-sharded forms (parallel/spatial.py) split those two passes:
+:func:`group_stats_with_grad` is the stats pass with an analytic gradient
+(a slab's own statistics, combined across slabs), and
+:func:`group_norm_silu_from_stats` is the apply pass alone, fed with the
+effective affine of given (global) statistics; its backward is the VJP of
+:func:`group_norm_silu_from_stats_plain` with respect to x and the
+statistics.
+
 Beside them, the plain versions compute the same function in PyTorch: the
 fp32 sum and sum of squares, ``rstd = rsqrt(E[x^2] - mean^2 + eps)``, the
 affine and the SiLU in fp32, one cast at the end.  A wrapper takes the plain
@@ -95,16 +103,25 @@ def effective_affine(mean, meansq, gn_scale, gn_bias, c: int, eps: float):
     return eff_scale, eff_bias
 
 
-def group_norm_silu_plain(x, scale, bias, *, num_groups: int,
-                          eps: float = 1e-6, apply_silu: bool = True):
-    """Kernel A's function in PyTorch: fp32 stats, fp32 affine and SiLU."""
-    c = x.shape[-1]
-    mean, meansq = group_stats_plain(x, num_groups)
-    es, eb = effective_affine(mean, meansq, scale, bias, c, eps)
+def group_norm_silu_from_stats_plain(x, mean, meansq, scale, bias, *,
+                                     eps: float = 1e-6,
+                                     apply_silu: bool = True):
+    """Kernel A's apply pass in PyTorch: GroupNorm(+SiLU) of x from given
+    per-(sample, group) fp32 statistics, the affine and the SiLU in fp32,
+    one cast at the end."""
+    es, eb = effective_affine(mean, meansq, scale, bias, x.shape[-1], eps)
     y = x.float() * es[:, None, None, :] + eb[:, None, None, :]
     if apply_silu:
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
+
+
+def group_norm_silu_plain(x, scale, bias, *, num_groups: int,
+                          eps: float = 1e-6, apply_silu: bool = True):
+    """Kernel A's function in PyTorch: fp32 stats, fp32 affine and SiLU."""
+    mean, meansq = group_stats_plain(x, num_groups)
+    return group_norm_silu_from_stats_plain(x, mean, meansq, scale, bias,
+                                            eps=eps, apply_silu=apply_silu)
 
 
 # --------------------------------------------------------------------------
@@ -252,13 +269,11 @@ def group_norm_affine(x, gn_scale, gn_bias, *, num_groups: int,
     return effective_affine(mean, meansq, gn_scale, gn_bias, x.shape[-1], eps)
 
 
-@on_tensor_device
-def _group_norm_silu_kernel(x, scale, bias, num_groups, eps, apply_silu):
-    """The stats pass, then the apply pass in the same plan: two launches;
-    eff_scale/eff_bias stay in the scratch between them."""
+def _gn_apply_launch(x, plan: GNPlan, es: int, eb: int, apply_silu):
+    """Launch the apply pass on a contiguous CUDA tensor x with the fp32
+    eff_scale/eff_bias (N, C) at addresses ``es``, ``eb``; returns the
+    output."""
     n, h, w, c = x.shape
-    x = x.contiguous()
-    plan, es, eb = _gn_stats_launch(x, num_groups, eps, scale, bias)
     out = torch.empty_like(x)
     err = lib("groupnorm_silu_vec").vt_gn_apply_vec(
         x.data_ptr(), dtype_code(x), n, h * w, c, plan.vec, plan.rows,
@@ -266,6 +281,27 @@ def _group_norm_silu_kernel(x, scale, bias, num_groups, eps, apply_silu):
         int(bool(apply_silu)), stream_of(x))
     check(err, "vt_gn_apply_vec")
     return out
+
+
+@on_tensor_device
+def _group_norm_silu_kernel(x, scale, bias, num_groups, eps, apply_silu):
+    """The stats pass, then the apply pass in the same plan: two launches;
+    eff_scale/eff_bias stay in the scratch between them."""
+    x = x.contiguous()
+    plan, es, eb = _gn_stats_launch(x, num_groups, eps, scale, bias)
+    return _gn_apply_launch(x, plan, es, eb, apply_silu)
+
+
+@on_tensor_device
+def _group_norm_silu_from_stats_kernel(x, mean, meansq, scale, bias, eps,
+                                       apply_silu):
+    """The apply pass alone (one launch), fed with the effective affine of
+    the given statistics."""
+    x = x.contiguous()
+    es, eb = (t.contiguous() for t in effective_affine(
+        mean, meansq, scale, bias, x.shape[-1], eps))
+    return _gn_apply_launch(x, _launch_plan(x), es.data_ptr(), eb.data_ptr(),
+                            apply_silu)
 
 
 def vjp_of_plain(plain, inputs, grads):
@@ -317,3 +353,70 @@ def group_norm_silu(x, scale, bias, *, num_groups: int, eps: float = 1e-6,
     """GroupNorm, optionally followed by SiLU, over an NHWC tensor, with
     gradients to x, scale and bias."""
     return _GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)
+
+
+class _GroupStats(torch.autograd.Function):
+    """Forward: :func:`group_stats` (kernel A's stats pass on a CUDA
+    tensor, else the plain version); backward: the analytic VJP,
+    d mean/dx = 1/count and d E[x^2]/dx = 2x/count over each group."""
+
+    @staticmethod
+    def forward(ctx, x, num_groups):
+        ctx.save_for_backward(x)
+        ctx.num_groups = num_groups
+        return group_stats(x, num_groups)
+
+    @staticmethod
+    def backward(ctx, g_mean, g_meansq):
+        (x,) = ctx.saved_tensors
+        n, h, w, c = x.shape
+        g = ctx.num_groups
+        count = h * w * (c // g)
+        xg = x.float().reshape(n, h * w, g, c // g)
+        dx = (g_mean[:, None, :, None]
+              + 2.0 * xg * g_meansq[:, None, :, None]) / count
+        return dx.reshape(x.shape).to(x.dtype), None
+
+
+def group_stats_with_grad(x, num_groups: int):
+    """(mean, E[x^2]) per (sample, group), fp32 (N, G), with a gradient to
+    x: the statistics a height slab contributes to the whole image's
+    (parallel/spatial.py::global_group_stats)."""
+    return _GroupStats.apply(x, num_groups)
+
+
+class _GroupNormSiLUFromStats(torch.autograd.Function):
+    """Forward: kernel A's apply pass on a CUDA tensor, else the plain
+    version; backward: the VJP of :func:`group_norm_silu_from_stats_plain`
+    with respect to x, the statistics, scale and bias."""
+
+    @staticmethod
+    def forward(ctx, x, mean, meansq, scale, bias, eps, apply_silu):
+        ctx.save_for_backward(x, mean, meansq, scale, bias)
+        ctx.args = (eps, apply_silu)
+        if backend.use_kernel(x):
+            out = _group_norm_silu_from_stats_kernel(x, mean, meansq, scale,
+                                                     bias, eps, apply_silu)
+            backend.count_launch("group_norm_silu")
+            return out
+        return group_norm_silu_from_stats_plain(
+            x, mean, meansq, scale, bias, eps=eps, apply_silu=apply_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps, apply_silu = ctx.args
+
+        def plain(x, mean, meansq, scale, bias):
+            return group_norm_silu_from_stats_plain(
+                x, mean, meansq, scale, bias, eps=eps, apply_silu=apply_silu)
+
+        return vjp_of_plain(plain, ctx.saved_tensors, g) + (None,) * 2
+
+
+def group_norm_silu_from_stats(x, mean, meansq, scale, bias, *,
+                               eps: float = 1e-6, apply_silu: bool = True):
+    """GroupNorm(+SiLU) of x from given (mean, E[x^2]) (N, G) fp32
+    statistics -- those of the whole image when x is a height slab -- with
+    gradients to x, the statistics, scale and bias."""
+    return _GroupNormSiLUFromStats.apply(x, mean, meansq, scale, bias, eps,
+                                         apply_silu)

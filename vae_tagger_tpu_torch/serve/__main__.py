@@ -7,8 +7,11 @@ Loads the infer CLI's artifacts (VAE safetensors + config JSON, the head's
 ``GET /healthz`` and ``GET /tags`` (serve/server.py).  On a host with
 several GPUs it serves from one engine replica on each, every coalesced
 batch split over them, and ``--max_batch`` defaults to 8 a GPU (8 on
-one); ``--no_data_parallel`` keeps one GPU.  ``--spatial_parallel`` is a
-no-op on one device and refused over more (not ported yet).
+one); ``--no_data_parallel`` keeps one GPU.  ``--spatial_parallel``
+instead shards each image's height over every local GPU
+(``TaggerEngine.with_spatial``; latency mode: ``--max_batch`` defaults to
+8, and ``--transfer_format yuv420`` is ignored for RGB); a no-op on one
+device.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from __future__ import annotations
 import argparse
 
 from ..core.cli import refuse_unported
-from ..parallel.mesh import auto_data_parallel, local_devices
+from ..parallel import mesh
+from ..parallel.spatial import spatial_parallel_enabled
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,8 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_data_parallel", action="store_true",
                    help="one GPU instead of a replica on every local GPU")
     p.add_argument("--spatial_parallel", action="store_true",
-                   help="height-sharded multi-GPU serving: a no-op on one "
-                   "device, refused over more (not ported yet)")
+                   help="shard each image's height over every local GPU "
+                   "(latency mode) instead of replicating; a no-op on one "
+                   "device")
     p.add_argument("--no_attention", action="store_true")
     p.add_argument("--transfer_format", type=str, default="rgb",
                    choices=["rgb", "yuv420"],
@@ -66,10 +71,15 @@ def build_server(args):
     from ..infer.engine import TaggerEngine
     from .server import TaggerServer
 
-    refuse_unported(args, len(local_devices(args.device)))
-    devices, default_max_batch = auto_data_parallel(
-        8, not args.no_data_parallel, what="serving",
-        batch_label="default max_batch", device=args.device)
+    refuse_unported(args, mesh.process_count())
+    local = mesh.local_devices(args.device)
+    spatial = spatial_parallel_enabled(args, local)
+    if spatial:
+        devices, default_max_batch = None, 8
+    else:
+        devices, default_max_batch = mesh.auto_data_parallel(
+            8, not args.no_data_parallel, what="serving",
+            batch_label="default max_batch", device=args.device)
     engine = TaggerEngine.load(
         vae_checkpoint=args.vae_checkpoint,
         decoder_checkpoint=args.decoder_checkpoint,
@@ -80,6 +90,14 @@ def build_server(args):
         device=args.device)
     if devices:
         engine = engine.with_devices(devices)
+    if spatial:
+        engine = engine.with_spatial(local)
+        print(f"spatial-parallel serving over {len(local)} devices (image "
+              f"height sharded; latency mode)")
+        if args.transfer_format != "rgb":
+            print("spatial parallelism uses RGB transfer "
+                  "(--transfer_format yuv420 ignored)")
+            args.transfer_format = "rgb"
     return TaggerServer(engine, resolution=tuple(args.resolution),
                         threshold=args.confidence_threshold,
                         host=args.host, port=args.port,

@@ -58,6 +58,7 @@ import torch
 from ..data.dataset import TaggedImageDataset
 from ..data.loader import DataLoader, train_val_split
 from ..io.checkpoints import save_train_state
+from ..parallel import mesh
 from ..parallel.mesh import (
     agree,
     barrier,
@@ -65,6 +66,7 @@ from ..parallel.mesh import (
     process_count,
     process_index,
 )
+from ..parallel.spatial import spatial_parallel_enabled
 from ..utils import profiling
 from ..utils.pipelining import OneInFlight
 
@@ -77,7 +79,14 @@ def build_dataset_and_loaders(args, return_triplets: bool = True):
     buckets with ``--use_bucketing`` (and its three size flags), the YUV
     wire format with ``--transfer_format yuv420``; under data parallelism
     a global batch of ``train_batch_size`` a process, of which each
-    process loads its slice."""
+    process loads its slice.  Under spatial parallelism (one process) the
+    global batch is ``train_batch_size``, not multiplied by the devices,
+    and the YUV wire format is refused, as in the JAX package."""
+    transfer_format = getattr(args, "transfer_format", "rgb") or "rgb"
+    if transfer_format != "rgb" and spatial_parallel_enabled(
+            args, mesh.local_devices(getattr(args, "device", "cuda"))):
+        raise ValueError("--transfer_format yuv420 is not supported with "
+                         "--spatial_parallel")
     dataset = TaggedImageDataset(
         json_path=args.json_path, tags_csv_path=args.tags_csv_path,
         resolution=args.resolution, seed=args.seed,
@@ -86,7 +95,7 @@ def build_dataset_and_loaders(args, return_triplets: bool = True):
         base_resolution=getattr(args, "base_resolution", 512),
         max_resolution=getattr(args, "max_resolution", 1024),
         bucket_step=getattr(args, "bucket_step", 64),
-        transfer_format=getattr(args, "transfer_format", "rgb") or "rgb")
+        transfer_format=transfer_format)
     train_idx, val_idx = train_val_split(len(dataset), 0.1,
                                          seed=args.seed or 42)
     world = process_count()

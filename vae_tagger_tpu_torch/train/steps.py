@@ -59,6 +59,14 @@ single-device one.  What makes it so:
 - the metrics a step returns are averaged over the processes, so rank 0
   logs what one process would.
 
+Spatial parallelism (``spatial=``, a one-row SpatialMesh; one process,
+parallel/spatial.py): the VAE's encode (and the full loss's decode) run
+their body on height slabs, one a device, and gather the moments (the
+image) back to the first device, where the posterior draw, the head, the
+losses and the optimizer run as they do unsharded.  The master
+parameters stay there and the slabs read them through ``.to``, so their
+gradients sum into the master ``.grad``; the batch is not multiplied.
+
 The TPU's sublane padding of the stacked batch and its per-member bs1
 encodes are not carried over.  The head is fed its latents in the compute
 dtype, in which the trainers build it (models/taggers.py), as the JAX
@@ -142,15 +150,17 @@ def resolve_transfer_format(batch: dict) -> dict:
 
 
 def triplet_posterior(vae, batch: dict, compute_dtype,
-                      checkpoint_encode: bool) -> DiagonalGaussian:
-    """Posterior over the stacked (3B) anchor/positive/negative batch.
-    ``checkpoint_encode`` checkpoints the whole encode as well (on top of
-    the blocks' remat), so the backward holds one encode's state at most."""
+                      checkpoint_encode: bool,
+                      spatial=None) -> DiagonalGaussian:
+    """Posterior over the stacked (3B) anchor/positive/negative batch,
+    height-sharded over ``spatial`` when given.  ``checkpoint_encode``
+    checkpoints the whole encode as well (on top of the blocks' remat), so
+    the backward holds one encode's state at most."""
     images = torch.cat([batch["anchor"], batch["positive"],
                         batch["negative"]])
 
     def encode(px):
-        post = vae.encode(normalize_uint8(px, compute_dtype))
+        post = vae.encode(normalize_uint8(px, compute_dtype), spatial)
         return post.mean, post.logvar
 
     if checkpoint_encode:
@@ -161,14 +171,16 @@ def triplet_posterior(vae, batch: dict, compute_dtype,
 
 
 def anchor_reconstruction(vae, posterior: DiagonalGaussian, batch: dict,
-                          compute_dtype, generator: torch.Generator):
+                          compute_dtype, generator: torch.Generator,
+                          spatial=None):
     """(reconstruction of the anchor from a posterior draw of its own, the
     anchor normalized in fp32): the draw from ``generator``, independent
-    of the triplet's."""
+    of the triplet's; the decode height-sharded over ``spatial`` when
+    given."""
     b = batch["anchor"].shape[0]
     z = DiagonalGaussian(mean=posterior.mean[:b],
                          logvar=posterior.logvar[:b]).sample(generator)
-    return (vae.decode(z, compute_dtype),
+    return (vae.decode(z, compute_dtype, spatial),
             normalize_uint8(batch["anchor"], torch.float32))
 
 
@@ -220,13 +232,15 @@ class FullSteps(_Steps):
 
     def __init__(self, cfg: LossConfig, *, use_simplified: bool = True,
                  cb_weights=None, compute_dtype=torch.float32,
-                 checkpoint_encode: bool = False, seed: int = 0):
+                 checkpoint_encode: bool = False, seed: int = 0,
+                 spatial=None):
         self.cfg = cfg
         self.use_simplified = use_simplified
         self.cb_weights = cb_weights
         self.compute_dtype = compute_dtype
         self.checkpoint_encode = checkpoint_encode
         self.seed = seed
+        self.spatial = spatial
 
     def forward_losses(self, state: TrainState, batch: dict,
                        generator: torch.Generator, *, train: bool,
@@ -239,7 +253,7 @@ class FullSteps(_Steps):
         vae, decoder = state.vae, state.decoder
         b = batch["anchor"].shape[0]
         posterior = triplet_posterior(vae, batch, self.compute_dtype,
-                                      self.checkpoint_encode)
+                                      self.checkpoint_encode, self.spatial)
         z = posterior.sample(generator)
         latents = encode_scaled(posterior.mean[:b], vae.config).detach()
         decoder.train(train)
@@ -254,7 +268,8 @@ class FullSteps(_Steps):
                 cb_weights=self.cb_weights)
         else:
             recon, anchor = anchor_reconstruction(
-                vae, posterior, batch, self.compute_dtype, recon_generator)
+                vae, posterior, batch, self.compute_dtype, recon_generator,
+                self.spatial)
             kl = posterior.kl()
             total, loss_dict = combined_loss(
                 self.cfg, recon, anchor, kl[:b], kl[b:2 * b], kl[2 * b:],
@@ -273,12 +288,13 @@ class VaeSteps(_Steps):
 
     def __init__(self, cfg: LossConfig, *, use_simplified: bool = True,
                  compute_dtype=torch.float32, checkpoint_encode: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, spatial=None):
         self.cfg = cfg
         self.use_simplified = use_simplified
         self.compute_dtype = compute_dtype
         self.checkpoint_encode = checkpoint_encode
         self.seed = seed
+        self.spatial = spatial
 
     def forward_losses(self, state: TrainState, batch: dict,
                        generator: torch.Generator, *, train: bool,
@@ -290,11 +306,11 @@ class VaeSteps(_Steps):
         cfg, vae = self.cfg, state.vae
         b = batch["anchor"].shape[0]
         posterior = triplet_posterior(vae, batch, self.compute_dtype,
-                                      self.checkpoint_encode)
+                                      self.checkpoint_encode, self.spatial)
         z = posterior.sample(generator)
         recon, anchor = anchor_reconstruction(vae, posterior, batch,
                                               self.compute_dtype,
-                                              recon_generator)
+                                              recon_generator, self.spatial)
         recon_loss = (recon.float() - anchor).square().mean()
         kl = posterior.kl()
         kl_loss = log_damped_kl(kl[:b], kl[b:2 * b], kl[2 * b:])
@@ -321,12 +337,13 @@ class DecoderSteps:
     term."""
 
     def __init__(self, vae, cfg: LossConfig, *, cb_weights=None,
-                 compute_dtype=torch.float32, seed: int = 0):
+                 compute_dtype=torch.float32, seed: int = 0, spatial=None):
         self.vae = vae
         self.cfg = cfg
         self.cb_weights = cb_weights
         self.compute_dtype = compute_dtype
         self.seed = seed
+        self.spatial = spatial
 
     @property
     def device(self) -> torch.device:
@@ -343,7 +360,8 @@ class DecoderSteps:
         """Latents of a device batch: the posterior mode, scaled, in the
         compute dtype; no gradient reaches the VAE."""
         px = resolve_transfer_format(batch)["pixel_values"]
-        posterior = self.vae.encode(normalize_uint8(px, self.compute_dtype))
+        posterior = self.vae.encode(normalize_uint8(px, self.compute_dtype),
+                                    self.spatial)
         return encode_scaled(posterior.mode(),
                              self.vae.config).to(self.compute_dtype)
 

@@ -25,8 +25,9 @@ at ``--cache_latents_max_gb``, with one message.  Hits and misses are
 counted per batch; the final phase reports its own.
 
 ``--profile_steps``, the preemption save (``interrupt_checkpoint``, then
-no final phase) and data parallelism under ``torchrun`` as in
-train_full.  A run of more than one process ignores ``--cache_latents``
+no final phase), data parallelism under ``torchrun`` and
+``--spatial_parallel`` (the frozen encode on height slabs, also for the
+latent cache) as in train_full.  A run of more than one process ignores ``--cache_latents``
 (the cache is keyed by the indices of one process's rows), as the JAX
 package does on more than one host.
 """
@@ -74,6 +75,7 @@ from ..parallel.mesh import (
     is_main_process,
     process_count,
 )
+from ..parallel.spatial import trainer_mesh
 from .loop import EpochLoop, build_dataset_and_loaders
 from .schedule import build_lr_schedule
 from .state import TrainState, build_optimizer
@@ -154,6 +156,7 @@ def train_decoder(args) -> TrainState:
                                       vae.config.latent_channels,
                                       vae.config.downsample_factor)
     print(f"VAE latent info: {latent_info}")
+    spatial = trainer_mesh(args, vae.config.downsample_factor)
 
     dataset, train_loader, val_loader = build_dataset_and_loaders(
         args, return_triplets=False)
@@ -185,7 +188,8 @@ def train_decoder(args) -> TrainState:
                                 args.gradient_accumulation_steps)
     state = TrainState(vae=None, decoder=head, optimizer=optimizer)
     steps = DecoderSteps(vae, cfg, cb_weights=cb_weights,
-                         compute_dtype=policy.compute_dtype, seed=seed)
+                         compute_dtype=policy.compute_dtype, seed=seed,
+                         spatial=spatial)
 
     deterministic = dataset.crop_mode == "center"
     cache = None

@@ -29,8 +29,12 @@ vae_tagger_tpu_torch.train.train_full ...`` trains on N GPUs, one process
 each, at a global batch of N x ``--train_batch_size``; a step equals one
 process's step on the global batch (train/steps.py), rank 0 writes every
 file, and the final phase gathers every process's predictions.  A plain
-``python -m`` run is one process on one GPU.  ``--spatial_parallel`` is a
-no-op in one process and refused over more (not ported yet).
+``python -m`` run is one process on one GPU.  ``--spatial_parallel``
+shards each image's height over every local GPU of the one process
+(parallel/spatial.py): the encode of every step and of the final phase
+(and the full loss's decode) run on slabs, the batch is not multiplied,
+the resolutions must split over the GPUs, yuv420 is refused; a no-op on
+one GPU, refused over more than one process.
 """
 
 from __future__ import annotations
@@ -78,6 +82,7 @@ from ..parallel.mesh import (
     is_main_process,
     process_count,
 )
+from ..parallel.spatial import trainer_mesh
 from .loop import EpochLoop, build_dataset_and_loaders
 from .schedule import build_lr_schedule
 from .state import TrainState, build_optimizer
@@ -120,6 +125,7 @@ def train_full(args) -> TrainState:
                                       cfg_vae.latent_channels,
                                       cfg_vae.downsample_factor)
     print(f"VAE latent info: {latent_info}")
+    spatial = trainer_mesh(args, cfg_vae.downsample_factor)
 
     dataset, train_loader, val_loader = build_dataset_and_loaders(args)
     decoder = build_decoder(len(dataset.tags), args.use_attention,
@@ -166,7 +172,8 @@ def train_full(args) -> TrainState:
     steps = FullSteps(cfg, use_simplified=args.use_simplified_loss,
                       cb_weights=cb_weights,
                       compute_dtype=policy.compute_dtype,
-                      checkpoint_encode=args.remat, seed=seed)
+                      checkpoint_encode=args.remat, seed=seed,
+                      spatial=spatial)
 
     def export_models(state, vae_dir, decoder_dir):
         vae_out = os.path.join(args.output_dir, vae_dir)
@@ -212,16 +219,17 @@ def train_full(args) -> TrainState:
         return state
     print("training complete; final evaluation...")
     final_evaluation(state, val_loader, dataset.tags, policy.compute_dtype,
-                     args.output_dir)
+                     args.output_dir, spatial)
     print("training and evaluation complete")
     return state
 
 
 def final_evaluation(state: TrainState, val_loader, class_names,
-                     compute_dtype, output_dir: str):
+                     compute_dtype, output_dir: str, spatial=None):
     """One validation pass of an anchor-only encode+classify predictor (the
-    head in eval mode), shared by the threshold search and the evaluation
-    at its global threshold; both write their files to ``output_dir``."""
+    head in eval mode, the encode height-sharded over ``spatial`` when
+    given), shared by the threshold search and the evaluation at its
+    global threshold; both write their files to ``output_dir``."""
     vae, head = state.vae, state.decoder
     device = next(vae.parameters()).device
     head.eval()
@@ -230,7 +238,7 @@ def final_evaluation(state: TrainState, val_loader, class_names,
     def predict_fn(batch):
         px = resolve_transfer_format(
             batch_to_device(batch, device, ("anchor",)))["anchor"]
-        posterior = vae.encode(normalize_uint8(px, compute_dtype))
+        posterior = vae.encode(normalize_uint8(px, compute_dtype), spatial)
         latents = encode_scaled(posterior.mode(), vae.config)
         return torch.sigmoid(head(latents.to(compute_dtype)).float())
 

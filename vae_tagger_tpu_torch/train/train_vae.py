@@ -15,8 +15,9 @@ and exports ``best_vae/`` and ``vae/`` (diffusers safetensors +
 ``config.json``).
 
 ``--use_bucketing``, ``--transfer_format yuv420``, ``--profile_steps``,
-the preemption save and data parallelism under ``torchrun`` as in
-train_full.
+the preemption save, data parallelism under ``torchrun`` and
+``--spatial_parallel`` (the encode and the anchor's decode on height
+slabs) as in train_full.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from ..parallel.mesh import (
     is_main_process,
     process_count,
 )
+from ..parallel.spatial import trainer_mesh
 from .loop import EpochLoop, build_dataset_and_loaders
 from .schedule import build_lr_schedule
 from .state import TrainState, build_optimizer
@@ -82,6 +84,7 @@ def train_vae(args) -> TrainState:
                    remat=args.remat, use_quant_conv=args.use_quant_conv,
                    use_post_quant_conv=args.use_post_quant_conv,
                    with_decoder=True)
+    spatial = trainer_mesh(args, vae.config.downsample_factor)
     _, train_loader, val_loader = build_dataset_and_loaders(args)
     vae.to(device).train()
     broadcast_from_main(vae)
@@ -102,7 +105,8 @@ def train_vae(args) -> TrainState:
     state = TrainState(vae=vae, decoder=None, optimizer=optimizer)
     steps = VaeSteps(cfg, use_simplified=args.use_simplified_vae_loss,
                      compute_dtype=policy.compute_dtype,
-                     checkpoint_encode=args.remat, seed=seed)
+                     checkpoint_encode=args.remat, seed=seed,
+                     spatial=spatial)
 
     def export_vae(state, subdir):
         out = os.path.join(args.output_dir, subdir)
