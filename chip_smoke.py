@@ -46,10 +46,18 @@ failure (non-zero exit, no ``ok`` line):
    timed beside the backward of ``F.scaled_dot_product_attention``, whose
    backend is pinned to EFFICIENT_ATTENTION (the flash and cuDNN backends
    refuse D=512); D and E are timed on the same bf16 and fp32 inputs, and
-   D' + E' and D'' + E'' must beat them;
+   D' + E' and D'' + E'' must beat them.  Kernel F, the GroupNorm(+SiLU)
+   backward (``phase_kernel_f``), at the 22 GroupNorm sites of a train_full
+   step (3 images at 1024px), the decoder's new sites and a spatial slab
+   with given statistics: fp32 rel <= 1e-5 on every output, bf16 within 4x
+   the plain bf16 version's error, two launches bit-identical; timed beside
+   its bytes bound, the plain version and the autograd of F.group_norm +
+   F.silu;
 4. autograd on the card: the outputs of A, B'' and C'' on tensors that require
    a gradient carry a ``grad_fn``, and each op's gradients through the
-   kernel path match the torch backend in fp32 (relative error <= 1e-4);
+   kernel path (the GroupNorm and fused-conv sites' backward: A's apply
+   pass, cuDNN's conv backward and kernel F) match the torch backend (the
+   VJP of the plain version, recomputed) in fp32 (relative error <= 1e-4);
    then the bf16 attention at the mid-block shape (C', D', E'): its
    gradients against the plain fp32 path within 4x the plain bf16 path's
    own error;
@@ -78,8 +86,9 @@ failure (non-zero exit, no ``ok`` line):
    point for one epoch at 1024px, batch 1 (a stacked triplet of 3 images),
    no warmup, in bf16 and then in fp32 (``--mixed_precision no``).  Checks
    of each: finite losses, the exact launch counts (per bf16 train step A
-   2, stats 20, B' 20, C' 1, D' 1, E' 2; per fp32 step A 2, stats 20, B''
-   20, C'' 1, D'' 1, E'' 2; every other kernel none; per validation batch
+   22 (2 forward, 20 recomputing a fused conv's activation in the
+   backward), stats 20, B' 20, C' 1, D' 1, E' 2, F 22; per fp32 step the
+   same with B'', C'', D'', E''; every other kernel none; per validation batch
    the forward's, and of the final threshold search and evaluation one
    encode per validation batch), every encoder and head parameter
    changed, every VAE decoder tensor of the checkpoint exported unchanged
@@ -87,7 +96,13 @@ failure (non-zero exit, no ``ok`` line):
    written; the bf16 exports
    classify through ``TaggerEngine``.  Then the steady step time (bf16 over
    10 steps, fp32 over 4), images/s and peak memory, a profiler breakdown
-   of one step of each by kernel, the fp32 step again with the SIMT D and
+   of one step of each by kernel (the rest by name pattern: cuDNN's
+   forward conv, dgrad and wgrad, cuBLAS, the optimizer, torch's
+   elementwise), each again with the backward it replaced swapped in (the
+   VJP of the plain version, recomputed: ``_recompute_backward``), and the
+   count of cuDNN forward convolutions in a profiled step, which must equal
+   the step's forward's alone (none for a fused site in the backward; the
+   recompute's 20 more); the fp32 step again with the SIMT D and
    E in place of D'' and E'' (over 3 steps), and the gradient gate: on one
    fp32 batch, every parameter's gradient through the kernel path (A,
    stats, B'', C'', D'' and E'', with exact launch counts) within 1e-3 of
@@ -101,10 +116,12 @@ failure (non-zero exit, no ``ok`` line):
    (one 1024px decode, fp32 kernel path vs plain MSE < 1e-10, bf16 within
    4x the plain bf16 path's own MSE, exact launches); ``python -m
    vae_tagger_tpu_torch.train.train_vae`` for one epoch in bf16 and in
-   fp32 (exact launches per step: A 4, stats 48, B 48, C 2, D 2, E 4;
+   fp32 (exact launches per step: A 52, stats 48, B 48, C 2, D 2, E 4,
+   F 52;
    finite losses; every encoder and decoder parameter changed; the bf16
    export reloads and decodes; steady step, images/s, peak memory, one
-   profiled step by kernel each) and the fp32 train_vae gradient gate over
+   profiled step by kernel each, before and after as train_full's) and
+   the fp32 train_vae gradient gate over
    every parameter, the decoder's included (rel <= 1e-3); ``train_full
    --no_simplified_loss --use_adaptive_weights`` for one epoch in bf16
    (the adaptive weights move; the final phase writes
@@ -154,7 +171,7 @@ failure (non-zero exit, no ``ok`` line):
    the plain path, and the attention_viz CLI's files.
    ``phase_drills``: train_full in bf16 at 1024px: the preemption drill
    (``VAE_TAGGER_PREEMPT_AFTER_STEPS=2``), its mid-epoch resume for two
-   epochs with ``--profile_steps 2`` (A, B', C', D' and E' named in the
+   epochs with ``--profile_steps 2`` (A, B', C', D', E' and F named in the
    trace; each epoch's background checkpoint bit-equal to a synchronous
    snapshot at the same call), and a real SIGTERM to the CLI's process;
 10. data parallelism (``phase_data_parallel``), then height-sharded
@@ -256,6 +273,12 @@ KERNELS = {
         replaces="vae_tagger_tpu/ops/conv.py:235 and :244 (group_stats and "
                  "effective_affine, fed to the fused conv; kernel A's stats "
                  "pass)"),
+    "group_norm_silu_bwd": dict(
+        route="cuda",
+        source="vae_tagger_tpu_torch/csrc/groupnorm_silu_bwd.cu",
+        replaces="no Pallas kernel: XLA's fused GroupNorm/SiLU VJP inside "
+                 "jax.vjp(reference), vae_tagger_tpu/ops/conv.py:321 and "
+                 "vae_tagger_tpu/ops/normalization.py:92"),
     "gn_silu_conv3x3_tf32x3": dict(
         route="cuda",
         source="vae_tagger_tpu_torch/csrc/gn_silu_conv3x3_tf32x3.cu",
@@ -314,6 +337,15 @@ SIMT_PREDECESSOR = {"gn_silu_conv3x3_tf32x3": "B (csrc/gn_silu_conv3x3.cu)",
                         "D (csrc/flash_attention_bwd.cu)",
                     "flash_attention_bwd_dkv_tf32x3":
                         "E (csrc/flash_attention_bwd.cu)"}
+def _plus(*counts):
+    """The sum of launch-count dicts."""
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
 # launches of one encode batch, bf16 and fp32
 ENCODE_LAUNCHES = {
     "bf16": {"group_norm_silu": 2, "group_stats": 20, "gn_silu_conv3x3_tc": 20,
@@ -321,14 +353,31 @@ ENCODE_LAUNCHES = {
     "fp32": {"group_norm_silu": 2, "group_stats": 20,
              "gn_silu_conv3x3_tf32x3": 20, "flash_attention_fwd_tf32x3": 1},
 }
+
+
+def _gn_backward_launches(forward):
+    """The GroupNorm sites' backward of one forward with ``forward``'s
+    launches: kernel F once at every site (the A sites and the fused
+    convs), and A's apply pass once at every fused conv, recomputing its
+    activation for cuDNN's conv backward."""
+    fused = sum(n for k, n in forward.items()
+                if k.startswith("gn_silu_conv3x3"))
+    return {"group_norm_silu": fused,
+            "group_norm_silu_bwd": fused + forward.get("group_norm_silu", 0)}
+
+
 # launches of one train step: the encode's, then the attention backward (E'
-# and E'' each run a dV pass and a dK pass); a validation batch runs the
-# encode's alone
+# and E'' each run a dV pass and a dK pass) and the GroupNorm sites'
+# backward; a validation batch runs the encode's alone
 TRAIN_STEP_LAUNCHES = {
-    "bf16": dict(ENCODE_LAUNCHES["bf16"], flash_attention_bwd_dq_tc=1,
-                 flash_attention_bwd_dkv_tc=2),
-    "fp32": dict(ENCODE_LAUNCHES["fp32"], flash_attention_bwd_dq_tf32x3=1,
-                 flash_attention_bwd_dkv_tf32x3=2),
+    "bf16": _plus(ENCODE_LAUNCHES["bf16"],
+                  _gn_backward_launches(ENCODE_LAUNCHES["bf16"]),
+                  dict(flash_attention_bwd_dq_tc=1,
+                       flash_attention_bwd_dkv_tc=2)),
+    "fp32": _plus(ENCODE_LAUNCHES["fp32"],
+                  _gn_backward_launches(ENCODE_LAUNCHES["fp32"]),
+                  dict(flash_attention_bwd_dq_tf32x3=1,
+                       flash_attention_bwd_dkv_tf32x3=2)),
 }
 # launches of the fp32 gradient gate's kernel-path forward and backward
 GATE_LAUNCHES = TRAIN_STEP_LAUNCHES["fp32"]
@@ -358,15 +407,6 @@ DEC_NEW_STATS_SITES = [(512, 512), (1024, 256)]
 DEC_A_SITE = (1024, 128)
 
 
-def _plus(*counts):
-    """The sum of launch-count dicts."""
-    out = {}
-    for c in counts:
-        for k, n in c.items():
-            out[k] = out.get(k, 0) + n
-    return out
-
-
 # launches of one decode: A at the attention norm and conv_norm_out, the
 # stats pass before each fused conv, C once
 DECODE_LAUNCHES = {
@@ -376,14 +416,15 @@ DECODE_LAUNCHES = {
              "gn_silu_conv3x3_tf32x3": 28, "flash_attention_fwd_tf32x3": 1},
 }
 # a train_vae step (and a full-loss train_full step) at batch 1: the
-# stacked encode, the anchor's decode, and the backward of both
-# attentions; a validation batch runs both forwards alone
+# stacked encode, the anchor's decode, the backward of both attentions and
+# of every GroupNorm site; a validation batch runs both forwards alone
 VAE_FORWARD_LAUNCHES = {k: _plus(ENCODE_LAUNCHES[k], DECODE_LAUNCHES[k])
                         for k in ENCODE_LAUNCHES}
 VAE_STEP_LAUNCHES = {
     k: _plus(VAE_FORWARD_LAUNCHES[k],
+             _gn_backward_launches(VAE_FORWARD_LAUNCHES[k]),
              {n: 2 * c for n, c in TRAIN_STEP_LAUNCHES[k].items()
-              if n not in ENCODE_LAUNCHES[k]})
+              if n.startswith("flash_attention_bwd")})
     for k in ENCODE_LAUNCHES}
 
 
@@ -438,9 +479,10 @@ class Check:
     that kernel runs ("fp32", "bf16"), so that every error it reports is
     that kernel's own."""
 
-    def __init__(self, name, dtypes=("fp32", "bf16")):
+    def __init__(self, name, dtypes=("fp32", "bf16"), tol32=1e-4):
         self.name = name
         self.dtypes = dtypes
+        self.tol32 = tol32
         self.rows = []
 
     def run(self, label, op):
@@ -470,7 +512,7 @@ class Check:
             row, ok, said = dict(case=f"{label}[{i}]"), True, []
             if "fp32" in self.dtypes:
                 e32, a32 = rel_err(k32[i], ref), abs_err(k32[i], ref)
-                ok = ok and e32 <= 1e-4 and finite(k32[i])
+                ok = ok and e32 <= self.tol32 and finite(k32[i])
                 row.update(rel_err_fp32=e32, abs_err_fp32=a32)
                 said.append(f"fp32 rel {e32:.3e} (abs {a32:.3e})")
             if "bf16" in self.dtypes:
@@ -709,6 +751,138 @@ def phase_kernel_a(g, results):
         library="F.group_norm + F.silu (channels_last)",
         per=f"2 calls (4 launches): one batch of {BATCH} at {RES}px; ms, "
             f"plain_ms, library_ms and bound_ms bf16, *_fp32 fp32")
+
+
+def _train_gn_sites():
+    """[(N, H, W, C, apply_silu, sites, what)]: kernel F's shapes in a step.
+    The 22 GroupNorm sites of a train_full step at RES (TRAIN_ROWS images):
+    the inputs of B_CASES and the two A sites (the mid-block attention's
+    norm, no SiLU, and conv_norm_out); then the decoder's sites no encoder
+    has (a train_vae step decodes one image): the inputs of its 512->256
+    and 256->128 convs and its conv_norm_out."""
+    out = [(TRAIN_ROWS, hw, hw, c, True, sites, "train_full")
+           for (hw, c), sites in _stats_shapes().items()]
+    out += [(TRAIN_ROWS, RES // 8, RES // 8, 512, silu, 1, "train_full")
+            for silu in (False, True)]
+    out += [(1, hw, hw, c, True, 1, "train_vae decoder")
+            for hw, c in (*DEC_NEW_STATS_SITES, DEC_A_SITE)]
+    return out
+
+
+def phase_kernel_f(g, results):
+    """Kernel F (GroupNorm(+SiLU) backward) against its plain version at
+    every GroupNorm site shape of a train_full step at RES with TRAIN_ROWS
+    images, at the decoder's new sites of a train_vae step, and on the
+    height slab of phase_spatial_kernels' first site with given statistics
+    (no statistics' term in dx; dmean and dmeansq out): fp32 rel <= 1e-5 on
+    every output, bf16 against the plain fp32 version within 4x the plain
+    bf16 version's own error.  Timed in both dtypes, summed over a step's
+    sites, beside its bytes bound, the plain version and autograd of
+    F.group_norm + F.silu (the library's backward at the same shape); two
+    launches bit-identical at a 1024^2 and a 128^2 site."""
+    import torch
+    import torch.nn.functional as F
+    from vae_tagger_tpu_torch.ops.normalization import (
+        effective_affine,
+        group_norm_silu_backward,
+        group_stats_plain,
+    )
+
+    cases = _train_gn_sites()
+    # a halo-extended slab of a 1024px image over two slabs, as
+    # phase_spatial_kernels' first site
+    cases.append((BATCH, RES // 2 + 1, RES, 128, True, 1, "spatial slab"))
+    n_sites = sum(c[5] for c in cases if c[6] == "train_full")
+    log(f"kernel F: group_norm_silu_backward at the {n_sites} GroupNorm "
+        f"sites of a train_full step ({TRAIN_ROWS} images at {RES}px), the "
+        f"decoder's new sites and a spatial slab")
+    chk = Check("group_norm_silu_bwd", tol32=1e-5)
+    tot = {(what, dt): dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0)
+           for what in ("train_full", "train_vae decoder", "spatial slab")
+           for dt in (torch.bfloat16, torch.float32)}
+    repeats = []
+    for n, h, w, c, silu, sites, what in cases:
+        x = _rnd(g, n, h, w, c, shift=0.3)
+        d = _rnd(g, n, h, w, c)
+        gs = _rnd(g, c, scale=0.2, shift=1.0)
+        gb = _rnd(g, c, scale=0.1)
+        mean, meansq = group_stats_plain(x, GROUPS)
+        es, eb = effective_affine(mean, meansq, gs, gb, c, 1e-6)
+        xs, ds = _both(x), _both(d)
+        stats_term = what != "spatial slab"
+
+        def op(dt, silu=silu, stats_term=stats_term):
+            out = group_norm_silu_backward(
+                xs[dt], ds[dt], mean, meansq, gs, es, eb, apply_silu=silu,
+                stats_term=stats_term)
+            return tuple(t for t in out if t is not None)
+
+        label = (f"{what} N={n} {h}x{w} C={c} silu={silu}"
+                 + (" given stats" if not stats_term else ""))
+        chk.run(label, op)
+        for dt in (torch.bfloat16, torch.float32):
+            with torch.enable_grad():
+                xl = xs[dt].permute(0, 3, 1, 2).detach().requires_grad_()
+                wl, bl = (t.to(dt).detach().clone().requires_grad_()
+                          for t in (gs, gb))
+                y = F.group_norm(xl, GROUPS, wl, bl, 1e-6)
+                y = F.silu(y) if silu else y
+            dy = ds[dt].permute(0, 3, 1, 2)
+
+            def library(y=y, xl=xl, wl=wl, bl=bl, dy=dy):
+                return torch.autograd.grad(y, (xl, wl, bl), dy,
+                                           retain_graph=True)
+
+            ms, plain_ms, library_ms = time_kernel(op, dt, library)
+            t = tot[(what, dt)]
+            t["ms"] += sites * ms
+            t["plain_ms"] += sites * plain_ms
+            t["library_ms"] += sites * library_ms
+            # read x and dAct once, write dx once
+            t["nbytes"] += sites * 3 * x.numel() * xs[dt].element_size()
+            log(f"  {label} {str(dt).removeprefix('torch.')} x{sites}: "
+                f"{ms:.4f} ms, plain {plain_ms:.4f}, F.group_norm"
+                f"{' + F.silu' if silu else ''} backward {library_ms:.4f}")
+            if (h, c) in ((RES, 128), (RES // 8, 512)) and silu \
+                    and what == "train_full":
+                same = _same_twice(lambda dt=dt: op(dt))
+                assert same, f"kernel F repeats differ: {label} {dt}"
+                repeats.append(f"{label} {dt}")
+            del y, xl, wl, bl, dy
+        del x, d, xs, ds
+        torch.cuda.empty_cache()
+    out = {}
+    for (what, dt), t in tot.items():
+        # about 20 fp32 operations an element on the CUDA cores
+        b_ms, b_by = bound(t["nbytes"], 20 * t["nbytes"] / 3 / (
+            2 if dt == torch.bfloat16 else 4), "float32")
+        out[(what, dt)] = dict(t, bound_ms=b_ms, bound_by=b_by)
+        log(f"  F, {what}, {str(dt).removeprefix('torch.')}: {t['ms']:.3f} "
+            f"ms; bound {b_ms:.3f} ms ({b_ms / t['ms']:.1%}); plain "
+            f"{t['plain_ms']:.3f}, library {t['library_ms']:.3f}")
+    bf = out[("train_full", torch.bfloat16)]
+    f32 = out[("train_full", torch.float32)]
+    results["group_norm_silu_bwd"] = dict(
+        chk.summary(), ms=bf["ms"], plain_ms=bf["plain_ms"],
+        library_ms=bf["library_ms"], bound_ms=bf["bound_ms"],
+        bound_by=bf["bound_by"], ms_fp32=f32["ms"],
+        plain_ms_fp32=f32["plain_ms"], library_ms_fp32=f32["library_ms"],
+        bound_ms_fp32=f32["bound_ms"], bit_identical_repeats=repeats,
+        decoder={k: out[("train_vae decoder", dt)][k.removesuffix("_fp32")]
+                 for dt, sfx in ((torch.bfloat16, ""), (torch.float32,
+                                                       "_fp32"))
+                 for k in (f"ms{sfx}", f"plain_ms{sfx}", f"library_ms{sfx}",
+                           f"bound_ms{sfx}")},
+        spatial={k: out[("spatial slab", dt)][k.removesuffix("_fp32")]
+                 for dt, sfx in ((torch.bfloat16, ""), (torch.float32,
+                                                       "_fp32"))
+                 for k in (f"ms{sfx}", f"plain_ms{sfx}", f"library_ms{sfx}",
+                           f"bound_ms{sfx}")},
+        library="autograd of F.group_norm (+ F.silu), channels_last",
+        per=f"the 22 GroupNorm sites of a train_full step ({TRAIN_ROWS} "
+            f"images at {RES}px), one call each; ms, plain_ms, library_ms "
+            f"and bound_ms bf16, *_fp32 fp32; decoder: its 3 new sites at "
+            f"batch 1; spatial: one slab of N={BATCH} (513x1024, C=128)")
 
 
 def _fp32_bounds(nbytes, flops):
@@ -1436,10 +1610,11 @@ def _simt_fp32_forward():
             return conv_kernel(x, gs, gb, kern, bias, res, sck, scb,
                                num_groups, eps)
         res = None if res is None else res.float().contiguous()
+        # no statistics kept: a forward-only yardstick
         return _simt_conv(x.contiguous(), gs, gb, kern.float(), bias.float(),
                           res, None if sck is None else sck.float(),
                           None if scb is None else scb.float(), num_groups,
-                          eps), "gn_silu_conv3x3"
+                          eps), "gn_silu_conv3x3", None
 
     def simt_fwd_kernel(q, k, v):
         if q.dtype != torch.float32:
@@ -2051,9 +2226,30 @@ def _write_training_data(art):
     return str(path)
 
 
+# kernel-name patterns of the device time outside the port's kernels, in
+# the order they are tried (a cuDNN conv's name may also say gemm).  cuDNN's
+# FFT convolutions (fp32 with TF32 off) run complex GEMMs and GEMVs (cf32,
+# float2) between their transforms; by name they belong to no one pass.
+OTHER_KERNELS = (
+    ("cuDNN conv forward (fprop)",
+     r"fprop|convolve_sgemm|conv2d_grouped_direct|conv\w*fwd|fwd\w*conv"),
+    ("cuDNN conv dgrad", r"dgrad"),
+    ("cuDNN conv wgrad", r"wgrad"),
+    ("cuDNN conv, FFT (complex GEMM, transforms), winograd, layout",
+     r"fft|cf32|float2|winograd|cudnn|nchwToNhwc|nhwcToNchw"),
+    ("optimizer (clip + AdamW, foreach)",
+     r"multi_tensor_apply|lpnorm|LpNorm|Adam"),
+    ("cuBLAS (head, shortcut, attention projections)",
+     r"nvjet|gemm|gemv|splitK|cublas|cutlass"),
+)
+OTHER_REST = "elementwise, reductions, copies (torch)"
+
+
 def _kernel_breakdown(prof):
     """Device time of one profiled step by kernel: the port's kernels by
-    name, everything else (cuDNN, cuBLAS, elementwise) as the rest."""
+    name, everything else by OTHER_KERNELS' patterns (cuDNN's conv passes,
+    cuBLAS, the optimizer) and the rest (torch's elementwise, reductions
+    and copies)."""
     names = {"conv3x3_kernel": "gn_silu_conv3x3",
              "conv3x3_tc_kernel": "gn_silu_conv3x3_tc",
              "conv3x3_tf32x3_kernel": "gn_silu_conv3x3_tf32x3",
@@ -2061,6 +2257,8 @@ def _kernel_breakdown(prof):
              "flash_fwd_tf32x3_kernel": "flash_attention_fwd_tf32x3",
              "gn_stats_vec_kernel": "group_stats (+A's stats)",
              "gn_apply_vec_kernel": "group_norm_silu (apply)",
+             "gn_bwd_reduce_kernel": "group_norm_silu_bwd (F reduce)",
+             "gn_bwd_apply_kernel": "group_norm_silu_bwd (F apply)",
              "flash_fwd_kernel": "flash_attention_fwd",
              "flash_bwd_dq_kernel": "flash_attention_bwd_dq",
              "flash_bwd_dkv_kernel": "flash_attention_bwd_dkv",
@@ -2076,18 +2274,32 @@ def _kernel_breakdown(prof):
     assert not [a for a in names for b_ in names if a != b_ and a in b_]
     from torch.autograd import DeviceType
 
-    by_kernel, top = {}, []
+    by_kernel, top, calls = {}, [], {}
     for evt in prof.key_averages():
         # kernels only: an operator's row repeats its kernels' time
         us = getattr(evt, "self_device_time_total", 0) or 0
         if evt.device_type != DeviceType.CUDA or us <= 0:
             continue
         top.append((us / 1e3, evt.key[:90]))
-        label = next((v for k, v in names.items() if k in evt.key),
-                     "other (plain backward recompute, head, optimizer)")
+        label = next((v for k, v in names.items() if k in evt.key), None)
+        if label is None:
+            label = next((lab for lab, pat in OTHER_KERNELS
+                          if re.search(pat, evt.key)), OTHER_REST)
         by_kernel[label] = by_kernel.get(label, 0.0) + us / 1e3
+        calls[label] = calls.get(label, 0) + evt.count
     top.sort(reverse=True)
-    return by_kernel, top[:12]
+    return by_kernel, top[:12], calls
+
+
+def _conv_ops(prof):
+    """Calls of cuDNN's forward convolution and of the conv backward in a
+    profile, by operator (the dispatcher records both)."""
+    want = ("aten::cudnn_convolution", "aten::convolution_backward")
+    found = {k: 0 for k in want}
+    for evt in prof.key_averages():
+        if evt.key in found:
+            found[evt.key] += evt.count
+    return found
 
 
 # torch-path gradient norms below this are compared absolutely: two orders
@@ -2326,7 +2538,8 @@ def _steady_step(state, batch, dtype, iters, first_index, steps=None):
 
 
 def _profiled_step(steps, state, batch, index):
-    """Device time of one profiled train step, by kernel."""
+    """Device time of one profiled train step by kernel, the kernel calls
+    by label, and the conv operators' calls (_conv_ops)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2334,14 +2547,131 @@ def _profiled_step(steps, state, batch, index):
                              ProfilerActivity.CUDA]) as prof:
         steps.train_step(state, batch, index)
         torch.cuda.synchronize()
-    by_kernel, top = _kernel_breakdown(prof)
+    by_kernel, top, calls = _kernel_breakdown(prof)
+    convs = _conv_ops(prof)
     total_ms = sum(by_kernel.values())
-    log(f"  one profiled step: {total_ms:.1f} ms of device time")
+    log(f"  one profiled step: {total_ms:.1f} ms of device time; conv "
+        f"operators {convs}")
     for label, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
-        log(f"    {label}: {ms:.2f} ms")
+        log(f"    {label}: {ms:.2f} ms ({calls[label]} kernels)")
     for ms, key in top:
         log(f"    top kernel {ms:.2f} ms: {key}")
-    return total_ms, by_kernel, top
+    return dict(profiled_step_ms=total_ms, device_ms_by_kernel=by_kernel,
+                kernel_calls=calls, top_kernels=top, conv_ops=convs)
+
+
+def _forward_conv_ops(steps, state, batch):
+    """The conv operators of the step's forward alone (an eval step: the
+    same forward under no_grad), profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps.eval_step(state, batch, 0)
+        torch.cuda.synchronize()
+    return _conv_ops(prof)
+
+
+@contextlib.contextmanager
+def _recompute_backward():
+    """The GroupNorm sites' backward as the port computed it before kernel
+    F: the VJP of each op's plain version, recomputed eagerly under
+    autograd (``vjp_of_plain``: a forward conv at every fused site, the
+    fp32 GroupNorm chain and its autograd backward), in place of
+    ``gn_silu_conv3x3_vjp`` and ``group_norm_silu_vjp``: the yardstick of
+    the new backward, in the same process on the same card."""
+    from vae_tagger_tpu_torch.ops import conv, normalization
+
+    def gn_vjp(g, x, mean, meansq, scale, bias, *, eps, apply_silu=True,
+               es=None, eb=None, stats_term=True):
+        if stats_term:
+            def plain(x, scale, bias):
+                return normalization.group_norm_silu_reference(
+                    x, scale, bias, num_groups=mean.shape[-1], eps=eps,
+                    apply_silu=apply_silu)
+
+            dx, dscale, dbias = normalization.vjp_of_plain(
+                plain, (x, scale, bias), g)
+            return dx, None, None, dscale, dbias
+
+        def plain(*ts):
+            return normalization.group_norm_silu_from_stats_plain(
+                *ts, eps=eps, apply_silu=apply_silu)
+
+        return normalization.vjp_of_plain(plain, (x, mean, meansq, scale,
+                                                  bias), g)
+
+    def conv_vjp(g, x, *tensors, mean, meansq, es=None, eb=None, eps=1e-6,
+                 stats_term=True):
+        tensors = list(tensors) + [None] * (7 - len(tensors))
+        if stats_term:
+            def plain(*ts):
+                return conv.gn_silu_conv3x3_plain(
+                    *ts, num_groups=mean.shape[-1], eps=eps)
+
+            grads = normalization.vjp_of_plain(plain, [x, *tensors], g)
+            return (grads[0], None, None) + grads[1:]
+
+        def plain(*ts):
+            return conv.gn_silu_conv3x3_from_stats_plain(*ts, eps=eps)
+
+        return normalization.vjp_of_plain(plain, [x, mean, meansq, *tensors],
+                                          g)
+
+    saved = (conv.gn_silu_conv3x3_vjp, normalization.group_norm_silu_vjp)
+    conv.gn_silu_conv3x3_vjp = conv_vjp
+    normalization.group_norm_silu_vjp = gn_vjp
+    try:
+        yield
+    finally:
+        conv.gn_silu_conv3x3_vjp, normalization.group_norm_silu_vjp = saved
+
+
+def _step_before_after(state, batch, dtype, iters, first_index, steps=None,
+                       check_convs=False):
+    """The steady step (``_steady_step``: host clock over ``iters`` steps,
+    peak memory) and one profiled step by kernel, first with the backward
+    of kernel F, then with the recompute it replaced
+    (``_recompute_backward``), on the same state and batch.  With
+    ``check_convs``: the profiled step runs cuDNN's forward convolution
+    exactly as often as the step's forward alone (an eval step), so no
+    fused site runs a forward conv in the backward; the recompute's step
+    runs one more a fused site."""
+    import torch
+
+    key = "bf16" if dtype == torch.bfloat16 else "fp32"
+    out = {}
+    for when in ("after", "before"):
+        ctx = (_recompute_backward() if when == "before"
+               else contextlib.nullcontext())
+        with ctx:
+            step_s, peak, steps = _steady_step(state, batch, dtype, iters,
+                                               first_index, steps)
+            log(f"  steady step, {key}, {when} (backward "
+                f"{'of kernel F' if when == 'after' else 'recomputed'}): "
+                f"{step_s * 1e3:.1f} ms, {TRAIN_ROWS / step_s:.3f} images/s "
+                f"(host clock, {iters} steps), peak device memory "
+                f"{peak / 2**30:.2f} GiB")
+            prof = _profiled_step(steps, state, batch,
+                                  first_index + 1000 + iters)
+        out[when] = dict(prof, step_s=step_s, step_peak_mem_bytes=peak)
+        first_index += 2 * iters + 2
+    if check_convs:
+        fwd = _forward_conv_ops(steps, state, batch)
+        fused = sum(n for k, n in ENCODE_LAUNCHES[key].items()
+                    if k.startswith("gn_silu"))
+        after = out["after"]["conv_ops"]["aten::cudnn_convolution"]
+        before = out["before"]["conv_ops"]["aten::cudnn_convolution"]
+        log(f"  cuDNN forward convolutions: {after} in a step's forward and "
+            f"backward, {fwd['aten::cudnn_convolution']} in its forward "
+            f"alone; {before} with the recompute ({fused} fused sites)")
+        assert after == fwd["aten::cudnn_convolution"] > 0, (after, fwd)
+        assert before == after + fused, (before, after, fused)
+        out["forward_conv_ops"] = fwd
+    return dict(out["after"], before=out["before"], steps=steps,
+                **({"forward_conv_ops": out["forward_conv_ops"]}
+                   if check_convs else {}))
 
 
 def phase_training():
@@ -2374,27 +2704,20 @@ def phase_training():
         f"{probs.max():.4f}")
     del eng
 
-    # steady bf16 step time on one batch, then one profiled step
-    iters = 10
-    step_s, peak, steps = _steady_step(state, batch, torch.bfloat16, iters,
-                                       1000)
-    log(f"  steady train step, bf16: {step_s * 1e3:.1f} ms, "
-        f"{TRAIN_ROWS / step_s:.3f} images/s ({TRAIN_ROWS} per step; host "
-        f"clock, {iters} steps), peak device memory {peak / 2**30:.2f} GiB")
-    total_ms, by_kernel, top = _profiled_step(steps, state, batch, 2000)
-    del state, steps
+    # steady bf16 step time on one batch and one profiled step, with the
+    # backward of kernel F and then with the recompute it replaced; no
+    # forward conv of a fused site may run in the backward
+    step16 = _step_before_after(state, batch, torch.bfloat16, 10, 1000,
+                                check_convs=True)
+    step_s = step16["step_s"]
+    del state, step16["steps"]
     torch.cuda.empty_cache()
 
     # fp32 (--mixed_precision no): D'' and E'' carry the attention backward
     state32, _, rep32 = _train_cli(art, json_path, "no")
-    iters32 = 4
-    step32_s, peak32, steps32 = _steady_step(state32, batch, torch.float32,
-                                             iters32, 3000)
-    log(f"  steady train step, fp32: {step32_s * 1e3:.1f} ms, "
-        f"{TRAIN_ROWS / step32_s:.3f} images/s (host clock, {iters32} "
-        f"steps), peak device memory {peak32 / 2**30:.2f} GiB")
-    total32_ms, by_kernel32, top32 = _profiled_step(steps32, state32, batch,
-                                                    4000)
+    step32 = _step_before_after(state32, batch, torch.float32, 4, 3000,
+                                check_convs=True)
+    step32_s, steps32 = step32["step_s"], step32.pop("steps")
     # the same steady step with the SIMT D and E in place of D'' and E''
     iters_simt = 3
     with _simt_fp32_backward():
@@ -2407,8 +2730,9 @@ def phase_training():
         torch.cuda.synchronize()
         step32_simt_s = (time.perf_counter() - t0) / iters_simt
         counts_simt = backend.launch_counts()
-    want = dict(ENCODE_LAUNCHES["fp32"], flash_attention_bwd_dq=1,
-                flash_attention_bwd_dkv=1)
+    want = _plus(ENCODE_LAUNCHES["fp32"],
+                 _gn_backward_launches(ENCODE_LAUNCHES["fp32"]),
+                 dict(flash_attention_bwd_dq=1, flash_attention_bwd_dkv=1))
     assert counts_simt == _expected(want, iters_simt), counts_simt
     log(f"  steady train step, fp32 with the SIMT D and E: "
         f"{step32_simt_s * 1e3:.1f} ms (host clock, {iters_simt} steps); "
@@ -2418,17 +2742,11 @@ def phase_training():
 
     gate = _gradient_gate(art, batch)
     report = dict(rep16, step_s_bf16=step_s,
-                images_per_s_bf16=TRAIN_ROWS / step_s,
-                step_peak_mem_bytes=peak, profiled_step_ms=total_ms,
-                device_ms_by_kernel=by_kernel, top_kernels=top,
-                fp32=dict(rep32, step_s=step32_s,
-                          images_per_s=TRAIN_ROWS / step32_s,
-                          step_peak_mem_bytes=peak32,
-                          step_s_simt_d_e=step32_simt_s,
-                          profiled_step_ms=total32_ms,
-                          device_ms_by_kernel=by_kernel32,
-                          top_kernels=top32),
-                gradient_gate=gate)
+                  images_per_s_bf16=TRAIN_ROWS / step_s, step_bf16=step16,
+                  fp32=dict(rep32, step_s=step32_s,
+                            images_per_s=TRAIN_ROWS / step32_s,
+                            step_s_simt_d_e=step32_simt_s, step=step32),
+                  gradient_gate=gate)
     return report, art, json_path, out, batch
 
 
@@ -2591,21 +2909,15 @@ def phase_train_vae(art, json_path, batch):
                 rec).all()
             log("  the bf16 export reloads with its decoder and decodes")
             del vae, rec
-        steps = VaeSteps(cfg, compute_dtype=dt, seed=SEED)
-        step_s, peak, steps = _steady_step(state, batch, dt, iters,
-                                           6000 + 1000 * iters, steps)
-        log(f"  steady train_vae step, {key}: {step_s * 1e3:.1f} ms, "
-            f"{TRAIN_ROWS / step_s:.3f} images/s ({TRAIN_ROWS} encoded, 1 "
-            f"decoded per step; host clock, {iters} steps), peak device "
-            f"memory {peak / 2**30:.2f} GiB")
-        total_ms, by_kernel, top = _profiled_step(steps, state, batch,
-                                                  9000 + iters)
-        report[key] = dict(rep, step_s=step_s,
-                           images_per_s=TRAIN_ROWS / step_s,
-                           step_peak_mem_bytes=peak,
-                           profiled_step_ms=total_ms,
-                           device_ms_by_kernel=by_kernel, top_kernels=top)
-        del state, steps
+        # TRAIN_ROWS encoded and 1 decoded a step
+        step = _step_before_after(state, batch, dt, iters,
+                                  6000 + 1000 * iters,
+                                  VaeSteps(cfg, compute_dtype=dt, seed=SEED))
+        del step["steps"]
+        report[key] = dict(rep, step_s=step["step_s"],
+                           images_per_s=TRAIN_ROWS / step["step_s"],
+                           step=step)
+        del state
         torch.cuda.empty_cache()
     report["gradient_gate"] = _vae_gradient_gate(art, batch)
     return report
@@ -3507,8 +3819,9 @@ SERVE_SOURCE = (2048, 1536)
 # the 5.1e-3 measured on an H100 80GB HBM3 at 700 W (PERF.md §6), cuDNN's
 # other algorithms for another batch size moving bf16 roundings
 SERVE_TOL = {"fp32": 1e-5, "bf16": 1e-2}
-# kernel names (csrc/) of A, B', C', D' and E' in a chrome trace
+# kernel names (csrc/) of A, B', C', D', E' and F in a chrome trace
 PROFILE_KERNELS = {"A": ("gn_stats_vec_kernel", "gn_apply_vec_kernel"),
+                   "F": ("gn_bwd_reduce_kernel", "gn_bwd_apply_kernel"),
                    "B'": ("conv3x3_tc_kernel",),
                    "C'": ("flash_fwd_tc_kernel",),
                    "D'": ("flash_bwd_dq_tc_kernel",),
@@ -4563,11 +4876,16 @@ SPATIAL_TOL = {"fp32": 1e-5, "bf16": 1e-2}  # probabilities, as served
 
 def _spatial_launches(per_forward, n=SPATIAL_SHARDS):
     """The launches of a path run on n height slabs: every kernel n times,
-    and at each kernel-A site the slab's own stats pass besides (A's apply
-    pass then runs from the combined statistics)."""
+    and at each kernel-A site of the forward the slab's own stats pass
+    besides (A's apply pass then runs from the combined statistics).  In a
+    train step A's apply pass also runs once a fused conv's backward
+    (_gn_backward_launches), which has no stats pass."""
     out = {k: n * v for k, v in per_forward.items()}
-    out["group_stats"] = (out.get("group_stats", 0)
-                          + out.get("group_norm_silu", 0))
+    a_sites = per_forward.get("group_norm_silu", 0)
+    if per_forward.get("group_norm_silu_bwd"):
+        a_sites -= sum(v for k, v in per_forward.items()
+                       if k.startswith("gn_silu_conv3x3"))
+    out["group_stats"] = out.get("group_stats", 0) + n * a_sites
     return out
 
 
@@ -4798,7 +5116,8 @@ def _device_ms_by_kind(fn, *args):
     from torch.profiler import ProfilerActivity, profile
 
     ours = ("conv3x3_tc_kernel", "conv3x3_tf32x3_kernel", "flash_fwd_tc",
-            "flash_fwd_tf32x3", "gn_stats_vec_kernel", "gn_apply_vec_kernel")
+            "flash_fwd_tf32x3", "gn_stats_vec_kernel", "gn_apply_vec_kernel",
+            "gn_bwd_reduce_kernel", "gn_bwd_apply_kernel")
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -4816,7 +5135,7 @@ def _device_ms_by_kind(fn, *args):
                 else "rest")
         kinds[kind] += us / 1e3
         top.append((round(us / 1e3, 3), evt.count, evt.key[:80]))
-    by_kernel, _ = _kernel_breakdown(prof)
+    by_kernel, _, _ = _kernel_breakdown(prof)
     return dict(kinds, by_kernel=by_kernel, top=sorted(top, reverse=True)[:12])
 
 
@@ -5177,6 +5496,9 @@ def main():
     torch.cuda.empty_cache()
     with torch.no_grad():
         phase_kernel_de(g, results)
+        torch.cuda.empty_cache()
+        phase_kernel_f(g, results)
+    torch.cuda.empty_cache()
     report["autograd"] = phase_autograd(g)
     torch.cuda.empty_cache()
     report["main_path"] = phase_main_path()

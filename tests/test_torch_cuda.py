@@ -33,11 +33,19 @@ from vae_tagger_tpu_torch.ops.attention import (
     flash_attention_bwd_dq,
     flash_attention_fwd,
 )
-from vae_tagger_tpu_torch.ops.conv import gn_silu_conv3x3
+from vae_tagger_tpu_torch.ops.conv import (
+    gn_silu_conv3x3,
+    gn_silu_conv3x3_plain,
+    gn_silu_conv3x3_vjp,
+)
 from vae_tagger_tpu_torch.ops.normalization import (
+    effective_affine,
     group_norm_affine,
     group_norm_silu,
+    group_norm_silu_backward,
     group_stats,
+    group_stats_plain,
+    vjp_of_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -164,6 +172,105 @@ def test_group_norm_kernel_repeats_bit_for_bit(gen):
                 assert torch.equal(a, b)
     counts = backend.launch_counts()
     assert counts["group_stats"] == 8 and counts["group_norm_silu"] == 4
+
+
+def _gn_bwd_inputs(gen, shape, groups):
+    """x, dAct, scale, x's fp32 statistics and their effective affine."""
+    x = _rnd(gen, *shape, shift=0.3)
+    d = _rnd(gen, *shape)
+    sc = _rnd(gen, shape[-1], scale=0.2, shift=1.0)
+    bi = _rnd(gen, shape[-1], scale=0.1)
+    mean, meansq = group_stats_plain(x, groups)
+    return x, d, sc, mean, meansq, *effective_affine(mean, meansq, sc, bi,
+                                                     shape[-1], 1e-6)
+
+
+@pytest.mark.parametrize("shape,groups", [
+    # ragged spans, C a multiple of both vectors
+    ((2, 33, 17, 96), 8),
+    # C = 36: one element a thread in bf16, 4-wide vectors in fp32
+    ((2, 9, 13, 36), 4),
+    # C = 300 in bf16: one element a thread, two strips
+    ((2, 9, 11, 300), 3),
+    # C = 4,096: two strips of 256 bf16 vectors, four of fp32 ones
+    ((2, 5, 7, 4096), 32),
+])
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("stats_term", [True, False])
+def test_group_norm_silu_backward_kernel(gen, shape, groups, silu,
+                                         stats_term):
+    """Kernel F against its plain version at small ragged shapes, every
+    output (dx, dscale, dbias, and dmean, dmeansq without the statistics'
+    term), fp32 within 1e-5; one launch counted a call."""
+    x, d, sc, mean, meansq, es, eb = _gn_bwd_inputs(gen, shape, groups)
+
+    def op(dt):
+        out = group_norm_silu_backward(x.to(dt), d.to(dt), mean, meansq, sc,
+                                       es, eb, apply_silu=silu,
+                                       stats_term=stats_term)
+        return tuple(t for t in out if t is not None)
+
+    _check(op, tol32=1e-5)
+    assert backend.launch_counts()["group_norm_silu_bwd"] == 2
+
+
+def test_group_norm_silu_backward_kernel_misaligned_and_repeats(gen):
+    """Kernel F on a view 2 (bf16) or 4 (fp32) bytes off a 16-byte
+    boundary (one element a thread, C = 512: two strips) agrees with its
+    plain version; two launches on the same inputs are bit-identical."""
+    shape = (2, 19, 23, 512)
+    x, d, sc, mean, meansq, es, eb = _gn_bwd_inputs(gen, shape, 32)
+
+    def off(t, dt):
+        flat = torch.empty(1 + t.numel(), dtype=dt, device="cuda")
+        view = flat[1:].view(shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 and view.is_contiguous()
+        return view
+
+    def op(dt):
+        return group_norm_silu_backward(off(x, dt), d.to(dt), mean, meansq,
+                                        sc, es, eb)[:3]
+
+    _check(op, tol32=1e-5)
+    for dt in (torch.bfloat16, torch.float32):
+        first, second = op(dt), op(dt)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("variant", ["plain", "residual", "shortcut"])
+def test_fused_site_backward_matches_vjp_of_plain(gen, variant):
+    """One fused site's whole backward on the card (A's apply pass, cuDNN's
+    conv backward, kernel F) against the VJP of the plain version
+    recomputed (vjp_of_plain), fp32 with cuDNN's TF32 off, every input's
+    gradient within 1e-4 relative to its norm; no forward conv runs."""
+    n, h, w, cin = 2, 9, 13, 64
+    cout = 96 if variant == "shortcut" else cin
+    x = _rnd(gen, n, h, w, cin, shift=0.3)
+    ins = [x, _rnd(gen, cin, scale=0.2, shift=1.0), _rnd(gen, cin, scale=0.1),
+           _rnd(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5),
+           _rnd(gen, cout, scale=0.1)]
+    if variant == "residual":
+        ins.append(_rnd(gen, n, h, w, cout))
+    if variant == "shortcut":
+        ins += [_rnd(gen, n, h, w, cin), _rnd(gen, cin, cout, scale=0.125),
+                _rnd(gen, cout, scale=0.1)]
+    g = _rnd(gen, n, h, w, cout)
+    mean, meansq = group_stats_plain(x, 8)
+    backend.reset_launch_counts()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = gn_silu_conv3x3_vjp(g, *ins, mean=mean, meansq=meansq)
+    torch.cuda.synchronize()
+    assert not [e for e in prof.key_averages()
+                if e.key == "aten::cudnn_convolution"]
+    counts = {k: c for k, c in backend.launch_counts().items() if c}
+    assert counts == {"group_norm_silu": 1, "group_norm_silu_bwd": 1}
+    got = (got[0],) + got[3:3 + len(ins) - 1]
+    want = vjp_of_plain(
+        lambda *t: gn_silu_conv3x3_plain(*t, num_groups=8), ins, g)
+    for a, b in zip(got, want):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-4
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout,variant", [

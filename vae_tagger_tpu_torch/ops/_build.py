@@ -51,6 +51,12 @@ SIGNATURES = {
         "vt_gn_apply_vec": [_P, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P, _P,
                             _I, _P],
     },
+    "groupnorm_silu_bwd": {
+        "vt_gn_bwd_reduce": [_P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P,
+                             _I, _P, _P, _P, _P, _P],
+        "vt_gn_bwd_apply": [_P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P,
+                            _P, _P, _I, _P, _P],
+    },
     "gn_silu_conv3x3": {
         "vt_gn_silu_conv3x3": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                _P, _I, _P, _P, _P, _P],

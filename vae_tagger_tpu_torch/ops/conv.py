@@ -18,12 +18,19 @@ the shortcut product in their epilogue.  The SIMT kernel B
 chip_smoke.py launches it directly as a yardstick.  Beside them,
 :func:`gn_silu_conv3x3_plain` is the same function in PyTorch:
 ``group_norm`` -> SiLU -> ``F.conv2d`` -> residual or shortcut.  The op is
-a ``torch.autograd.Function`` whose backward recomputes the plain version
-and takes its VJP, so the forward keeps only its inputs for the backward.
-:func:`gn_silu_conv3x3_from_stats` is the same op fed given GroupNorm
-statistics (no stats pass), with gradients to them: the form a height slab
-extended by its neighbours' halo rows takes (parallel/spatial.py), its
-plain version :func:`gn_silu_conv3x3_from_stats_plain`.
+a ``torch.autograd.Function``.  On the kernel path its forward keeps the
+stats pass's statistics beside its inputs, and its backward is
+:func:`gn_silu_conv3x3_vjp`, as the JAX package's jitted VJP computes it:
+the activation recomputed by kernel A's apply pass, the conv's input and
+weight gradients from cuDNN (``aten.convolution_backward``; XLA computes
+them outside any Pallas kernel on the TPU), then kernel F
+(ops/normalization.py), with no forward conv.  On the CPU and under the
+``torch`` backend the backward recomputes the plain version and takes its
+VJP.  :func:`gn_silu_conv3x3_from_stats` is the same op fed given
+GroupNorm statistics (no stats pass), with gradients to them: the form a
+height slab extended by its neighbours' halo rows takes
+(parallel/spatial.py), its plain version
+:func:`gn_silu_conv3x3_from_stats_plain`.
 
 Every other conv of the encode path (``conv_in``, the stride-2
 downsamples, ``conv_out``, the tagger head's convs) is :func:`conv2d_nhwc`,
@@ -53,7 +60,10 @@ from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
     effective_affine,
     group_norm,
     group_norm_affine,
+    group_norm_silu_apply,
     group_norm_silu_from_stats_plain,
+    group_norm_silu_vjp,
+    group_norm_stats_affine,
     group_stats,
     vjp_of_plain,
 )
@@ -180,12 +190,14 @@ def _conv3x3_tail(y, kernel, bias, residual, shortcut_kernel, shortcut_bias):
 @on_tensor_device
 def _gn_silu_conv3x3_kernel(x, gn_scale, gn_bias, kernel, bias, residual,
                             shortcut_kernel, shortcut_bias, num_groups, eps):
+    """Kernel A's stats pass, then kernel B' or B''; returns (output, launch
+    counter, (mean, meansq, es, eb)), the statistics for the backward."""
     _check_conv(x, kernel, residual, shortcut_kernel)
     x = x.contiguous()
-    eff_scale, eff_bias = group_norm_affine(x, gn_scale, gn_bias,
-                                            num_groups=num_groups, eps=eps)
-    return _fused_conv_launch(x, eff_scale, eff_bias, kernel, bias, residual,
-                              shortcut_kernel, shortcut_bias)
+    stats = group_norm_stats_affine(x, gn_scale, gn_bias,
+                                    num_groups=num_groups, eps=eps)
+    return (*_fused_conv_launch(x, *stats[2:], kernel, bias, residual,
+                                shortcut_kernel, shortcut_bias), stats)
 
 
 @on_tensor_device
@@ -263,20 +275,71 @@ def _fused_conv_launch(x, eff_scale, eff_bias, kernel, bias, residual,
     return out, counter
 
 
+def gn_silu_conv3x3_vjp(g, x, gn_scale, gn_bias, kernel, bias,
+                        residual=None, shortcut_kernel=None,
+                        shortcut_bias=None, *, mean, meansq, es=None, eb=None,
+                        eps: float = 1e-6, stats_term: bool = True):
+    """The backward of :func:`gn_silu_conv3x3` (``stats_term``: the
+    statistics are x's own) or of :func:`gn_silu_conv3x3_from_stats`, as
+    the JAX package's jitted VJP computes it, with no forward conv: the
+    activation recomputed by kernel A's apply pass from the forward's
+    statistics (``es``/``eb`` its effective affine, else folded from mean
+    and meansq); the conv's input and weight gradients from
+    ``aten.convolution_backward`` on the NHWC views (cuDNN on the card, as
+    XLA computes them outside any Pallas kernel on the TPU); the bias, the
+    residual and the 1x1 shortcut's gradients in torch; then kernel F.  On
+    the CPU every piece is its plain version.  Returns the gradients of
+    (x, mean, meansq, gn_scale, gn_bias, kernel, bias, residual,
+    shortcut_kernel, shortcut_bias), None for an absent input and, with
+    ``stats_term``, for the statistics; each in its input's dtype."""
+    if es is None:
+        es, eb = effective_affine(mean, meansq, gn_scale, gn_bias,
+                                  x.shape[-1], eps)
+    dt = x.dtype
+    g = g.to(dt)
+    act = group_norm_silu_apply(x, es, eb)
+    w = kernel.to(dt).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    dact, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), act.permute(0, 3, 1, 2), w, None, [1, 1],
+        [1, 1], [1, 1], False, [0, 0], 1, [True, True, False])
+    del act
+    dkernel = dw.permute(2, 3, 1, 0).to(kernel.dtype)
+    g_sum = g.sum((0, 1, 2), dtype=torch.float32)
+    dres = dsck = dscb = None
+    if shortcut_kernel is not None:
+        c_res = residual.shape[-1]
+        sck = shortcut_kernel.to(dt).reshape(c_res, -1)
+        g2 = g.reshape(-1, g.shape[-1])
+        dres = (g2 @ sck.t()).reshape(residual.shape).to(residual.dtype)
+        dsck = ((residual.to(dt).reshape(-1, c_res).t() @ g2)
+                .reshape(shortcut_kernel.shape).to(shortcut_kernel.dtype))
+        dscb = g_sum.to(shortcut_bias.dtype)
+    elif residual is not None:
+        dres = g.to(residual.dtype)
+    dx, dmean, dmeansq, dscale, dgbias = group_norm_silu_vjp(
+        dact.permute(0, 2, 3, 1), x, mean, meansq, gn_scale, gn_bias,
+        eps=eps, es=es, eb=eb, stats_term=stats_term)
+    return (dx, dmean, dmeansq, dscale, dgbias, dkernel,
+            g_sum.to(bias.dtype), dres, dsck, dscb)
+
+
 class _GnSiluConv3x3(torch.autograd.Function):
     """Forward: kernel A's stats pass and kernel B' (bf16) or B'' (fp32) on a
-    CUDA tensor, else the plain version; backward: the VJP of the plain
-    version, recomputed (the JAX package's custom VJP), for every tensor
-    input -- x, the GN scale and bias, the HWIO kernel, the bias, the
-    residual and the shortcut kernel and bias."""
+    CUDA tensor, keeping the statistics, else the plain version.  Backward,
+    for every tensor input -- x, the GN scale and bias, the HWIO kernel,
+    the bias, the residual and the shortcut kernel and bias: on the kernel
+    path :func:`gn_silu_conv3x3_vjp` (A's apply pass, cuDNN's conv
+    backward, kernel F); else the VJP of the plain version, recomputed."""
 
     @staticmethod
     def forward(ctx, num_groups, eps, *tensors):
         ctx.save_for_backward(*(t for t in tensors if t is not None))
         ctx.present = [t is not None for t in tensors]
         ctx.args = (num_groups, eps)
+        ctx.stats = None
         if backend.use_kernel(tensors[0]):
-            out, counter = _gn_silu_conv3x3_kernel(*tensors, num_groups, eps)
+            out, counter, ctx.stats = _gn_silu_conv3x3_kernel(
+                *tensors, num_groups, eps)
             backend.count_launch(counter)
             return out
         return gn_silu_conv3x3_plain(*tensors, num_groups=num_groups,
@@ -287,6 +350,11 @@ class _GnSiluConv3x3(torch.autograd.Function):
         num_groups, eps = ctx.args
         saved = iter(ctx.saved_tensors)
         tensors = [next(saved) if p else None for p in ctx.present]
+        if ctx.stats is not None:
+            mean, meansq, es, eb = ctx.stats
+            grads = gn_silu_conv3x3_vjp(g, *tensors, mean=mean, meansq=meansq,
+                                        es=es, eb=eb, eps=eps)
+            return (None, None, grads[0]) + grads[3:]
 
         def plain(*ts):
             return gn_silu_conv3x3_plain(*ts, num_groups=num_groups, eps=eps)
@@ -311,16 +379,18 @@ def gn_silu_conv3x3(x, gn_scale, gn_bias, kernel, bias, residual=None,
 
 class _GnSiluConv3x3FromStats(torch.autograd.Function):
     """Forward: kernel B' (bf16) or B'' (fp32) alone on a CUDA tensor, fed
-    the effective affine of given statistics, else the plain version;
-    backward: the VJP of :func:`gn_silu_conv3x3_from_stats_plain` for every
-    tensor input, the statistics included."""
+    the effective affine of given statistics, else the plain version.
+    Backward, for every tensor input, the statistics included: on the
+    kernel path :func:`gn_silu_conv3x3_vjp` without the statistics' term in
+    dx; else the VJP of :func:`gn_silu_conv3x3_from_stats_plain`."""
 
     @staticmethod
     def forward(ctx, eps, *tensors):
         ctx.save_for_backward(*(t for t in tensors if t is not None))
         ctx.present = [t is not None for t in tensors]
         ctx.eps = eps
-        if backend.use_kernel(tensors[0]):
+        ctx.kernel = backend.use_kernel(tensors[0])
+        if ctx.kernel:
             out, counter = _gn_silu_conv3x3_from_stats_kernel(*tensors, eps)
             backend.count_launch(counter)
             return out
@@ -330,6 +400,11 @@ class _GnSiluConv3x3FromStats(torch.autograd.Function):
     def backward(ctx, g):
         saved = iter(ctx.saved_tensors)
         tensors = [next(saved) if p else None for p in ctx.present]
+        if ctx.kernel:
+            x, mean, meansq, *rest = tensors
+            return (None,) + gn_silu_conv3x3_vjp(
+                g, x, *rest, mean=mean, meansq=meansq, eps=ctx.eps,
+                stats_term=False)
 
         def plain(*ts):
             return gn_silu_conv3x3_from_stats_plain(*ts, eps=ctx.eps)

@@ -1,37 +1,49 @@
-"""Normalization primitives over NHWC tensors, and kernel A's wrappers.
+"""Normalization primitives over NHWC tensors, and kernels A's and F's
+wrappers.
 
 Counterpart of ``vae_tagger_tpu/ops/normalization.py``.  GroupNorm groups
 *consecutive* channels (torch ``nn.GroupNorm`` semantics) and takes its
 statistics in fp32 whatever the input dtype.
 
 Kernel A (``csrc/groupnorm_silu_vec.cu``; its plan is :func:`gn_plan`)
-serves two wrappers here:
+serves three wrappers here:
 
 - :func:`group_norm_silu`: GroupNorm(+SiLU) -- the stats pass, then the
   apply pass (the VAE's mid-block attention norm and ``conv_norm_out``);
-- :func:`group_norm_affine`: the stats pass alone, folded into per-(n, c)
-  ``eff_scale``/``eff_bias`` for the fused conv (ops/conv.py).
+- :func:`group_norm_stats_affine` (and :func:`group_norm_affine`): the
+  stats pass alone, giving the statistics and their fold with the affine,
+  per-(n, c) ``eff_scale``/``eff_bias``, for the fused conv (ops/conv.py);
+- :func:`group_norm_silu_apply`: the apply pass alone, from a given
+  effective affine.
 
-:func:`group_norm_silu` is a ``torch.autograd.Function`` on both paths:
-its backward recomputes the JAX package's reference form under
-``enable_grad`` and takes its VJP (:func:`vjp_of_plain` of
-:func:`group_norm_silu_reference`), as the JAX package's custom VJP does,
-so the forward saves only its inputs.  The stats pass is forward-only (the
-fused conv's Function owns its gradient).
+Kernel F (``csrc/groupnorm_silu_bwd.cu``, in A's plan) is the backward:
+:func:`group_norm_silu_backward` gives dx and the gradients of the scale,
+the bias and, where they are an input of their own, the statistics.
 
-The height-sharded forms (parallel/spatial.py) split those two passes:
+:func:`group_norm_silu` is a ``torch.autograd.Function``.  On the kernel
+path its forward keeps the statistics and its backward is
+:func:`group_norm_silu_vjp`: kernel F fed them, as the JAX package's
+jitted VJP computes the backward (XLA keeps what the cotangent needs and
+fuses the GroupNorm/SiLU backward), with no forward rerun.  On the CPU and
+under the ``torch`` backend the backward recomputes the JAX package's
+reference form under ``enable_grad`` and takes its VJP
+(:func:`vjp_of_plain` of :func:`group_norm_silu_reference`), the custom
+VJP's own form, to whose bf16 rounding the CPU tests hold it.
+
+The height-sharded forms (parallel/spatial.py) split the two passes:
 :func:`group_stats_with_grad` is the stats pass with an analytic gradient
 (a slab's own statistics, combined across slabs), and
 :func:`group_norm_silu_from_stats` is the apply pass alone, fed with the
-effective affine of given (global) statistics; its backward is the VJP of
-:func:`group_norm_silu_from_stats_plain` with respect to x and the
-statistics.
+effective affine of given (global) statistics; its backward, with respect
+to x and the statistics, is kernel F without the statistics' term in dx on
+the kernel path, else the VJP of :func:`group_norm_silu_from_stats_plain`.
 
-Beside them, the plain versions compute the same function in PyTorch: the
+Beside them, the plain versions compute the same functions in PyTorch: the
 fp32 sum and sum of squares, ``rstd = rsqrt(E[x^2] - mean^2 + eps)``, the
-affine and the SiLU in fp32, one cast at the end.  A wrapper takes the plain
-version only for a tensor on the CPU (or under the ``torch`` backend); for
-a CUDA tensor it launches the kernel or raises.
+affine and the SiLU in fp32, one cast at the end; the backward's sums and
+dx in fp32, one cast.  A wrapper takes the plain version only for a tensor
+on the CPU (or under the ``torch`` backend); for a CUDA tensor it launches
+the kernel or raises.
 """
 
 from __future__ import annotations
@@ -103,17 +115,22 @@ def effective_affine(mean, meansq, gn_scale, gn_bias, c: int, eps: float):
     return eff_scale, eff_bias
 
 
-def group_norm_silu_from_stats_plain(x, mean, meansq, scale, bias, *,
-                                     eps: float = 1e-6,
-                                     apply_silu: bool = True):
-    """Kernel A's apply pass in PyTorch: GroupNorm(+SiLU) of x from given
-    per-(sample, group) fp32 statistics, the affine and the SiLU in fp32,
-    one cast at the end."""
-    es, eb = effective_affine(mean, meansq, scale, bias, x.shape[-1], eps)
+def group_norm_silu_apply_plain(x, es, eb, *, apply_silu: bool = True):
+    """Kernel A's apply pass in PyTorch: ``[silu](x * es + eb)`` from a
+    given (N, C) fp32 effective affine, in fp32, one cast at the end."""
     y = x.float() * es[:, None, None, :] + eb[:, None, None, :]
     if apply_silu:
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
+
+
+def group_norm_silu_from_stats_plain(x, mean, meansq, scale, bias, *,
+                                     eps: float = 1e-6,
+                                     apply_silu: bool = True):
+    """GroupNorm(+SiLU) of x from given per-(sample, group) fp32
+    statistics in PyTorch: the apply pass fed their effective affine."""
+    es, eb = effective_affine(mean, meansq, scale, bias, x.shape[-1], eps)
+    return group_norm_silu_apply_plain(x, es, eb, apply_silu=apply_silu)
 
 
 def group_norm_silu_plain(x, scale, bias, *, num_groups: int,
@@ -174,13 +191,15 @@ _SMS: dict = {}
 _SCRATCH: dict = {}
 
 
-def _launch_plan(x) -> GNPlan:
+def _launch_plan(x, *others) -> GNPlan:
+    """The plan of a launch over x; 16-byte vectors only where x and every
+    other tensor of the launch are 16-byte aligned."""
     dev = x.device.index
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     n, h, w, c = x.shape
-    return gn_plan(n, h * w, c, x.element_size(), x.data_ptr() % 16 == 0,
-                   _SMS[dev])
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others))
+    return gn_plan(n, h * w, c, x.element_size(), aligned, _SMS[dev])
 
 
 def _scratch(x, stream: int, floats: int):
@@ -254,19 +273,47 @@ def group_stats(x, num_groups: int):
     return group_stats_plain(x, num_groups)
 
 
+_STATS = ("mean", "meansq", "es", "eb")
+
+
+def _stats_launch_kept(x, num_groups, eps, gamma, beta):
+    """The stats pass on a contiguous CUDA tensor x, writing (mean, E[x^2])
+    (N, G) and (eff_scale, eff_bias) (N, C), fp32, into views of one buffer
+    that the caller keeps (each view 16-byte aligned: kernels B' and B''
+    load eff_* 16 bytes a time); returns (plan, (mean, meansq, es, eb))."""
+    n, c = x.shape[0], x.shape[-1]
+    widths = (num_groups, num_groups, c, c)
+    sizes = [-(-n * k // 4) * 4 for k in widths]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    stats = tuple(part[:n * k].view(n, k) for part, k in zip(
+        buf.split(sizes), widths))
+    plan, _, _ = _gn_stats_launch(x, num_groups, eps, gamma, beta,
+                                  dict(zip(_STATS, stats)))
+    return plan, stats
+
+
+def group_norm_stats_affine(x, gn_scale, gn_bias, *, num_groups: int,
+                            eps: float = 1e-6):
+    """GN stats of x and their fold with the affine: (mean, E[x^2]) (N, G)
+    and (eff_scale, eff_bias) (N, C), fp32 -- the fused conv's prologue
+    takes the affine, its backward the statistics.  One launch of the stats
+    pass on a CUDA tensor."""
+    if backend.use_kernel(x):
+        _, stats = _stats_launch_kept(x.contiguous(), num_groups, eps,
+                                      gn_scale, gn_bias)
+        backend.count_launch("group_stats")
+        return stats
+    mean, meansq = group_stats_plain(x, num_groups)
+    return (mean, meansq, *effective_affine(mean, meansq, gn_scale, gn_bias,
+                                            x.shape[-1], eps))
+
+
 def group_norm_affine(x, gn_scale, gn_bias, *, num_groups: int,
                       eps: float = 1e-6):
     """GN stats of x folded with the affine: (eff_scale, eff_bias), (N, C)
     fp32 -- the input of the fused conv's prologue."""
-    if backend.use_kernel(x):
-        es, eb = (torch.empty(x.shape[0], x.shape[-1], dtype=torch.float32,
-                              device=x.device) for _ in range(2))
-        _gn_stats_launch(x.contiguous(), num_groups, eps, gn_scale, gn_bias,
-                         dict(es=es, eb=eb))
-        backend.count_launch("group_stats")
-        return es, eb
-    mean, meansq = group_stats_plain(x, num_groups)
-    return effective_affine(mean, meansq, gn_scale, gn_bias, x.shape[-1], eps)
+    return group_norm_stats_affine(x, gn_scale, gn_bias,
+                                   num_groups=num_groups, eps=eps)[2:]
 
 
 def _gn_apply_launch(x, plan: GNPlan, es: int, eb: int, apply_silu):
@@ -285,23 +332,171 @@ def _gn_apply_launch(x, plan: GNPlan, es: int, eb: int, apply_silu):
 
 @on_tensor_device
 def _group_norm_silu_kernel(x, scale, bias, num_groups, eps, apply_silu):
-    """The stats pass, then the apply pass in the same plan: two launches;
-    eff_scale/eff_bias stay in the scratch between them."""
+    """The stats pass, then the apply pass in the same plan: two launches.
+    Returns the output and the statistics (mean, meansq, es, eb) that the
+    backward takes."""
     x = x.contiguous()
-    plan, es, eb = _gn_stats_launch(x, num_groups, eps, scale, bias)
-    return _gn_apply_launch(x, plan, es, eb, apply_silu)
+    plan, stats = _stats_launch_kept(x, num_groups, eps, scale, bias)
+    out = _gn_apply_launch(x, plan, stats[2].data_ptr(), stats[3].data_ptr(),
+                           apply_silu)
+    return out, stats
 
 
 @on_tensor_device
-def _group_norm_silu_from_stats_kernel(x, mean, meansq, scale, bias, eps,
-                                       apply_silu):
-    """The apply pass alone (one launch), fed with the effective affine of
-    the given statistics."""
+def _gn_apply_kernel(x, es, eb, apply_silu):
+    """The apply pass alone (one launch) from a given effective affine."""
     x = x.contiguous()
-    es, eb = (t.contiguous() for t in effective_affine(
-        mean, meansq, scale, bias, x.shape[-1], eps))
+    es, eb = (t.float().contiguous() for t in (es, eb))
     return _gn_apply_launch(x, _launch_plan(x), es.data_ptr(), eb.data_ptr(),
                             apply_silu)
+
+
+def group_norm_silu_apply(x, es, eb, *, apply_silu: bool = True):
+    """Kernel A's apply pass alone, ``[silu](x * es + eb)`` from a given
+    (N, C) fp32 effective affine: one launch on a CUDA tensor, else the
+    plain version.  The height slabs' forward (from the combined
+    statistics) and the backward's recompute of the activation."""
+    if backend.use_kernel(x):
+        out = _gn_apply_kernel(x, es, eb, apply_silu)
+        backend.count_launch("group_norm_silu")
+        return out
+    return group_norm_silu_apply_plain(x, es, eb, apply_silu=apply_silu)
+
+
+# --------------------------------------------------------------------------
+# kernel F: the GroupNorm(+SiLU) backward
+# --------------------------------------------------------------------------
+
+def _gn_bwd_terms(p, q, mean, meansq, scale, es, eps):
+    """Fold the per-(sample, channel) sums P = sum dz * x and Q = sum dz
+    into the gradients of the GroupNorm scale and bias (C,) and of the
+    statistics (N, G), fp32, through es = scale * rstd and eb = bias - mean
+    * es, rstd = rsqrt(meansq - mean^2 + eps) (the kernels' form)."""
+    n, c = p.shape
+    groups = mean.shape[-1]
+    reps = c // groups
+    rstd = torch.rsqrt(meansq - mean * mean + eps)
+    mean_c = mean.repeat_interleave(reps, 1)
+    # the gradient of es, with eb's dependence on es folded in
+    p_net = p - mean_c * q
+    dscale = (rstd.repeat_interleave(reps, 1) * p_net).sum(0)
+    dbias = q.sum(0)
+    d_rstd = (scale.float()[None, :] * p_net).reshape(n, groups, reps).sum(-1)
+    r3 = rstd * rstd * rstd
+    dmean = (-(q * es).reshape(n, groups, reps).sum(-1)
+             + r3 * mean * d_rstd)
+    dmeansq = -0.5 * r3 * d_rstd
+    return dscale, dbias, dmean, dmeansq
+
+
+def _gn_bwd_stats_coefs(dmean, dmeansq, c: int, s: int):
+    """(ca, cb) per (sample, channel): the statistics' term of dx, (dmean +
+    2 x dmeansq) / count, as ca + cb * x, count = s * (C / G)."""
+    reps = c // dmean.shape[-1]
+    count = float(s * reps)
+    return ((dmean / count).repeat_interleave(reps, 1).contiguous(),
+            (2.0 * dmeansq / count).repeat_interleave(reps, 1).contiguous())
+
+
+def group_norm_silu_backward_plain(x, dact, mean, meansq, scale, es, eb, *,
+                                   eps: float = 1e-6, apply_silu: bool = True,
+                                   stats_term: bool = True):
+    """Kernel F's function in PyTorch, fp32 arithmetic, one cast of dx: see
+    :func:`group_norm_silu_backward`."""
+    n, h, w, c = x.shape
+    xf = x.float()
+    e, b = es[:, None, None, :], eb[:, None, None, :]
+    dz = dact.float()
+    if apply_silu:
+        z = xf * e + b
+        sig = torch.sigmoid(z)
+        dz = dz * sig * (1.0 + z * (1.0 - sig))
+    dscale, dbias, dmean, dmeansq = _gn_bwd_terms(
+        (dz * xf).sum((1, 2)), dz.sum((1, 2)), mean, meansq, scale, es, eps)
+    dx = dz * e
+    if stats_term:
+        ca, cb = _gn_bwd_stats_coefs(dmean, dmeansq, c, h * w)
+        dx = dx + ca[:, None, None, :] + cb[:, None, None, :] * xf
+        dmean = dmeansq = None
+    return dx.to(x.dtype), dscale, dbias, dmean, dmeansq
+
+
+@on_tensor_device
+def _group_norm_silu_backward_kernel(x, dact, mean, meansq, scale, es, eb,
+                                     eps, apply_silu, stats_term):
+    """Kernel F: the reduce pass (one launch), the fold of its sums in
+    torch on (N, C) and (N, G) tensors, the apply pass (one launch), in
+    kernel A's plan."""
+    x = x.contiguous()
+    dact = dact.to(x.dtype).contiguous()
+    es, eb = (t.float().contiguous() for t in (es, eb))
+    n, h, w, c = x.shape
+    dx = torch.empty_like(x)
+    plan = _launch_plan(x, dact, dx)
+    stream = stream_of(x)
+    arrivals, scratch = _scratch(x, stream, 2 * n * plan.blocks * c)
+    p, q = (torch.empty(n, c, dtype=torch.float32, device=x.device)
+            for _ in range(2))
+    f = lib("groupnorm_silu_bwd")
+    geometry = (dtype_code(x), n, h * w, c, plan.vec, plan.rows, plan.blocks,
+                plan.strips, es.data_ptr(), eb.data_ptr())
+    check(f.vt_gn_bwd_reduce(x.data_ptr(), dact.data_ptr(), *geometry,
+                             int(bool(apply_silu)), scratch.data_ptr(),
+                             arrivals.data_ptr(), p.data_ptr(), q.data_ptr(),
+                             stream), "vt_gn_bwd_reduce")
+    dscale, dbias, dmean, dmeansq = _gn_bwd_terms(p, q, mean, meansq, scale,
+                                                  es, eps)
+    ca = cb = None
+    if stats_term:
+        ca, cb = _gn_bwd_stats_coefs(dmean, dmeansq, c, h * w)
+        dmean = dmeansq = None
+    check(f.vt_gn_bwd_apply(x.data_ptr(), dact.data_ptr(), *geometry,
+                            None if ca is None else ca.data_ptr(),
+                            None if cb is None else cb.data_ptr(),
+                            int(bool(apply_silu)), dx.data_ptr(), stream),
+          "vt_gn_bwd_apply")
+    return dx, dscale, dbias, dmean, dmeansq
+
+
+def group_norm_silu_backward(x, dact, mean, meansq, scale, es, eb, *,
+                             eps: float = 1e-6, apply_silu: bool = True,
+                             stats_term: bool = True):
+    """The backward of GroupNorm(+SiLU) of an NHWC tensor x, given the
+    cotangent ``dact`` of its output, its (N, G) fp32 statistics (mean,
+    E[x^2]) and their (N, C) effective affine ``es``, ``eb``: kernel F on a
+    CUDA tensor (it raises for what kernel A's plan refuses), else the
+    plain version.  Returns (dx in x's dtype, dscale, dbias (C,) fp32,
+    dmean, dmeansq (N, G) fp32).  With ``stats_term`` the statistics are
+    x's own and dx carries their gradient (dmean and dmeansq are None);
+    without, they are an input of their own (the height slabs' form) and dx
+    is the gradient at fixed statistics."""
+    if backend.use_kernel(x):
+        out = _group_norm_silu_backward_kernel(x, dact, mean, meansq, scale,
+                                               es, eb, eps, apply_silu,
+                                               stats_term)
+        backend.count_launch("group_norm_silu_bwd")
+        return out
+    return group_norm_silu_backward_plain(x, dact, mean, meansq, scale, es,
+                                          eb, eps=eps, apply_silu=apply_silu,
+                                          stats_term=stats_term)
+
+
+def group_norm_silu_vjp(g, x, mean, meansq, scale, bias, *, eps: float,
+                        apply_silu: bool = True, es=None, eb=None,
+                        stats_term: bool = True):
+    """The backward of :func:`group_norm_silu` (``stats_term``: the
+    statistics are x's own) or of :func:`group_norm_silu_from_stats`, as
+    the JAX package's jitted VJP computes it: no forward rerun, kernel F
+    fed the statistics the forward took (``es``/``eb`` the forward's
+    effective affine, else folded from mean and meansq here).  Returns
+    (dx, dmean, dmeansq, dscale, dbias), the statistics' None with
+    ``stats_term``, the scale's and bias's in their dtypes."""
+    if es is None:
+        es, eb = effective_affine(mean, meansq, scale, bias, x.shape[-1], eps)
+    dx, dscale, dbias, dmean, dmeansq = group_norm_silu_backward(
+        x, g, mean, meansq, scale, es, eb, eps=eps, apply_silu=apply_silu,
+        stats_term=stats_term)
+    return dx, dmean, dmeansq, dscale.to(scale.dtype), dbias.to(bias.dtype)
 
 
 def vjp_of_plain(plain, inputs, grads):
@@ -320,17 +515,20 @@ def vjp_of_plain(plain, inputs, grads):
 
 
 class _GroupNormSiLU(torch.autograd.Function):
-    """Forward: kernel A on a CUDA tensor, else the plain version; backward:
-    the VJP of the JAX package's reference form (GroupNorm's backward is
-    cheap next to the convs around it)."""
+    """Forward: kernel A on a CUDA tensor, which keeps its statistics for
+    the backward, else the plain version.  Backward on the kernel path:
+    :func:`group_norm_silu_vjp` (kernel F); else the VJP of the JAX
+    package's reference form, recomputed (:func:`vjp_of_plain`)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps, apply_silu):
         ctx.save_for_backward(x, scale, bias)
         ctx.args = (num_groups, eps, apply_silu)
+        ctx.stats = None
         if backend.use_kernel(x):
-            out = _group_norm_silu_kernel(x, scale, bias, num_groups, eps,
-                                          apply_silu)
+            out, ctx.stats = _group_norm_silu_kernel(x, scale, bias,
+                                                     num_groups, eps,
+                                                     apply_silu)
             backend.count_launch("group_norm_silu")
             return out
         return group_norm_silu_plain(x, scale, bias, num_groups=num_groups,
@@ -339,6 +537,13 @@ class _GroupNormSiLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         num_groups, eps, apply_silu = ctx.args
+        if ctx.stats is not None:
+            x, scale, bias = ctx.saved_tensors
+            mean, meansq, es, eb = ctx.stats
+            dx, _, _, dscale, dbias = group_norm_silu_vjp(
+                g, x, mean, meansq, scale, bias, eps=eps,
+                apply_silu=apply_silu, es=es, eb=eb)
+            return dx, dscale, dbias, None, None, None
 
         def plain(x, scale, bias):
             return group_norm_silu_reference(x, scale, bias,
@@ -387,24 +592,29 @@ def group_stats_with_grad(x, num_groups: int):
 
 class _GroupNormSiLUFromStats(torch.autograd.Function):
     """Forward: kernel A's apply pass on a CUDA tensor, else the plain
-    version; backward: the VJP of :func:`group_norm_silu_from_stats_plain`
-    with respect to x, the statistics, scale and bias."""
+    version.  Backward with respect to x, the statistics, scale and bias:
+    on the kernel path :func:`group_norm_silu_vjp` (kernel F, no statistics'
+    term in dx), else the VJP of :func:`group_norm_silu_from_stats_plain`."""
 
     @staticmethod
     def forward(ctx, x, mean, meansq, scale, bias, eps, apply_silu):
         ctx.save_for_backward(x, mean, meansq, scale, bias)
         ctx.args = (eps, apply_silu)
-        if backend.use_kernel(x):
-            out = _group_norm_silu_from_stats_kernel(x, mean, meansq, scale,
-                                                     bias, eps, apply_silu)
-            backend.count_launch("group_norm_silu")
-            return out
+        ctx.kernel = backend.use_kernel(x)
+        if ctx.kernel:
+            return group_norm_silu_apply(x, *effective_affine(
+                mean, meansq, scale, bias, x.shape[-1], eps),
+                apply_silu=apply_silu)
         return group_norm_silu_from_stats_plain(
             x, mean, meansq, scale, bias, eps=eps, apply_silu=apply_silu)
 
     @staticmethod
     def backward(ctx, g):
         eps, apply_silu = ctx.args
+        if ctx.kernel:
+            return group_norm_silu_vjp(
+                g, *ctx.saved_tensors, eps=eps, apply_silu=apply_silu,
+                stats_term=False) + (None,) * 2
 
         def plain(x, mean, meansq, scale, bias):
             return group_norm_silu_from_stats_plain(
