@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (vae_tagger_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--parent-tree DIR]
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and the repository checkout;
 imports nothing of JAX or of the JAX package.  Phases, each fatal on
@@ -50,9 +50,10 @@ failure (non-zero exit, no ``ok`` line):
    backward (``phase_kernel_f``), at the 22 GroupNorm sites of a train_full
    step (3 images at 1024px), the decoder's new sites and a spatial slab
    with given statistics: fp32 rel <= 1e-5 on every output, bf16 within 4x
-   the plain bf16 version's error, two launches bit-identical; timed beside
-   its bytes bound, the plain version and the autograd of F.group_norm +
-   F.silu;
+   the plain bf16 version's error, two launches bit-identical, exactly its
+   two kernels a call (torch.profiler); timed (timing loop and device
+   time) beside its bytes bound, the plain version and the autograd of
+   F.group_norm + F.silu;
 4. autograd on the card: the outputs of A, B'' and C'' on tensors that require
    a gradient carry a ``grad_fn``, and each op's gradients through the
    kernel path (the GroupNorm and fused-conv sites' backward: A's apply
@@ -98,7 +99,9 @@ failure (non-zero exit, no ``ok`` line):
    10 steps, fp32 over 4), images/s and peak memory, a profiler breakdown
    of one step of each by kernel (the rest by name pattern: cuDNN's
    forward conv, dgrad and wgrad, cuBLAS, the optimizer, torch's
-   elementwise), each again with the backward it replaced swapped in (the
+   elementwise; each call of kernel F's wrapper in a profiler range that
+   must hold exactly F's two kernels), each again with the backward it
+   replaced swapped in (the
    VJP of the plain version, recomputed: ``_recompute_backward``), and the
    count of cuDNN forward convolutions in a profiled step, which must equal
    the step's forward's alone (none for a fused site in the backward; the
@@ -210,6 +213,12 @@ failure (non-zero exit, no ``ok`` line):
    as the last line ``{"ok": true, "device": {...}}``.
 
 With ``--report PATH`` the full report is also written there as JSON.
+With ``--parent-tree DIR`` (a checkout of another commit, such as a ``git
+archive`` of the parent under build/archive/) that tree's kernel F is timed
+beside this one's in phase_kernel_f, and before the device breakdown
+``phase_parent_compare`` times kernel F's sites and the train_full and
+train_vae steps of both trees, each in a child process (``--measure-tree``),
+in the order parent, this, this, parent.
 """
 
 from __future__ import annotations
@@ -769,7 +778,116 @@ def _train_gn_sites():
     return out
 
 
-def phase_kernel_f(g, results):
+F_KERNELS = ("gn_bwd_reduce_kernel", "gn_bwd_apply_kernel")
+# the profiler range around each call of kernel F's wrapper
+F_RANGE = "chip_smoke: kernel F call"
+
+
+def _f_device(fn, reps=5):
+    """Device ms of one call of fn() (kernel F's wrapper) and the names of
+    the kernels each call launches, from torch.profiler: each of 1 + reps
+    calls in an F range of its own (_f_range_kernels), the first one, a
+    warm-up, left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(1 + reps):
+                with record_function(F_RANGE):
+                    fn()
+            torch.cuda.synchronize()
+        calls = _f_range_kernels(prof)[1:]
+        assert len(calls) == reps, len(calls)
+        if not any(_f_records_missing(names) for names, _ in calls):
+            break
+    return (sum(us for _, us in calls) / 1e3 / reps,
+            [names for names, _ in calls])
+
+
+def _f_inputs(g, n, h, w, c):
+    """Kernel F's inputs at one site: x, dAct, the GroupNorm scale and
+    bias, x's fp32 statistics and their effective affine (bf16-representable
+    values)."""
+    from vae_tagger_tpu_torch.ops.normalization import (
+        effective_affine,
+        group_stats_plain,
+    )
+
+    x = _rnd(g, n, h, w, c, shift=0.3)
+    d = _rnd(g, n, h, w, c)
+    gs = _rnd(g, c, scale=0.2, shift=1.0)
+    gb = _rnd(g, c, scale=0.1)
+    mean, meansq = group_stats_plain(x, GROUPS)
+    es, eb = effective_affine(mean, meansq, gs, gb, c, 1e-6)
+    return x, d, gs, gb, mean, meansq, es, eb
+
+
+def _f_cases():
+    """phase_kernel_f's sites: the train_full step's, the decoder's new
+    ones and a halo-extended slab of a 1024px image over two slabs (as
+    phase_spatial_kernels' first site, with given statistics)."""
+    return _train_gn_sites() + [(BATCH, RES // 2 + 1, RES, 128, True, 1,
+                                 "spatial slab")]
+
+
+def _f_site_times(g):
+    """Kernel F's timing loop (CUDA events) and device ms (torch.profiler)
+    summed over a step's calls at each group of _f_cases, and the kernels
+    one call launches, in bf16 and fp32: the measurement of phase_kernel_f,
+    made by this script's --measure-tree on another tree's package."""
+    import torch
+    from vae_tagger_tpu_torch.ops.normalization import (
+        group_norm_silu_backward,
+    )
+
+    tot = {}
+    for n, h, w, c, silu, sites, what in _f_cases():
+        x, d, gs, _, mean, meansq, es, eb = _f_inputs(g, n, h, w, c)
+        for dt in (torch.bfloat16, torch.float32):
+            xs, ds = x.to(dt), d.to(dt)
+
+            def fn(xs=xs, ds=ds, silu=silu, st=what != "spatial slab"):
+                return group_norm_silu_backward(
+                    xs, ds, mean, meansq, gs, es, eb, apply_silu=silu,
+                    stats_term=st)
+
+            ms = time_ms(fn)
+            dev_ms, calls = _f_device(fn)
+            t = tot.setdefault(f"{what}|{str(dt).removeprefix('torch.')}",
+                               dict(ms=0.0, device_ms=0.0))
+            t["ms"] += sites * ms
+            t["device_ms"] += sites * dev_ms
+            t["kernels_per_call"] = len(calls[-1])
+            del xs, ds
+        del x, d
+        torch.cuda.empty_cache()
+    return tot
+
+
+def _tree_child(tree, steps=None):
+    """This script's --measure-tree in a child process on the port's
+    package of ``tree`` (a checkout, such as a ``git archive`` of a parent
+    commit): kernel F's site times (_f_site_times) and, with ``steps`` (the
+    artifacts and data.json), the steady steps (_tree_steps).  Returns the
+    child's report, its last line."""
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--measure-tree",
+           str(tree)]
+    if steps is not None:
+        cmd += ["--steps", json.dumps(steps)]
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=1500)
+    for ln in run.stdout.splitlines()[:-1]:
+        log(f"    [{Path(tree).name}] {ln}")
+    if run.returncode != 0:
+        raise RuntimeError(f"--measure-tree {tree} failed:\n{run.stderr}")
+    return json.loads(run.stdout.splitlines()[-1])
+
+
+def phase_kernel_f(g, results, parent_tree=None):
     """Kernel F (GroupNorm(+SiLU) backward) against its plain version at
     every GroupNorm site shape of a train_full step at RES with TRAIN_ROWS
     images, at the decoder's new sites of a train_vae step, and on the
@@ -779,35 +897,30 @@ def phase_kernel_f(g, results):
     bf16 version's own error.  Timed in both dtypes, summed over a step's
     sites, beside its bytes bound, the plain version and autograd of
     F.group_norm + F.silu (the library's backward at the same shape); two
-    launches bit-identical at a 1024^2 and a 128^2 site."""
+    launches bit-identical at a 1024^2 and a 128^2 site.  Each call's device
+    time (torch.profiler) beside its timing loop, and the kernels it
+    launches: exactly F's two.  With ``parent_tree`` (a checkout of the
+    parent commit) the parent's F is timed the same way in a child process
+    (_tree_child) on the same card."""
     import torch
     import torch.nn.functional as F
     from vae_tagger_tpu_torch.ops.normalization import (
-        effective_affine,
         group_norm_silu_backward,
-        group_stats_plain,
     )
 
-    cases = _train_gn_sites()
-    # a halo-extended slab of a 1024px image over two slabs, as
-    # phase_spatial_kernels' first site
-    cases.append((BATCH, RES // 2 + 1, RES, 128, True, 1, "spatial slab"))
+    cases = _f_cases()
     n_sites = sum(c[5] for c in cases if c[6] == "train_full")
     log(f"kernel F: group_norm_silu_backward at the {n_sites} GroupNorm "
         f"sites of a train_full step ({TRAIN_ROWS} images at {RES}px), the "
         f"decoder's new sites and a spatial slab")
     chk = Check("group_norm_silu_bwd", tol32=1e-5)
-    tot = {(what, dt): dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0)
+    tot = {(what, dt): dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0,
+                            device_ms=0.0)
            for what in ("train_full", "train_vae decoder", "spatial slab")
            for dt in (torch.bfloat16, torch.float32)}
-    repeats = []
+    repeats, sites_log = [], []
     for n, h, w, c, silu, sites, what in cases:
-        x = _rnd(g, n, h, w, c, shift=0.3)
-        d = _rnd(g, n, h, w, c)
-        gs = _rnd(g, c, scale=0.2, shift=1.0)
-        gb = _rnd(g, c, scale=0.1)
-        mean, meansq = group_stats_plain(x, GROUPS)
-        es, eb = effective_affine(mean, meansq, gs, gb, c, 1e-6)
+        x, d, gs, gb, mean, meansq, es, eb = _f_inputs(g, n, h, w, c)
         xs, ds = _both(x), _both(d)
         stats_term = what != "spatial slab"
 
@@ -834,14 +947,27 @@ def phase_kernel_f(g, results):
                                            retain_graph=True)
 
             ms, plain_ms, library_ms = time_kernel(op, dt, library)
+            dev_ms, calls = _f_device(lambda dt=dt: op(dt))
+            # exactly F's two kernels a call: the fold runs inside the
+            # reduce pass, and no copy of x or dAct
+            kernels = calls[-1]
+            assert all(sorted(ks) == sorted(F_KERNELS) for ks in calls), (
+                label, dt, calls)
             t = tot[(what, dt)]
             t["ms"] += sites * ms
+            t["device_ms"] += sites * dev_ms
             t["plain_ms"] += sites * plain_ms
             t["library_ms"] += sites * library_ms
             # read x and dAct once, write dx once
-            t["nbytes"] += sites * 3 * x.numel() * xs[dt].element_size()
+            nbytes = 3 * x.numel() * xs[dt].element_size()
+            t["nbytes"] += sites * nbytes
+            sites_log.append(dict(case=label, dtype=str(dt), sites=sites,
+                                  ms=ms, device_ms=dev_ms,
+                                  bound_ms=nbytes / PEAK_BYTES * 1e3))
             log(f"  {label} {str(dt).removeprefix('torch.')} x{sites}: "
-                f"{ms:.4f} ms, plain {plain_ms:.4f}, F.group_norm"
+                f"{ms:.4f} ms (device {dev_ms:.4f}, bytes bound "
+                f"{nbytes / PEAK_BYTES * 1e3:.4f}; kernels a call "
+                f"{kernels}), plain {plain_ms:.4f}, F.group_norm"
                 f"{' + F.silu' if silu else ''} backward {library_ms:.4f}")
             if (h, c) in ((RES, 128), (RES // 8, 512)) and silu \
                     and what == "train_full":
@@ -858,26 +984,40 @@ def phase_kernel_f(g, results):
             2 if dt == torch.bfloat16 else 4), "float32")
         out[(what, dt)] = dict(t, bound_ms=b_ms, bound_by=b_by)
         log(f"  F, {what}, {str(dt).removeprefix('torch.')}: {t['ms']:.3f} "
-            f"ms; bound {b_ms:.3f} ms ({b_ms / t['ms']:.1%}); plain "
-            f"{t['plain_ms']:.3f}, library {t['library_ms']:.3f}")
+            f"ms (device {t['device_ms']:.3f}); bound {b_ms:.3f} ms "
+            f"({b_ms / t['ms']:.1%}; device {b_ms / t['device_ms']:.1%}); "
+            f"plain {t['plain_ms']:.3f}, library {t['library_ms']:.3f}")
+    parent = None
+    if parent_tree is not None:
+        log(f"  kernel F of the parent tree {parent_tree}, the same sites:")
+        parent = _tree_child(parent_tree)["f"]
+        for key, t in parent.items():
+            what, dt = key.split("|")
+            new = out[(what, getattr(torch, dt))]
+            log(f"  F, {what}, {dt}: parent {t['ms']:.3f} ms (device "
+                f"{t['device_ms']:.3f}, {t['kernels_per_call']} kernels a "
+                f"call) -> {new['ms']:.3f} (device {new['device_ms']:.3f})")
     bf = out[("train_full", torch.bfloat16)]
     f32 = out[("train_full", torch.float32)]
     results["group_norm_silu_bwd"] = dict(
         chk.summary(), ms=bf["ms"], plain_ms=bf["plain_ms"],
         library_ms=bf["library_ms"], bound_ms=bf["bound_ms"],
-        bound_by=bf["bound_by"], ms_fp32=f32["ms"],
+        bound_by=bf["bound_by"], device_ms=bf["device_ms"],
+        ms_fp32=f32["ms"], device_ms_fp32=f32["device_ms"],
         plain_ms_fp32=f32["plain_ms"], library_ms_fp32=f32["library_ms"],
         bound_ms_fp32=f32["bound_ms"], bit_identical_repeats=repeats,
+        kernels_per_call=len(F_KERNELS), sites=sites_log,
+        **({"parent": parent} if parent is not None else {}),
         decoder={k: out[("train_vae decoder", dt)][k.removesuffix("_fp32")]
                  for dt, sfx in ((torch.bfloat16, ""), (torch.float32,
                                                        "_fp32"))
-                 for k in (f"ms{sfx}", f"plain_ms{sfx}", f"library_ms{sfx}",
-                           f"bound_ms{sfx}")},
+                 for k in (f"ms{sfx}", f"device_ms{sfx}", f"plain_ms{sfx}",
+                           f"library_ms{sfx}", f"bound_ms{sfx}")},
         spatial={k: out[("spatial slab", dt)][k.removesuffix("_fp32")]
                  for dt, sfx in ((torch.bfloat16, ""), (torch.float32,
                                                        "_fp32"))
-                 for k in (f"ms{sfx}", f"plain_ms{sfx}", f"library_ms{sfx}",
-                           f"bound_ms{sfx}")},
+                 for k in (f"ms{sfx}", f"device_ms{sfx}", f"plain_ms{sfx}",
+                           f"library_ms{sfx}", f"bound_ms{sfx}")},
         library="autograd of F.group_norm (+ F.silu), channels_last",
         per=f"the 22 GroupNorm sites of a train_full step ({TRAIN_ROWS} "
             f"images at {RES}px), one call each; ms, plain_ms, library_ms "
@@ -1355,28 +1495,39 @@ def _pr1_group_norm_silu(x, gs, gb, apply_silu=True, num_groups=GROUPS,
     return out
 
 
+# profiler sessions a measurement may take when CUPTI hands back a session
+# with device records missing (seen on the card, rarely: a session with no
+# kernel at all, or one without its first kernel)
+PROFILE_ATTEMPTS = 3
+
+
 def _device_ms_by_kernel(fn, reps=10):
     """Device time of one call of fn() by kernel name, from torch.profiler
-    over ``reps`` calls after a warm-up call."""
+    over ``reps`` calls after a warm-up call; a session that recorded no
+    device work is taken again (PROFILE_ATTEMPTS)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", 0) or 0
-        if evt.device_type != DeviceType.CUDA or us <= 0:
-            continue
-        name = re.search(r"(\w+_kernel)", evt.key)
-        key = name.group(1) if name else evt.key[:60]
-        out[key] = out.get(key, 0.0) + us / 1e3 / reps
-    return out
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total", 0) or 0
+            if evt.device_type != DeviceType.CUDA or us <= 0:
+                continue
+            name = re.search(r"(\w+_kernel)", evt.key)
+            key = name.group(1) if name else evt.key[:60]
+            out[key] = out.get(key, 0.0) + us / 1e3 / reps
+        if out:
+            return out
+    raise RuntimeError(f"{PROFILE_ATTEMPTS} profiler sessions recorded no "
+                       f"device work")
 
 
 def _stats_shapes():
@@ -2276,9 +2427,11 @@ def _kernel_breakdown(prof):
 
     by_kernel, top, calls = {}, [], {}
     for evt in prof.key_averages():
-        # kernels only: an operator's row repeats its kernels' time
+        # kernels only: an operator's row repeats its kernels' time, and an
+        # F range's device-side annotation repeats F's
         us = getattr(evt, "self_device_time_total", 0) or 0
-        if evt.device_type != DeviceType.CUDA or us <= 0:
+        if (evt.device_type != DeviceType.CUDA or us <= 0
+                or evt.key == F_RANGE):
             continue
         top.append((us / 1e3, evt.key[:90]))
         label = next((v for k, v in names.items() if k in evt.key), None)
@@ -2537,27 +2690,121 @@ def _steady_step(state, batch, dtype, iters, first_index, steps=None):
         torch.cuda.max_memory_allocated(), steps
 
 
-def _profiled_step(steps, state, batch, index):
+@contextlib.contextmanager
+def _f_ranges():
+    """Every call of kernel F's wrapper (``normalization.
+    group_norm_silu_backward``, whose callers look it up by name) inside a
+    ``record_function`` range of its own, for the profiler; the port is
+    not changed."""
+    from torch.profiler import record_function
+    from vae_tagger_tpu_torch.ops import normalization
+
+    wrapper = normalization.group_norm_silu_backward
+
+    def ranged(*args, **kwargs):
+        with record_function(F_RANGE):
+            return wrapper(*args, **kwargs)
+
+    normalization.group_norm_silu_backward = ranged
+    try:
+        yield
+    finally:
+        normalization.group_norm_silu_backward = wrapper
+
+
+# CUDA runtime and driver calls that put work on the device
+DEVICE_WORK_CALLS = re.compile(r"^cu(da)?(Launch|Memcpy|Memset|GraphLaunch)")
+
+
+def _f_range_kernels(prof):
+    """[(kernel names, device us), ...] for each F range of a profile, in
+    the order the ranges began: the device work (kernels, copies, memsets)
+    launched while the range was open, found by time from the runtime's
+    launch calls and joined to the device's records by correlation id (a
+    launch through ctypes has no operator the profiler could link it to).
+    A launch with no device record counts by the runtime call's name."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    # (the device-side copy of a range, its GPU annotation, is no work)
+    device = {e.id: e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != F_RANGE}
+    calls = sorted((e for e in events if e.device_type == DeviceType.CPU
+                    and DEVICE_WORK_CALLS.match(e.name)),
+                   key=lambda e: e.time_range.start)
+    ranges = sorted((e for e in events if e.name == F_RANGE
+                     and e.device_type == DeviceType.CPU),
+                    key=lambda e: e.time_range.start)
+    out = []
+    for r in ranges:
+        names, us = [], 0.0
+        for call in calls:
+            if not r.time_range.start <= call.time_range.start \
+                    <= r.time_range.end:
+                continue
+            work = device.get(call.id)
+            if work is None:
+                names.append(call.name)
+                continue
+            m = re.search(r"\w+_kernel", work.name)
+            names.append(m.group(0) if m else work.name[:60])
+            us += work.time_range.elapsed_us()
+        out.append((names, us))
+    return out
+
+
+def _f_records_missing(names):
+    """Whether one F call's device work as profiled (_f_range_kernels)
+    differs from F's two kernels only as a profile that lost device records
+    can: at most two entries, each one of F's kernels or a launch call
+    whose kernel went unrecorded.  An entry of any other kernel, or a third
+    entry, is F's fault, never the profiler's."""
+    return (sorted(names) != sorted(F_KERNELS)
+            and len(names) <= len(F_KERNELS)
+            and all(n in F_KERNELS or DEVICE_WORK_CALLS.match(n)
+                    for n in names))
+
+
+def _profiled_step(steps, state, batch, index, f_calls=None):
     """Device time of one profiled train step by kernel, the kernel calls
-    by label, and the conv operators' calls (_conv_ops)."""
+    by label, and the conv operators' calls (_conv_ops).  With
+    ``f_calls``: the step calls kernel F's wrapper that often, and each
+    call launches exactly F's two kernels and nothing else (no fold in
+    torch, no copy of x or dAct)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        steps.train_step(state, batch, index)
-        torch.cuda.synchronize()
+    for attempt in range(PROFILE_ATTEMPTS):
+        ranges = _f_ranges() if f_calls else contextlib.nullcontext()
+        with ranges, profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+            steps.train_step(state, batch, index + attempt)
+            torch.cuda.synchronize()
+        if not f_calls or not any(_f_records_missing(ks) for ks, _ in
+                                  _f_range_kernels(prof)):
+            break
+        log("  the profile lost device records of kernel F: once more")
     by_kernel, top, calls = _kernel_breakdown(prof)
     convs = _conv_ops(prof)
     total_ms = sum(by_kernel.values())
     log(f"  one profiled step: {total_ms:.1f} ms of device time; conv "
         f"operators {convs}")
+    f_ranges = None
+    if f_calls:
+        f_ranges = _f_range_kernels(prof)
+        odd = [ks for ks, _ in f_ranges if sorted(ks) != sorted(F_KERNELS)]
+        log(f"  kernel F: {len(f_ranges)} calls in the step, "
+            f"{len(f_ranges) - len(odd)} of them exactly its two kernels")
+        assert len(f_ranges) == f_calls and not odd, (len(f_ranges),
+                                                      f_calls, odd[:3])
     for label, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
         log(f"    {label}: {ms:.2f} ms ({calls[label]} kernels)")
     for ms, key in top:
         log(f"    top kernel {ms:.2f} ms: {key}")
     return dict(profiled_step_ms=total_ms, device_ms_by_kernel=by_kernel,
-                kernel_calls=calls, top_kernels=top, conv_ops=convs)
+                kernel_calls=calls, top_kernels=top, conv_ops=convs,
+                **({"f_calls_two_kernels": len(f_ranges)} if f_ranges
+                   else {}))
 
 
 def _forward_conv_ops(steps, state, batch):
@@ -2629,7 +2876,7 @@ def _recompute_backward():
 
 
 def _step_before_after(state, batch, dtype, iters, first_index, steps=None,
-                       check_convs=False):
+                       check_convs=False, per_step=None):
     """The steady step (``_steady_step``: host clock over ``iters`` steps,
     peak memory) and one profiled step by kernel, first with the backward
     of kernel F, then with the recompute it replaced
@@ -2637,10 +2884,13 @@ def _step_before_after(state, batch, dtype, iters, first_index, steps=None,
     ``check_convs``: the profiled step runs cuDNN's forward convolution
     exactly as often as the step's forward alone (an eval step), so no
     fused site runs a forward conv in the backward; the recompute's step
-    runs one more a fused site."""
+    runs one more a fused site.  The profiled step with kernel F calls it
+    as often as ``per_step`` (TRAIN_STEP_LAUNCHES by default) counts, each
+    call exactly F's two kernels (_profiled_step)."""
     import torch
 
     key = "bf16" if dtype == torch.bfloat16 else "fp32"
+    f_calls = (per_step or TRAIN_STEP_LAUNCHES)[key]["group_norm_silu_bwd"]
     out = {}
     for when in ("after", "before"):
         ctx = (_recompute_backward() if when == "before"
@@ -2654,7 +2904,8 @@ def _step_before_after(state, batch, dtype, iters, first_index, steps=None,
                 f"(host clock, {iters} steps), peak device memory "
                 f"{peak / 2**30:.2f} GiB")
             prof = _profiled_step(steps, state, batch,
-                                  first_index + 1000 + iters)
+                                  first_index + 1000 + iters,
+                                  f_calls if when == "after" else None)
         out[when] = dict(prof, step_s=step_s, step_peak_mem_bytes=peak)
         first_index += 2 * iters + 2
     if check_convs:
@@ -2874,6 +3125,10 @@ def _vae_gradient_gate(art, batch):
                                      for k, (a, b) in absolute.items()})
 
 
+# train_vae's loss in phase_train_vae and _tree_steps
+VAE_LOSS = dict(reconstruction_weight=0.01, kl_weight=1e-2, triplet_weight=1.0)
+
+
 def phase_train_vae(art, json_path, batch):
     """``python -m vae_tagger_tpu_torch.train.train_vae`` for one epoch
     at 1024px, batch 1, in bf16 and then in fp32 (``--mixed_precision
@@ -2890,8 +3145,7 @@ def phase_train_vae(art, json_path, batch):
         f"full FLUX VAE with its decoder, {N_IMAGES} seeded {RES}px images, "
         f"batch 1 (B={TRAIN_ROWS} stacked encode, the anchor decoded), "
         f"bf16, then fp32")
-    cfg = LossConfig(reconstruction_weight=0.01, kl_weight=1e-2,
-                     triplet_weight=1.0)
+    cfg = LossConfig(**VAE_LOSS)
     report = {}
     for precision, dt, iters in (("bf16", torch.bfloat16, 5),
                                  ("no", torch.float32, 3)):
@@ -2912,7 +3166,8 @@ def phase_train_vae(art, json_path, batch):
         # TRAIN_ROWS encoded and 1 decoded a step
         step = _step_before_after(state, batch, dt, iters,
                                   6000 + 1000 * iters,
-                                  VaeSteps(cfg, compute_dtype=dt, seed=SEED))
+                                  VaeSteps(cfg, compute_dtype=dt, seed=SEED),
+                                  per_step=VAE_STEP_LAUNCHES)
         del step["steps"]
         report[key] = dict(rep, step_s=step["step_s"],
                            images_per_s=TRAIN_ROWS / step["step_s"],
@@ -5444,6 +5699,110 @@ def phase_spatial(art, json_path, batch, train_fp32_history):
     return report
 
 
+def _tree_steps(art, json_path):
+    """The steady train_full and train_vae steps at 1024px, batch 1, bf16
+    and fp32, on fresh states of the seeded weights (host clock and peak
+    memory, _steady_step; one profiled step's device ms by kernel,
+    _profiled_step): what --measure-tree measures of a tree's package."""
+    import torch
+    from vae_tagger_tpu_torch.data.dataset import TaggedImageDataset
+    from vae_tagger_tpu_torch.data.loader import DataLoader
+    from vae_tagger_tpu_torch.infer.engine import build_decoder
+    from vae_tagger_tpu_torch.io.checkpoints import load_decoder, load_vae
+    from vae_tagger_tpu_torch.losses.combined import LossConfig
+    from vae_tagger_tpu_torch.train.state import TrainState, build_optimizer
+    from vae_tagger_tpu_torch.train.steps import FullSteps, VaeSteps
+
+    dataset = TaggedImageDataset(json_path, art["tags"], RES, seed=SEED)
+    batch = next(iter(DataLoader(dataset, 1, shuffle=False, num_workers=1)))
+    out = {}
+    for trainer, runs in (("train_full", (("bf16", torch.bfloat16, 10),
+                                          ("fp32", torch.float32, 4))),
+                          ("train_vae", (("bf16", torch.bfloat16, 5),
+                                         ("fp32", torch.float32, 3)))):
+        full = trainer == "train_full"
+        for key, dt, iters in runs:
+            vae = load_vae(art["vae"], art["config"],
+                           with_decoder=not full).to(DEVICE).train()
+            head = (load_decoder(build_decoder(NUM_TAGS, True, None, 16,
+                                               SEED + 1, dtype=dt),
+                                 art["decoder"]).to(DEVICE).train()
+                    if full else None)
+            params = list(vae.parameters()) + (list(head.parameters())
+                                               if full else [])
+            state = TrainState(vae=vae, decoder=head,
+                               optimizer=build_optimizer(params,
+                                                         lambda count: 1e-6))
+            steps = (FullSteps(LossConfig(triplet_weight=1.0,
+                                          use_focal_loss=False),
+                               compute_dtype=dt, seed=SEED) if full else
+                     VaeSteps(LossConfig(**VAE_LOSS), compute_dtype=dt,
+                              seed=SEED))
+            step_s, peak, _ = _steady_step(state, batch, dt, iters, 1000,
+                                           steps)
+            log(f"  {trainer} {key}: steady step {step_s * 1e3:.1f} ms "
+                f"(host clock, {iters} steps), peak {peak / 2**30:.2f} GiB")
+            prof = _profiled_step(steps, state, batch, 2000)
+            out[f"{trainer}|{key}"] = dict(
+                step_ms=step_s * 1e3, peak_gib=peak / 2**30,
+                device_ms=prof["profiled_step_ms"],
+                device_ms_by_kernel=prof["device_ms_by_kernel"])
+            del state, vae, head, params, steps
+            torch.cuda.empty_cache()
+    return out
+
+
+def measure_tree(tree, steps=None):
+    """--measure-tree: kernel F's site times (_f_site_times) and, with
+    ``steps`` (JSON of the artifacts and data.json), the steady steps
+    (_tree_steps), of the port's package in the checkout ``tree``; prints
+    them as one JSON line, the last."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+    from vae_tagger_tpu_torch.ops import _build
+
+    where = Path(_build.__file__).resolve()
+    assert where.is_relative_to(Path(tree).resolve()), where
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    report = {"tree": str(tree)}
+    with torch.no_grad():
+        report["f"] = _f_site_times(torch.Generator().manual_seed(SEED + 15))
+    if steps is not None:
+        report["steps"] = _tree_steps(**json.loads(steps))
+    print(json.dumps(report), flush=True)
+
+
+def phase_parent_compare(art, json_path, parent_tree):
+    """With --parent-tree: kernel F's site times and the steady train_full
+    and train_vae steps, bf16 and fp32, of the parent tree's package and of
+    this one's, each in a child process (_tree_child) on the same card, in
+    the order parent, this, this, parent."""
+    log(f"parent tree {parent_tree} against this tree: kernel F and the "
+        f"training steps, in the order parent, this, this, parent")
+    runs = []
+    for tree in (parent_tree, ROOT, ROOT, parent_tree):
+        rep = _tree_child(tree, dict(art=art, json_path=json_path))
+        runs.append(dict(rep, which="this" if tree == ROOT else "parent"))
+
+    def both(part, key, metric):
+        return {w: [r[part][key][metric] for r in runs if r["which"] == w]
+                for w in ("parent", "this")}
+
+    summary = {}
+    for part, metrics in (("f", ("ms", "device_ms")),
+                          ("steps", ("step_ms", "device_ms", "peak_gib"))):
+        for key in runs[0][part]:
+            for metric in metrics:
+                got = both(part, key, metric)
+                summary[f"{part}|{key}|{metric}"] = got
+                log(f"  {part} {key} {metric}: parent "
+                    f"{', '.join(f'{v:.3f}' for v in got['parent'])}; this "
+                    f"{', '.join(f'{v:.3f}' for v in got['this'])}")
+    return dict(runs=runs, summary=summary)
+
+
 def _image_size(path):
     """(width, height) of an image file, from its header."""
     from PIL import Image
@@ -5469,7 +5828,20 @@ def main():
                              "gloo ranks (under torch.distributed.run)")
     parser.add_argument("--dp-nccl", type=Path, default=None,
                         help="run phase_data_parallel's one NCCL rank")
+    parser.add_argument("--parent-tree", type=Path, default=None,
+                        help="a checkout of the parent commit (e.g. a git "
+                             "archive under build/archive/): time its "
+                             "kernel F beside this tree's, and its training "
+                             "steps (phase_parent_compare)")
+    parser.add_argument("--measure-tree", type=Path, default=None,
+                        help="only measure the port's package in this "
+                             "checkout (a child process of --parent-tree)")
+    parser.add_argument("--steps", default=None,
+                        help="with --measure-tree: JSON of the artifacts "
+                             "and data.json; time the training steps too")
     args = parser.parse_args()
+    if args.measure_tree is not None:
+        return measure_tree(args.measure_tree, args.steps)
     if args.device_breakdown:
         print(json.dumps(device_breakdown()))
         return
@@ -5478,6 +5850,7 @@ def main():
     if args.dp_nccl is not None:
         return dp_nccl(args.dp_nccl)
 
+    t_start = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_card()
@@ -5497,7 +5870,7 @@ def main():
     with torch.no_grad():
         phase_kernel_de(g, results)
         torch.cuda.empty_cache()
-        phase_kernel_f(g, results)
+        phase_kernel_f(g, results, args.parent_tree)
     torch.cuda.empty_cache()
     report["autograd"] = phase_autograd(g)
     torch.cuda.empty_cache()
@@ -5530,6 +5903,12 @@ def main():
     torch.cuda.empty_cache()
     report["spatial"] = phase_spatial(art, json_path, batch,
                                       report["training"]["fp32"]["history"])
+    if args.parent_tree is not None:
+        log(f"{time.perf_counter() - t_start:.1f} s before the parent "
+            f"tree's phase")
+        torch.cuda.empty_cache()
+        report["parent_compare"] = phase_parent_compare(art, json_path,
+                                                        args.parent_tree)
     shutil.rmtree(WORK, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_device_breakdown(results)
@@ -5636,6 +6015,8 @@ def main():
                else {}),
             **({"spatial": r["spatial"]} if "spatial" in r else {})))
     report["kernel_line"] = kernels
+    report["wall_s"] = time.perf_counter() - t_start
+    log(f"{report['wall_s']:.1f} s in all")
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1, default=str))

@@ -194,6 +194,14 @@ def _gn_bwd_inputs(gen, shape, groups):
     ((2, 9, 11, 300), 3),
     # C = 4,096: two strips of 256 bf16 vectors, four of fp32 ones
     ((2, 5, 7, 4096), 32),
+    # N = 5: the fold over samples sums more than two rows
+    ((5, 9, 13, 96), 8),
+    # S below one span, C = 36 and C = 300 (one element a thread in bf16)
+    ((2, 3, 5, 36), 4),
+    ((2, 1, 3, 300), 3),
+    # 17 (bf16) and 34 (fp32) spans a sample: the fold's groups of 16
+    # spans, the last one ragged
+    ((2, 64, 67, 32), 8),
 ])
 @pytest.mark.parametrize("silu", [True, False])
 @pytest.mark.parametrize("stats_term", [True, False])
@@ -236,6 +244,42 @@ def test_group_norm_silu_backward_kernel_misaligned_and_repeats(gen):
     for dt in (torch.bfloat16, torch.float32):
         first, second = op(dt), op(dt)
         assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("stats_term", [True, False])
+def test_group_norm_silu_backward_is_two_kernels_bit_for_bit(gen, dtype,
+                                                             stats_term):
+    """One call of kernel F at N = 5 (16-byte vectors) launches exactly its
+    two kernels, the reduce pass with its fold and the apply pass, and no
+    other kernel (torch.profiler); two calls on the same inputs are
+    bit-identical."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, d, sc, mean, meansq, es, eb = _gn_bwd_inputs(gen, (5, 17, 19, 128),
+                                                    32)
+
+    def op():
+        return tuple(t for t in group_norm_silu_backward(
+            x.to(dtype), d.to(dtype), mean, meansq, sc, es, eb,
+            stats_term=stats_term) if t is not None)
+
+    xs, ds = x.to(dtype), d.to(dtype)
+    first = op()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = group_norm_silu_backward(xs, ds, mean, meansq, sc, es, eb,
+                                          stats_term=stats_term)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in sorted(prof.events(),
+                                      key=lambda e: e.time_range.start)
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 2, kernels
+    assert "gn_bwd_reduce_kernel" in kernels[0], kernels
+    assert "gn_bwd_apply_kernel" in kernels[1], kernels
+    second = tuple(t for t in second if t is not None)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("variant", ["plain", "residual", "shortcut"])

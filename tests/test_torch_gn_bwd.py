@@ -22,7 +22,12 @@ against the JAX package:
   ``group_norm_silu_plain`` (statistics of x's own);
 - the four autograd Functions' kernel-path backward, with the launches
   stood in by their plain versions, against ``jax.vjp``, and its launches:
-  F once a site, A's apply pass once a fused site, no forward conv.
+  F once a site, A's apply pass once a fused site, no forward conv;
+- kernel F's plan (``gn_plan`` at F's own blocks an SM, ``_f_plan``): the
+  rows its threads walk, forward in the reduce pass and from the last in
+  the apply pass, cover every (row, channel) once; one wave at most; the
+  plan passes ``csrc/gn_plan.cuh::check_plan``'s rules; the resident count
+  is read from the runtime once a variant.
 
 Inputs come from a seeded numpy generator at N=2, 7x6, 32 channels to 32
 or 48, 8 groups.
@@ -47,7 +52,9 @@ from vae_tagger_tpu_torch.ops.conv import (
     gn_silu_conv3x3_vjp,
 )
 from vae_tagger_tpu_torch.ops.normalization import (
+    GN_THREADS,
     effective_affine,
+    gn_plan,
     group_norm_silu,
     group_norm_silu_backward_plain,
     group_norm_silu_from_stats,
@@ -330,3 +337,132 @@ def test_functions_take_the_structured_backward(kernel_path, form):
     if form == "fused":
         expect["group_stats"] = 1
     assert counts == expect
+
+
+# --------------------------------------------------------------------------
+# kernel F's plan
+# --------------------------------------------------------------------------
+
+def _check_plan(n, s, c, itemsize, plan, aligned):
+    """csrc/gn_plan.cuh::check_plan's rules, in order: True where the
+    kernels take the plan."""
+    if n <= 0 or n > 65535 or s <= 0 or c <= 0 or plan.rows <= 0 \
+            or plan.blocks <= 0:
+        return False
+    if plan.blocks * plan.rows < s or (plan.blocks - 1) * plan.rows >= s:
+        return False
+    if plan.vec != 1 and (plan.vec != 16 // itemsize or c % plan.vec
+                          or not aligned):
+        return False
+    slots = c // plan.vec
+    strip = min(slots, GN_THREADS)
+    if plan.strips != -(-slots // strip) or plan.strips > 65535:
+        return False
+    return plan.blocks * plan.strips <= 1 << 30
+
+
+def _walks(plan, s, c):
+    """How often the plan's threads visit each (row, channel) of a sample,
+    as csrc/gn_plan.cuh::geo places them and csrc/groupnorm_silu_bwd.cu's
+    Rows walks them: thread (row, lane) of block (p, z) takes rows r0 +
+    row + k * rows_par, k < cnt, of span [p * rows, min((p + 1) * rows, S));
+    the apply pass walks them from k = cnt - 1, which must be the same rows
+    backward."""
+    slots = c // plan.vec
+    strip = min(slots, GN_THREADS)
+    rows_par = GN_THREADS // strip
+    visits = np.zeros((s, c), np.int64)
+    for z in range(plan.strips):
+        nslot = min(strip, slots - z * strip)
+        for t in range(GN_THREADS):
+            lane, row = t % strip, t // strip
+            if row >= rows_par or lane >= nslot:
+                continue
+            ch = (z * strip + lane) * plan.vec
+            for p in range(plan.blocks):
+                r0, r1 = p * plan.rows, min((p + 1) * plan.rows, s)
+                cnt = max(0, -(-(r1 - r0 - row) // rows_par))
+                fwd = [r0 + row + k * rows_par for k in range(cnt)]
+                back = [r0 + row + (cnt - 1 - k) * rows_par
+                        for k in range(cnt)]
+                assert back == fwd[::-1] and all(r < r1 for r in fwd)
+                visits[fwd, ch:ch + plan.vec] += 1
+    return visits
+
+
+# (N, S, C, itemsize, aligned): ragged S, C = 36 (one element a thread in
+# bf16, 4-wide vectors in fp32), 300 (two strips of single elements in
+# bf16), 4096 (two and four strips of vectors), N up to 5, S below one span
+F_PLAN_CASES = [
+    (5, 9 * 13, 96, 2, True),
+    (5, 9 * 13, 96, 4, False),
+    (2, 3 * 5, 36, 2, True),
+    (2, 3 * 5, 36, 4, True),
+    (2, 3, 300, 2, True),
+    (3, 1037, 300, 4, True),
+    (1, 35, 4096, 2, True),
+    (4, 35, 4096, 4, True),
+    (5, 4097, 128, 2, True),
+]
+
+
+@pytest.mark.parametrize("resident", [1, 3, 4])
+@pytest.mark.parametrize("n,s,c,itemsize,aligned", F_PLAN_CASES)
+def test_f_plan_walks_every_row_once(n, s, c, itemsize, aligned, resident):
+    """At F's own blocks an SM the plan passes check_plan, and the rows its
+    threads walk (forward and backward) cover every (row, channel) of a
+    sample exactly once, on a few SMs (many spans a sample) and on 132."""
+    for sms in (3, 132):
+        plan = gn_plan(n, s, c, itemsize, aligned, sms, resident)
+        assert _check_plan(n, s, c, itemsize, plan, aligned), plan
+        assert (_walks(plan, s, c) == 1).all(), plan
+
+
+@pytest.mark.parametrize("resident", [1, 2, 3, 4])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_f_plan_is_one_wave(itemsize, resident):
+    """At most one wave of ``resident`` blocks an SM at the GroupNorm sites
+    of a train_full step (3 images at 1024px), the decoder's (batch 1) and
+    a slab's (4 images, 513 x 1024), the ragged cases above included, and
+    a full one where a sample's rows allow: every block streams one span."""
+    sites = [(3, hw * hw, c) for hw, c in ((1024, 128), (512, 128),
+                                           (512, 256), (256, 256),
+                                           (256, 512), (128, 512))]
+    sites += [(1, 512 * 512, 512), (1, 1024 * 1024, 256), (4, 513 * 1024, 128)]
+    sites += [(n, s, c) for n, s, c, _, _ in F_PLAN_CASES]
+    for n, s, c in sites:
+        plan = gn_plan(n, s, c, itemsize, True, 132, resident)
+        wave = 132 * resident
+        assert _check_plan(n, s, c, itemsize, plan, True)
+        assert n * plan.blocks * plan.strips <= max(wave, n * plan.strips)
+        if s >= 64 * 1024:  # long samples fill the wave to a block a span
+            assert n * plan.blocks * plan.strips > wave * 0.9, (n, s, c)
+
+
+def test_f_plan_reads_the_resident_count_once(monkeypatch):
+    """_f_plan asks the runtime (vt_gn_bwd_blocks_per_sm) once a variant
+    (device, dtype, vector, SiLU) and sizes the grid to one wave of what it
+    answered; 16-byte vectors only where every tensor is aligned."""
+    import ctypes
+
+    asked = []
+
+    class Lib:
+        @staticmethod
+        def vt_gn_bwd_blocks_per_sm(dtype, vec, silu, out):
+            asked.append((dtype, vec, silu))
+            ctypes.c_int.from_address(out).value = 2 + silu
+            return 0
+
+    monkeypatch.setattr(normalization, "lib", lambda stem: Lib)
+    monkeypatch.setattr(normalization, "_F_RESIDENT", {})
+    monkeypatch.setitem(normalization._SMS, None, 132)
+    x = torch.zeros(3, 64, 64, 128, dtype=torch.bfloat16)
+    off = torch.zeros(1 + x.numel(), dtype=torch.bfloat16)[1:].view(x.shape)
+    for _ in range(2):
+        plans = [normalization._f_plan(x, silu, x) for silu in (True, False)]
+    plan_off = normalization._f_plan(x, True, off)
+    assert asked == [(1, 8, 1), (1, 8, 0), (1, 1, 1)]
+    for plan, resident in zip(plans, (3, 2)):
+        assert plan == gn_plan(3, 64 * 64, 128, 2, True, 132, resident)
+    assert plan_off.vec == 1

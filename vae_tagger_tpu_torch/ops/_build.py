@@ -52,8 +52,10 @@ SIGNATURES = {
                             _I, _P],
     },
     "groupnorm_silu_bwd": {
-        "vt_gn_bwd_reduce": [_P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P,
-                             _I, _P, _P, _P, _P, _P],
+        "vt_gn_bwd_blocks_per_sm": [_I, _I, _I, _P],
+        "vt_gn_bwd_reduce": [_P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I, _P,
+                             _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P],
         "vt_gn_bwd_apply": [_P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P,
                             _P, _P, _I, _P, _P],
     },

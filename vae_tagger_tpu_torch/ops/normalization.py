@@ -16,9 +16,11 @@ serves three wrappers here:
 - :func:`group_norm_silu_apply`: the apply pass alone, from a given
   effective affine.
 
-Kernel F (``csrc/groupnorm_silu_bwd.cu``, in A's plan) is the backward:
+Kernel F (``csrc/groupnorm_silu_bwd.cu``, in A's span and strip rules on a
+grid of its own, :func:`_f_plan`) is the backward:
 :func:`group_norm_silu_backward` gives dx and the gradients of the scale,
-the bias and, where they are an input of their own, the statistics.
+the bias and, where they are an input of their own, the statistics, in two
+launches: the reduce pass folds its sums into every gradient but dx.
 
 :func:`group_norm_silu` is a ``torch.autograd.Function``.  On the kernel
 path its forward keeps the statistics and its backward is
@@ -48,6 +50,7 @@ the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -165,54 +168,69 @@ class GNPlan(NamedTuple):
     strips: int
 
 
-def gn_plan(n: int, s: int, c: int, itemsize: int, aligned: bool,
-            sms: int = 132) -> GNPlan:
-    """The plan of kernel A on ``sms`` SMs: 16-byte vectors where C allows
-    and the data is 16-byte aligned, else one element a thread; spans of
-    whole unrolled steps, at most GN_BLOCKS_PER_SM blocks an SM in all (one
-    wave), so that every block streams one long contiguous span.  ``blocks`` is
-    ceil(S / rows): the spans cover every row exactly once."""
+def gn_vec(c: int, itemsize: int, aligned: bool) -> int:
+    """Channels a thread of kernels A and F: one 16-byte vector where C
+    allows and the data is 16-byte aligned, else one element."""
     vec = 16 // itemsize
-    if not aligned or c % vec:
-        vec = 1
+    return vec if aligned and c % vec == 0 else 1
+
+
+def gn_plan(n: int, s: int, c: int, itemsize: int, aligned: bool,
+            sms: int = 132, blocks_per_sm: int = GN_BLOCKS_PER_SM) -> GNPlan:
+    """The plan of kernel A (and, at its own ``blocks_per_sm``, of kernel F:
+    :func:`_f_plan`) on ``sms`` SMs: :func:`gn_vec` channels a thread;
+    spans of whole unrolled steps, at most ``blocks_per_sm`` blocks an SM in
+    all (one wave), so that every block streams one long contiguous span.
+    ``blocks`` is ceil(S / rows): the spans cover every row exactly once."""
+    vec = gn_vec(c, itemsize, aligned)
     slots = c // vec
     strip = min(slots, GN_THREADS)
     strips = -(-slots // strip)
     step = (GN_THREADS // strip) * GN_UNROLL
-    per_sample = max(1, sms * GN_BLOCKS_PER_SM // (n * strips))
+    per_sample = max(1, sms * blocks_per_sm // (n * strips))
     rows = -(-s // per_sample)
     rows = -(-rows // step) * step
     return GNPlan(vec, rows, -(-s // rows), strips)
 
 
 _SMS: dict = {}
-# per (device, stream): [arrival counters (int32, one a sample, 0 between
-# launches), fp32 scratch for what a launch writes and no caller keeps]
+# per (device, stream): [arrival counters (int32, 0 between launches: A's
+# one a sample; F's one a (sample, group of spans), one a sample and one over
+# the samples), fp32 scratch for what a launch writes and no caller keeps]
 _SCRATCH: dict = {}
 
 
-def _launch_plan(x, *others) -> GNPlan:
-    """The plan of a launch over x; 16-byte vectors only where x and every
-    other tensor of the launch are 16-byte aligned."""
-    dev = x.device.index
+def _sms(dev) -> int:
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _launch_plan(x, *others) -> GNPlan:
+    """The plan of a launch of kernel A over x; 16-byte vectors only where
+    x and every other tensor of the launch are 16-byte aligned."""
     n, h, w, c = x.shape
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others))
-    return gn_plan(n, h * w, c, x.element_size(), aligned, _SMS[dev])
+    return gn_plan(n, h * w, c, x.element_size(), _aligned(x, *others),
+                   _sms(x.device.index))
 
 
-def _scratch(x, stream: int, floats: int):
-    """The arrival counters and at least ``floats`` of scratch for x's
-    device and stream.  Launches on one stream run in order, so each may
-    reuse what the last one wrote; the counters are zeros once and every
-    launch leaves them so (its last block resets them)."""
+def _scratch(x, stream: int, floats: int, counters: int = 0):
+    """At least ``counters`` arrival counters (one a sample of x if fewer)
+    and ``floats`` of scratch for x's device and stream.  Launches on one
+    stream run in order, so each may reuse what the last one wrote; the
+    counters are zeros once and every launch leaves them so (the blocks
+    that arrive last reset them)."""
     key = (x.device, stream)
     entry = _SCRATCH.get(key)
     if entry is None:
         entry = _SCRATCH[key] = [None, None]
-    if entry[0] is None or entry[0].numel() < x.shape[0]:
-        entry[0] = torch.zeros(max(x.shape[0], 64), dtype=torch.int32,
+    counters = max(counters, x.shape[0])
+    if entry[0] is None or entry[0].numel() < counters:
+        entry[0] = torch.zeros(max(counters, 64), dtype=torch.int32,
                                device=x.device)
     if entry[1] is None or entry[1].numel() < floats:
         entry[1] = torch.empty(floats, dtype=torch.float32, device=x.device)
@@ -371,7 +389,8 @@ def _gn_bwd_terms(p, q, mean, meansq, scale, es, eps):
     """Fold the per-(sample, channel) sums P = sum dz * x and Q = sum dz
     into the gradients of the GroupNorm scale and bias (C,) and of the
     statistics (N, G), fp32, through es = scale * rstd and eb = bias - mean
-    * es, rstd = rsqrt(meansq - mean^2 + eps) (the kernels' form)."""
+    * es, rstd = rsqrt(meansq - mean^2 + eps) (the kernels' form).  The
+    plain version's fold; kernel F folds the same way in its reduce pass."""
     n, c = p.shape
     groups = mean.shape[-1]
     reps = c // groups
@@ -421,41 +440,84 @@ def group_norm_silu_backward_plain(x, dact, mean, meansq, scale, es, eb, *,
     return dx.to(x.dtype), dscale, dbias, dmean, dmeansq
 
 
+# per (device, dtype code, vector, SiLU): the blocks an SM kernel F's two
+# passes keep resident, read from the CUDA runtime at first use
+_F_RESIDENT: dict = {}
+# spans of a sample that one block of F's reduce pass sums, in the first of
+# the fold's two levels
+F_GROUP_SPANS = 16
+
+
+def _f_plan(x, apply_silu: bool, *others) -> GNPlan:
+    """Kernel F's plan over x: :func:`gn_plan`'s spans and strips on a grid
+    of one wave at the blocks an SM F's kernels keep resident (its own
+    registers and ring, not kernel A's GN_BLOCKS_PER_SM), so that the apply
+    pass finds every span's last rows in L2."""
+    dev = x.device.index
+    n, h, w, c = x.shape
+    aligned = _aligned(x, *others)
+    key = (dev, dtype_code(x), gn_vec(c, x.element_size(), aligned),
+           bool(apply_silu))
+    if key not in _F_RESIDENT:
+        got = ctypes.c_int(0)
+        check(lib("groupnorm_silu_bwd").vt_gn_bwd_blocks_per_sm(
+            key[1], key[2], int(key[3]), ctypes.addressof(got)),
+            "vt_gn_bwd_blocks_per_sm")
+        _F_RESIDENT[key] = got.value
+    return gn_plan(n, h * w, c, x.element_size(), aligned, _sms(dev),
+                   _F_RESIDENT[key])
+
+
 @on_tensor_device
 def _group_norm_silu_backward_kernel(x, dact, mean, meansq, scale, es, eb,
                                      eps, apply_silu, stats_term):
-    """Kernel F: the reduce pass (one launch), the fold of its sums in
-    torch on (N, C) and (N, G) tensors, the apply pass (one launch), in
-    kernel A's plan."""
+    """Kernel F: the reduce pass, which folds its sums into dscale, dbias
+    and the statistics' gradients (or dx's statistics' term), then the
+    apply pass: two launches in F's plan (:func:`_f_plan`)."""
     x = x.contiguous()
     dact = dact.to(x.dtype).contiguous()
-    es, eb = (t.float().contiguous() for t in (es, eb))
+    es, eb, mean, meansq, scale = (t.float().contiguous() for t in (
+        es, eb, mean, meansq, scale))
     n, h, w, c = x.shape
+    groups = mean.shape[-1]
     dx = torch.empty_like(x)
-    plan = _launch_plan(x, dact, dx)
+    plan = _f_plan(x, apply_silu, dact, dx)
     stream = stream_of(x)
-    arrivals, scratch = _scratch(x, stream, 2 * n * plan.blocks * c)
-    p, q = (torch.empty(n, c, dtype=torch.float32, device=x.device)
-            for _ in range(2))
+    # the fold's (P, Q) pairs of the spans and of the groups of spans, the
+    # groups' terms and the samples' rows (float2 each), then dx's
+    # statistics' term ca, cb; 16-byte aligned.  Counters: one a (sample,
+    # group of spans), one a sample, one over the samples.
+    span_groups = -(-plan.blocks // F_GROUP_SPANS)
+    offs = [0]
+    for size in (2 * n * plan.blocks * c, 2 * n * span_groups * c, 2 * n * c,
+                 2 * n * c, n * c, n * c):
+        offs.append(offs[-1] + -(-size // 4) * 4)
+    arrivals, scratch = _scratch(x, stream, offs[-1],
+                                 n * span_groups + n + 1)
+    partial, group_sums, terms, rows, ca, cb = (scratch.data_ptr() + 4 * o
+                                                for o in offs[:-1])
+    grads = torch.empty(2, c, dtype=torch.float32, device=x.device)
+    dmean = dmeansq = None
+    if not stats_term:  # the statistics' gradients out, no term in dx
+        dmean, dmeansq = torch.empty(2, n, groups, dtype=torch.float32,
+                                     device=x.device)
+        ca = cb = None
     f = lib("groupnorm_silu_bwd")
-    geometry = (dtype_code(x), n, h * w, c, plan.vec, plan.rows, plan.blocks,
-                plan.strips, es.data_ptr(), eb.data_ptr())
-    check(f.vt_gn_bwd_reduce(x.data_ptr(), dact.data_ptr(), *geometry,
-                             int(bool(apply_silu)), scratch.data_ptr(),
-                             arrivals.data_ptr(), p.data_ptr(), q.data_ptr(),
-                             stream), "vt_gn_bwd_reduce")
-    dscale, dbias, dmean, dmeansq = _gn_bwd_terms(p, q, mean, meansq, scale,
-                                                  es, eps)
-    ca = cb = None
-    if stats_term:
-        ca, cb = _gn_bwd_stats_coefs(dmean, dmeansq, c, h * w)
-        dmean = dmeansq = None
-    check(f.vt_gn_bwd_apply(x.data_ptr(), dact.data_ptr(), *geometry,
-                            None if ca is None else ca.data_ptr(),
-                            None if cb is None else cb.data_ptr(),
-                            int(bool(apply_silu)), dx.data_ptr(), stream),
-          "vt_gn_bwd_apply")
-    return dx, dscale, dbias, dmean, dmeansq
+    head = (x.data_ptr(), dact.data_ptr(), dtype_code(x), n, h * w, c)
+    plan_args = (plan.vec, plan.rows, plan.blocks, plan.strips,
+                 es.data_ptr(), eb.data_ptr())
+    silu = int(bool(apply_silu))
+    check(f.vt_gn_bwd_reduce(
+        *head, groups, *plan_args, mean.data_ptr(), meansq.data_ptr(),
+        scale.data_ptr(), float(eps), silu, F_GROUP_SPANS, partial,
+        group_sums, terms, rows, arrivals.data_ptr(), grads[0].data_ptr(),
+        grads[1].data_ptr(), ca, cb,
+        *(None, None) if stats_term else (dmean.data_ptr(),
+                                          dmeansq.data_ptr()),
+        stream), "vt_gn_bwd_reduce")
+    check(f.vt_gn_bwd_apply(*head, *plan_args, ca, cb, silu, dx.data_ptr(),
+                            stream), "vt_gn_bwd_apply")
+    return dx, grads[0], grads[1], dmean, dmeansq
 
 
 def group_norm_silu_backward(x, dact, mean, meansq, scale, es, eb, *,
