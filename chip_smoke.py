@@ -783,6 +783,16 @@ F_KERNELS = ("gn_bwd_reduce_kernel", "gn_bwd_apply_kernel")
 F_RANGE = "chip_smoke: kernel F call"
 
 
+def _annotation(evt):
+    """Whether a device-side profiler record is a range's GPU annotation (an
+    F range's, or one of the port's own ``vt:`` spans), which repeats the
+    device time of the work inside the range and is no work of its own."""
+    from vae_tagger_tpu_torch.utils.profiling import PREFIX
+
+    return (getattr(evt, "is_user_annotation", False)
+            or evt.key == F_RANGE or evt.key.startswith(PREFIX))
+
+
 def _f_device(fn, reps=5):
     """Device ms of one call of fn() (kernel F's wrapper) and the names of
     the kernels each call launches, from torch.profiler: each of 1 + reps
@@ -1519,7 +1529,8 @@ def _device_ms_by_kernel(fn, reps=10):
         out = {}
         for evt in prof.key_averages():
             us = getattr(evt, "self_device_time_total", 0) or 0
-            if evt.device_type != DeviceType.CUDA or us <= 0:
+            if evt.device_type != DeviceType.CUDA or us <= 0 \
+                    or _annotation(evt):
                 continue
             name = re.search(r"(\w+_kernel)", evt.key)
             key = name.group(1) if name else evt.key[:60]
@@ -2427,11 +2438,11 @@ def _kernel_breakdown(prof):
 
     by_kernel, top, calls = {}, [], {}
     for evt in prof.key_averages():
-        # kernels only: an operator's row repeats its kernels' time, and an
-        # F range's device-side annotation repeats F's
+        # kernels only: an operator's row repeats its kernels' time, and a
+        # range's device-side annotation those of the work inside it
         us = getattr(evt, "self_device_time_total", 0) or 0
         if (evt.device_type != DeviceType.CUDA or us <= 0
-                or evt.key == F_RANGE):
+                or _annotation(evt)):
             continue
         top.append((us / 1e3, evt.key[:90]))
         label = next((v for k, v in names.items() if k in evt.key), None)
@@ -2728,7 +2739,7 @@ def _f_range_kernels(prof):
     events = prof.events()
     # (the device-side copy of a range, its GPU annotation, is no work)
     device = {e.id: e for e in events if e.device_type == DeviceType.CUDA
-              and e.name != F_RANGE}
+              and not _annotation(e)}
     calls = sorted((e for e in events if e.device_type == DeviceType.CPU
                     and DEVICE_WORK_CALLS.match(e.name)),
                    key=lambda e: e.time_range.start)
@@ -4229,7 +4240,8 @@ def phase_serve(art):
                 torch.cuda.synchronize()
             counts = backend.launch_counts()
         busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA) / 1e3
+                      if e.device_type == DeviceType.CUDA
+                      and not _annotation(e)) / 1e3
         hist = dict(sorted(server.worker.batch_sizes.items()))
         n_batches = sum(hist.values())
         expect = _expected(ENCODE_LAUNCHES[key], n_batches)
@@ -5382,7 +5394,7 @@ def _device_ms_by_kind(fn, *args):
     top = []
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0) or 0
-        if evt.device_type != DeviceType.CUDA or us <= 0:
+        if evt.device_type != DeviceType.CUDA or us <= 0 or _annotation(evt):
             continue
         name = evt.key.lower()
         kind = ("kernels" if any(k in name for k in ours) else

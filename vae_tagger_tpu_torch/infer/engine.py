@@ -45,6 +45,10 @@ tagger head -> sigmoid, under ``torch.inference_mode()``.
   by the downsample factor times the shards are refused, and so are the
   YUV methods, as in the JAX package.
 
+While a profiler runs, placing a batch (the pinned staging copy and the
+host-to-device copy queued) is the span ``engine.place``, named
+``vt:engine.place`` in the trace (utils/profiling.py).
+
 The TPU's padding of batches to 8 rows is not carried over.
 """
 
@@ -70,6 +74,7 @@ from ..models.taggers import (
 from ..nn.blocks import seeded_init_
 from ..ops.image import normalize_uint8, yuv420_to_rgb_uint8
 from ..parallel.spatial import SpatialMesh
+from ..utils.profiling import ranged
 
 
 def build_decoder(num_classes: int, use_attention: bool = True,
@@ -179,15 +184,20 @@ class VAEOnlyEngine:
         return cls(load_vae(vae_checkpoint, vae_config_path),
                    resolve_mixed_precision(mixed_precision), device)
 
-    def _place(self, pixels_uint8) -> torch.Tensor:
-        """Host uint8 batch -> device tensor (pinned, non-blocking)."""
-        arr = np.ascontiguousarray(pixels_uint8)
+    def _to_device(self, host) -> torch.Tensor:
+        """Host uint8 array -> device tensor (pinned, non-blocking)."""
+        arr = np.ascontiguousarray(host)
         if not arr.flags.writeable:
             arr = arr.copy()
         t = torch.from_numpy(arr)
         if self.device.type == "cuda":
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
+
+    @ranged("engine.place")
+    def _place(self, pixels_uint8) -> torch.Tensor:
+        """Host uint8 batch -> device tensor (pinned, non-blocking)."""
+        return self._to_device(pixels_uint8)
 
     def _encode(self, px: torch.Tensor) -> torch.Tensor:
         x = normalize_uint8(px, self.policy.compute_dtype)
@@ -226,10 +236,11 @@ class VAEOnlyEngine:
         latents, _ = self.encode_async(pixels_uint8)
         return latents.float().cpu().numpy()
 
+    @ranged("engine.place")
     def _place_yuv(self, y_uint8, cbcr_uint8) -> torch.Tensor:
         """Host (Y, CbCr) planes -> device uint8 RGB."""
-        return yuv420_to_rgb_uint8(self._place(y_uint8),
-                                   self._place(cbcr_uint8))
+        return yuv420_to_rgb_uint8(self._to_device(y_uint8),
+                                   self._to_device(cbcr_uint8))
 
     def encode_yuv_async(self, y_uint8: np.ndarray, cbcr_uint8: np.ndarray):
         """:meth:`encode_async` of the YUV 4:2:0 planes."""

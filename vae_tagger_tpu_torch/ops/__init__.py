@@ -1,4 +1,9 @@
-"""Ops of the port: plain PyTorch versions and the CUDA kernel wrappers."""
+"""Ops of the port: plain PyTorch versions and the CUDA kernel wrappers.
+
+While a profiler runs, every public function on the models' path opens
+the range ``vt:op.<name>`` and every autograd Function's backward
+``vt:op.<name>.bwd`` (utils/profiling.py lists them); with none running
+they open nothing."""
 
 from .attention import (
     flash_attention,

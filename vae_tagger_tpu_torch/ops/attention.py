@@ -48,6 +48,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import ranged
 from . import backend
 from ._build import (
     check,
@@ -277,6 +278,7 @@ def _flash_attention_fwd_kernel(q, k, v):
     return out, lse, counter
 
 
+@ranged("op.flash_attention_fwd")
 def flash_attention_fwd(q, k, v):
     """Returns (out (B, Sq, D), lse (B, Sq) fp32); Sq may differ from Skv."""
     if backend.use_kernel(q):
@@ -361,6 +363,7 @@ class _FlashAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @ranged("op.flash_attention.bwd")
     def backward(ctx, do):
         return flash_attention_bwd(*ctx.saved_tensors, do)
 
@@ -372,11 +375,13 @@ def flash_attention(q, k, v):
     return _FlashAttention.apply(q, k, v)
 
 
+@ranged("op.spatial_single_head_attention")
 def spatial_single_head_attention(q, k, v):
     """Single-head self-attention over spatial tokens, (B, S, D) -> (B, S, D)."""
     return flash_attention(q, k, v)
 
 
+@ranged("op.spatial_single_head_attention_sharded")
 def spatial_single_head_attention_sharded(qs, ks, vs):
     """The height-sharded form (the JAX package's
     ``_spatial_sharded_attention``): each slab's (B, S/n, D) queries

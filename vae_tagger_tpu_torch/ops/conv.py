@@ -46,6 +46,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import ranged
 from . import backend
 from ._build import (
     check,
@@ -139,6 +140,7 @@ def pack_shortcut_weight(shortcut_kernel, c_res, dtype=torch.bfloat16):
     return shortcut_kernel.to(dtype).reshape(c_res, -1).t().contiguous()
 
 
+@ranged("op.conv2d_nhwc")
 def conv2d_nhwc(x, weight, bias=None, stride=1, padding=0):
     """F.conv2d on an NHWC tensor with an OIHW weight; NHWC out.
 
@@ -346,6 +348,7 @@ class _GnSiluConv3x3(torch.autograd.Function):
                                      eps=eps)
 
     @staticmethod
+    @ranged("op.gn_silu_conv3x3.bwd")
     def backward(ctx, g):
         num_groups, eps = ctx.args
         saved = iter(ctx.saved_tensors)
@@ -362,6 +365,7 @@ class _GnSiluConv3x3(torch.autograd.Function):
         return (None, None) + vjp_of_plain(plain, tensors, g)
 
 
+@ranged("op.gn_silu_conv3x3")
 def gn_silu_conv3x3(x, gn_scale, gn_bias, kernel, bias, residual=None,
                     shortcut_kernel=None, shortcut_bias=None, *,
                     num_groups: int, eps: float = 1e-6):
@@ -397,6 +401,7 @@ class _GnSiluConv3x3FromStats(torch.autograd.Function):
         return gn_silu_conv3x3_from_stats_plain(*tensors, eps=eps)
 
     @staticmethod
+    @ranged("op.gn_silu_conv3x3_from_stats.bwd")
     def backward(ctx, g):
         saved = iter(ctx.saved_tensors)
         tensors = [next(saved) if p else None for p in ctx.present]
@@ -412,6 +417,7 @@ class _GnSiluConv3x3FromStats(torch.autograd.Function):
         return (None,) + vjp_of_plain(plain, tensors, g)
 
 
+@ranged("op.gn_silu_conv3x3_from_stats")
 def gn_silu_conv3x3_from_stats(x, mean, meansq, gn_scale, gn_bias, kernel,
                                bias, residual=None, shortcut_kernel=None,
                                shortcut_bias=None, *, eps: float = 1e-6):

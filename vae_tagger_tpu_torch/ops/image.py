@@ -14,7 +14,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import ranged
 
+
+@ranged("op.normalize_uint8")
 def normalize_uint8(pixels, dtype=torch.float32):
     """HWC/NHWC uint8 [0, 255] -> ``dtype`` in [-1, 1].
 
@@ -23,6 +26,7 @@ def normalize_uint8(pixels, dtype=torch.float32):
     return pixels.to(dtype) / 127.5 - 1.0
 
 
+@ranged("op.yuv420_to_rgb_uint8")
 def yuv420_to_rgb_uint8(y, cbcr):
     """Planar YUV 4:2:0 uint8 -> NHWC uint8 RGB, on the planes' device.
 

@@ -55,6 +55,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import ranged
 from . import backend
 from ._build import check, dtype_code, lib, on_tensor_device, stream_of
 
@@ -520,6 +521,7 @@ def _group_norm_silu_backward_kernel(x, dact, mean, meansq, scale, es, eb,
     return dx, grads[0], grads[1], dmean, dmeansq
 
 
+@ranged("op.group_norm_silu_backward")
 def group_norm_silu_backward(x, dact, mean, meansq, scale, es, eb, *,
                              eps: float = 1e-6, apply_silu: bool = True,
                              stats_term: bool = True):
@@ -597,6 +599,7 @@ class _GroupNormSiLU(torch.autograd.Function):
                                      eps=eps, apply_silu=apply_silu)
 
     @staticmethod
+    @ranged("op.group_norm_silu.bwd")
     def backward(ctx, g):
         num_groups, eps, apply_silu = ctx.args
         if ctx.stats is not None:
@@ -615,6 +618,7 @@ class _GroupNormSiLU(torch.autograd.Function):
         return vjp_of_plain(plain, ctx.saved_tensors, g) + (None,) * 3
 
 
+@ranged("op.group_norm_silu")
 def group_norm_silu(x, scale, bias, *, num_groups: int, eps: float = 1e-6,
                     apply_silu: bool = True):
     """GroupNorm, optionally followed by SiLU, over an NHWC tensor, with
@@ -634,6 +638,7 @@ class _GroupStats(torch.autograd.Function):
         return group_stats(x, num_groups)
 
     @staticmethod
+    @ranged("op.group_stats_with_grad.bwd")
     def backward(ctx, g_mean, g_meansq):
         (x,) = ctx.saved_tensors
         n, h, w, c = x.shape
@@ -645,6 +650,7 @@ class _GroupStats(torch.autograd.Function):
         return dx.reshape(x.shape).to(x.dtype), None
 
 
+@ranged("op.group_stats_with_grad")
 def group_stats_with_grad(x, num_groups: int):
     """(mean, E[x^2]) per (sample, group), fp32 (N, G), with a gradient to
     x: the statistics a height slab contributes to the whole image's
@@ -671,6 +677,7 @@ class _GroupNormSiLUFromStats(torch.autograd.Function):
             x, mean, meansq, scale, bias, eps=eps, apply_silu=apply_silu)
 
     @staticmethod
+    @ranged("op.group_norm_silu_from_stats.bwd")
     def backward(ctx, g):
         eps, apply_silu = ctx.args
         if ctx.kernel:
@@ -685,6 +692,7 @@ class _GroupNormSiLUFromStats(torch.autograd.Function):
         return vjp_of_plain(plain, ctx.saved_tensors, g) + (None,) * 2
 
 
+@ranged("op.group_norm_silu_from_stats")
 def group_norm_silu_from_stats(x, mean, meansq, scale, bias, *,
                                eps: float = 1e-6, apply_silu: bool = True):
     """GroupNorm(+SiLU) of x from given (mean, E[x^2]) (N, G) fp32

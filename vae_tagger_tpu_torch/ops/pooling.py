@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import ranged
+
 
 def _bin_matrix(in_size: int, out_size: int, average: bool) -> np.ndarray:
     """(in_size, out_size) matrix M with M[s, o] = weight of input s in
@@ -30,6 +32,7 @@ def _pair(output_size):
     return tuple(output_size)
 
 
+@ranged("op.adaptive_avg_pool_nhwc")
 def adaptive_avg_pool_nhwc(x, output_size):
     """Adaptive average pool of an NHWC tensor to (oh, ow)."""
     oh, ow = _pair(output_size)
@@ -44,6 +47,7 @@ def adaptive_avg_pool_nhwc(x, output_size):
     return torch.einsum("nowc,wp->nopc", y, mw)
 
 
+@ranged("op.adaptive_max_pool_nhwc")
 def adaptive_max_pool_nhwc(x, output_size):
     """Adaptive max pool of an NHWC tensor to (oh, ow) (even division; the
     heads only max-pool to 1x1)."""

@@ -31,7 +31,10 @@ counterpart of ``vae_tagger_tpu/train/loop.py``).
   train steps of the run (a drill);
 - ``--profile_steps N``: a torch.profiler capture (CPU and CUDA) of train
   steps first+2 to first+2+N, written as a chrome trace to
-  ``<output_dir>/profile/trace.json``, also when the run ends first;
+  ``<output_dir>/profile/trace.json``, also when the run ends first; it
+  shows the program's spans (utils/profiling.py): ``loop.data``, the wait
+  on the train loader for the next batch, each ``steps.train_step`` with
+  its phases, and an ``op.*`` range on every ``ops/`` call;
 - data parallelism (one process per GPU under torchrun,
   parallel/mesh.py): the global batch is ``--train_batch_size`` times the
   number of processes, each loading its slice; the epoch means weight by
@@ -300,7 +303,8 @@ class EpochLoop:
                     print(", ".join(parts), flush=True)
 
             train_pipeline = OneInFlight(drain)
-            for step, batch in enumerate(self.train_loader):
+            for step, batch in enumerate(
+                    profiling.spanned(self.train_loader, "loop.data")):
                 if profile_range and global_step == profile_range[0]:
                     self._profile_start()
                 n_real = _real_rows(batch)

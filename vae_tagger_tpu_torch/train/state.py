@@ -25,7 +25,8 @@ keeps ``.grad`` None (DDP's ``find_unused_parameters`` would fill it
 with zeros, and AdamW would then decay it), the state-dict keys carry no
 ``module.`` prefix, and the autograd Functions of the kernels stay as
 they are.  DDP's overlap of the all-reduce with the backward is left for
-when a multi-GPU measurement asks for it.
+when a multi-GPU measurement asks for it.  While a profiler runs, that
+average is the span ``steps.grad_allreduce`` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import Iterable, Optional
 import torch
 
 from ..parallel.mesh import all_reduce_mean_
+from ..utils.profiling import span
 from .schedule import Schedule
 
 
@@ -63,7 +65,8 @@ class Optimizer:
         if self.micro < self.accumulation_steps:
             return False
         grads = [p.grad for p in self.params if p.grad is not None]
-        all_reduce_mean_(grads)
+        with span("steps.grad_allreduce"):
+            all_reduce_mean_(grads)
         if self.accumulation_steps > 1:
             torch._foreach_div_(grads, float(self.accumulation_steps))
         if self.max_grad_norm and self.max_grad_norm > 0:

@@ -67,6 +67,13 @@ losses and the optimizer run as they do unsharded.  The master
 parameters stay there and the slabs read them through ``.to``, so their
 gradients sum into the master ``.grad``; the batch is not multiplied.
 
+While a profiler runs, a train step is the span ``steps.train_step``
+holding its phases ``steps.place`` (:func:`batch_to_device`, also in eval
+steps), ``steps.forward``, ``steps.backward`` and ``steps.optimizer``
+(train/state.py adds ``steps.grad_allreduce`` inside it); in
+``DecoderSteps`` the span is the head's step,
+:meth:`DecoderSteps.train_step_from_latents` (utils/profiling.py).
+
 The TPU's sublane padding of the stacked batch and its per-member bs1
 encodes are not carried over.  The head is fed its latents in the compute
 dtype, in which the trainers build it (models/taggers.py), as the JAX
@@ -90,6 +97,7 @@ from ..losses.metric_learning import triplet_loss
 from ..models.autoencoder_kl import DiagonalGaussian, encode_scaled
 from ..ops.image import normalize_uint8, yuv420_to_rgb_uint8
 from ..parallel.mesh import mean_over_processes
+from ..utils.profiling import ranged, span
 from .state import TrainState
 
 _BATCH_KEYS = ("anchor", "positive", "negative", "labels", "positive_labels")
@@ -118,6 +126,7 @@ def step_generators(device, seed: int, index: int):
             step_generator(device, seed, index, stream=1))
 
 
+@ranged("steps.place")
 def batch_to_device(batch: dict, device, keys=_BATCH_KEYS) -> dict:
     """The numpy arrays of ``keys`` that a step reads, an image key also in
     its YUV form (``<key>_y``, ``<key>_cbcr``), on ``device`` (pinned,
@@ -196,17 +205,21 @@ class _Steps:
     batch, generator, train=, recon_generator=)`` -> (total, metrics,
     probabilities)."""
 
+    @ranged("steps.train_step")
     def train_step(self, state: TrainState, batch: dict,
                    global_step: int) -> dict:
         """One micro-step: loss, backward, and the optimizer's step (which
         applies an update every ``accumulation_steps``)."""
         device = next(state.vae.parameters()).device
         g, g_recon = step_generators(device, self.seed, global_step)
-        total, metrics, _ = self.forward_losses(
-            state, batch_to_device(batch, device), g, train=True,
-            recon_generator=g_recon)
-        total.backward()
-        state.optimizer.step()
+        placed = batch_to_device(batch, device)
+        with span("steps.forward"):
+            total, metrics, _ = self.forward_losses(
+                state, placed, g, train=True, recon_generator=g_recon)
+        with span("steps.backward"):
+            total.backward()
+        with span("steps.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return mean_over_processes(metrics)
 
@@ -365,6 +378,7 @@ class DecoderSteps:
         return encode_scaled(posterior.mode(),
                              self.vae.config).to(self.compute_dtype)
 
+    @ranged("steps.train_step")
     def train_step_from_latents(self, state: TrainState, latents, labels,
                                 global_step: int) -> dict:
         """One micro-step of the head on latents: the loss, its backward
@@ -372,11 +386,14 @@ class DecoderSteps:
         head = state.decoder
         head.train()
         g = step_generator(latents.device, self.seed, global_step)
-        loss = classification_term(
-            self.cfg, head(latents.to(self.compute_dtype), g), labels,
-            self.cb_weights)
-        loss.backward()
-        state.optimizer.step()
+        with span("steps.forward"):
+            loss = classification_term(
+                self.cfg, head(latents.to(self.compute_dtype), g), labels,
+                self.cb_weights)
+        with span("steps.backward"):
+            loss.backward()
+        with span("steps.optimizer"):
+            state.optimizer.step()
         state.step += 1
         return mean_over_processes({"loss": loss.detach()})
 
