@@ -41,7 +41,9 @@ from vae_tagger_tpu_torch.ops.conv import (
 from vae_tagger_tpu_torch.ops.normalization import (
     effective_affine,
     group_norm_affine,
+    EXACT_SILU,
     group_norm_silu,
+    group_norm_silu_apply,
     group_norm_silu_backward,
     group_stats,
     group_stats_plain,
@@ -102,6 +104,33 @@ def test_group_norm_silu_kernel(gen, shape, silu):
     _check(lambda dt: group_norm_silu(x.to(dt), sc, bi, num_groups=32,
                                       apply_silu=silu))
     _check(lambda dt: group_norm_affine(x.to(dt), sc, bi, num_groups=32))
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 17, 96), (2, 9, 13, 30)])
+def test_apply_pass_exact_silu(gen, shape):
+    """A's apply pass with the exact SiLU (kernel B'''s input), 16-byte
+    vectors and one element a thread (C = 30): within 4 ulp of the fp64
+    SiLU of the same fp32 affine, another instance than the SFU's SiLU,
+    repeating bit for bit; bf16 refuses it."""
+    x = _rnd(gen, *shape, shift=0.5)
+    es = _rnd(gen, shape[0], shape[-1], scale=0.5, shift=1.0)
+    eb = _rnd(gen, shape[0], shape[-1], scale=2.0)
+    y = (x.double() * es[:, None, None].double()
+         + eb[:, None, None].double()).float().double()
+    want = y * torch.sigmoid(y)
+    backend.reset_launch_counts()
+    exact = group_norm_silu_apply(x, es, eb, apply_silu=EXACT_SILU)
+    fast = group_norm_silu_apply(x, es, eb)
+    assert torch.equal(exact, group_norm_silu_apply(x, es, eb,
+                                                    apply_silu=EXACT_SILU))
+    torch.cuda.synchronize()
+    assert backend.launch_counts()["group_norm_silu"] == 3
+    ulp = 2.0 ** -23 * want.abs().clamp_min(2.0 ** -126)
+    # the affine's fma rounds once where the reference rounds it once too
+    assert ((exact.double() - want).abs() <= 4 * ulp + 1e-7).all()
+    assert not torch.equal(exact, fast)
+    with pytest.raises(RuntimeError):
+        group_norm_silu_apply(x.bfloat16(), es, eb, apply_silu=EXACT_SILU)
 
 
 @pytest.mark.parametrize("shape,groups", [
@@ -333,6 +362,11 @@ def test_fused_site_backward_matches_vjp_of_plain(gen, variant):
     (1, 6, 66, 256, 128, "plain"),
     (1, 4, 70, 512, 256, "shortcut"),
     (1, 6, 66, 256, 128, "shortcut"),
+    # an odd count of pixel tiles with two output-channel tiles; three
+    # one-row images; one pixel tile alone
+    (1, 5, 64, 64, 256, "residual"),
+    (3, 1, 64, 64, 256, "shortcut"),
+    (1, 2, 64, 32, 128, "plain"),
 ])
 def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
     groups = 8

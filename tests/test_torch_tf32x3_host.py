@@ -12,8 +12,12 @@ package's Pallas kernels in fp32, in interpret mode, to rel 1e-6 (max
 absolute error over the largest reference value; the attention output to
 4e-6 of the Pallas forward, whose own fp32 error is 2.3e-6, and to 2e-6
 of fp64); a single TF32 product misses the 1e-4 fp32 gate.  Besides: the dispatch of fp32 to B'' and C'',
-and the shapes they refuse.
+the shapes they refuse, and the fused conv's wrappers run through the C
+entries' contract by stand-ins that read and write the tensors at the
+addresses they are passed.
 """
+
+import ctypes
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,8 +31,13 @@ from vae_tagger_tpu.ops.conv import group_stats as jax_group_stats
 from vae_tagger_tpu.ops.pallas.conv_fused import gn_silu_conv3x3_pallas
 from vae_tagger_tpu.ops.pallas.flash_attention import _flash_attention_fwd_impl
 from vae_tagger_tpu_torch.io.checkpoints import torch_state_from_jax_params
-from vae_tagger_tpu_torch.ops import attention, backend, conv
-from vae_tagger_tpu_torch.ops.normalization import group_norm_affine
+from vae_tagger_tpu_torch.ops import attention, backend, conv, normalization
+from vae_tagger_tpu_torch.ops.normalization import (
+    EXACT_SILU,
+    group_norm_affine,
+    group_norm_silu_apply_plain,
+    group_stats_plain,
+)
 from vae_tagger_tpu_torch.ops.tf32x3 import split_tf32, to_tf32
 
 GROUPS = 8
@@ -331,3 +340,168 @@ def test_fp32_packing_keeps_fp32():
     sc = torch.from_numpy(rng.normal(size=(12, 20)).astype(np.float32))
     packed_sc = conv.pack_shortcut_weight(sc, 12, torch.float32)
     assert packed_sc.shape == (20, 12) and torch.equal(packed_sc, sc.t())
+
+
+# --------------------------------------------------------------------------
+# the fused conv's wrappers, through the C entries' contract
+
+
+def _at(ptr, shape, dtype=torch.float32):
+    """The CPU tensor of ``shape`` and ``dtype`` at address ``ptr``."""
+    n = int(np.prod(shape))
+    if dtype == torch.float32:
+        raw = (ctypes.c_float * n).from_address(ptr)
+        return torch.from_numpy(np.ctypeslib.as_array(raw)).view(shape)
+    raw = (ctypes.c_int16 * n).from_address(ptr)
+    return torch.from_numpy(np.ctypeslib.as_array(raw)).view(dtype).view(
+        shape)
+
+
+def _conv_tail(act, w, c_in, c_out, bias, res, sc, sc_bias):
+    """conv3x3 of the activated input with the packed (9, Cout, Cin)
+    weights, + bias, + the residual or its shortcut product, in fp32."""
+    w = w.float().view(3, 3, c_out, c_in).permute(2, 3, 0, 1)
+    out = F.conv2d(act.float().permute(0, 3, 1, 2), w, padding=1).permute(
+        0, 2, 3, 1) + bias
+    if sc is not None:
+        return out + res.float() @ sc.float().t() + sc_bias
+    return out if res is None else out + res.float()
+
+
+class _StandIns:
+    """Kernel A's apply pass, B' and B'' on the CPU: each reads its inputs
+    and writes its output at the addresses a wrapper passes, so that a
+    wrong argument order or a wrong tensor shows in the output."""
+
+    def __init__(self):
+        self.calls = []
+
+    def vt_gn_apply_vec(self, x, dtype, n, s, c, vec, rows, blocks, strips,
+                        es, eb, out, silu, stream):
+        self.calls.append(("A", silu, x, out))
+        y = _at(x, (n, s, c)) * _at(es, (n, 1, c)) + _at(eb, (n, 1, c))
+        _at(out, (n, s, c)).copy_(y * torch.sigmoid(y) if silu else y)
+        return 0
+
+    def vt_gn_silu_conv3x3_tf32x3(self, x, n, h, w, c_in, c_out, w_hi, w_lo,
+                                  bias, res, c_res, sc_hi, sc_lo, sc_bias,
+                                  out, stream):
+        self.calls.append(("B''", x))
+        sc = None
+        if sc_hi is not None:
+            sc = _at(sc_hi, (c_out, c_res)) + _at(sc_lo, (c_out, c_res))
+        wk = _at(w_hi, (9, c_out, c_in)) + _at(w_lo, (9, c_out, c_in))
+        _at(out, (n, h, w, c_out)).copy_(_conv_tail(
+            _at(x, (n, h, w, c_in)), wk, c_in, c_out, _at(bias, (c_out,)),
+            None if res is None else _at(res, (n, h, w, c_res)), sc,
+            None if sc_bias is None else _at(sc_bias, (c_out,))))
+        return 0
+
+    def vt_gn_silu_conv3x3_tc(self, x, dtype, n, h, w, c_in, c_out, es, eb,
+                              wpack, bias, res, c_res, wsc, sc_bias, out,
+                              stream):
+        self.calls.append(("B'", x))
+        bf = torch.bfloat16
+        y = (_at(x, (n, h, w, c_in), bf).float() * _at(es, (n, 1, 1, c_in))
+             + _at(eb, (n, 1, 1, c_in)))
+        act = (y * torch.sigmoid(y)).to(bf)
+        _at(out, (n, h, w, c_out), bf).copy_(_conv_tail(
+            act, _at(wpack, (9, c_out, c_in), bf), c_in, c_out,
+            _at(bias, (c_out,)),
+            None if res is None else _at(res, (n, h, w, c_res), bf),
+            None if wsc is None else _at(wsc, (c_out, c_res), bf),
+            None if sc_bias is None else _at(sc_bias, (c_out,))).to(bf))
+        return 0
+
+
+@pytest.fixture
+def stand_ins(monkeypatch):
+    """The fused conv's kernel path on the CPU, every launch a stand-in."""
+    fake = _StandIns()
+    for mod in (conv, normalization):
+        monkeypatch.setattr(mod, "lib", lambda stem: fake)
+        monkeypatch.setattr(mod, "stream_of", lambda t: 0)
+    monkeypatch.setattr(normalization, "_sms", lambda dev: 132)
+    monkeypatch.setattr(backend, "use_kernel", lambda t: True)
+
+    def stats(x, gs, gb, *, num_groups, eps):  # the stats pass
+        backend.count_launch("group_stats")
+        mean, meansq = group_stats_plain(x, num_groups)
+        return (mean, meansq, *normalization.effective_affine(
+            mean, meansq, gs, gb, x.shape[-1], eps))
+
+    monkeypatch.setattr(conv, "group_norm_stats_affine", stats)
+    # the launches without their device guard, a CUDA one
+    for mod, name in ((conv, "_gn_silu_conv3x3_kernel"),
+                      (conv, "_gn_silu_conv3x3_from_stats_kernel"),
+                      (conv, "_gn_apply_kernel"),
+                      (normalization, "_gn_apply_kernel")):
+        monkeypatch.setattr(mod, name, getattr(mod, name).__wrapped__)
+    backend.reset_launch_counts()
+    yield fake
+    backend.reset_launch_counts()
+
+
+@pytest.mark.parametrize("form", ["fused", "from_stats"])
+@pytest.mark.parametrize("variant", ["plain", "residual", "shortcut"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_conv_wrapper_keeps_the_kernels_contract(stand_ins, dtype,
+                                                       variant, form):
+    """fp32: kernel A's apply pass with the exact SiLU writes the
+    activation, and B'' convolves that tensor, not x; bf16: B' gets x and
+    the effective affine.  The output equals the plain version's, x is
+    left as it was, and one launch is counted, the conv's."""
+    g = torch.Generator().manual_seed(7)
+    n, h, w, c_in, c_out, c_res = 2, 5, 9, 16, 24, 8
+    x = torch.randn(n, h, w, c_in, generator=g)
+    gs, gb = 1 + 0.2 * torch.randn(c_in, generator=g), torch.randn(c_in)
+    k = torch.randn(3, 3, c_in, c_out, generator=g) * (9 * c_in) ** -0.5
+    b = torch.randn(c_out, generator=g)
+    res = sck = scb = None
+    if variant == "residual":
+        res = torch.randn(n, h, w, c_out, generator=g)
+    if variant == "shortcut":
+        res = torch.randn(n, h, w, c_res, generator=g)
+        sck, scb = torch.randn(c_res, c_out, generator=g), torch.randn(c_out)
+    x, res = (None if t is None else t.to(dtype) for t in (x, res))
+    kept = x.clone()
+    if form == "fused":
+        got = conv.gn_silu_conv3x3(x, gs, gb, k, b, res, sck, scb,
+                                   num_groups=4)
+    else:
+        mean, meansq = group_stats_plain(x, 4)
+        got = conv.gn_silu_conv3x3_from_stats(x, mean, meansq, gs, gb, k, b,
+                                              res, sck, scb)
+    want = conv.gn_silu_conv3x3_plain(
+        x.float(), gs, gb, k, b, None if res is None else res.float(), sck,
+        scb, num_groups=4)
+    assert got.dtype == dtype and torch.equal(x, kept)
+    assert _rel(got.float(), want) <= (1e-5 if dtype == torch.float32
+                                       else 2e-2)
+    if dtype == torch.float32:
+        (a, silu, a_in, a_out), (b2, conv_in) = stand_ins.calls
+        assert (a, b2, silu) == ("A", "B''", EXACT_SILU)
+        assert a_in == x.data_ptr() and conv_in == a_out != a_in
+    else:
+        assert stand_ins.calls == [("B'", x.data_ptr())]
+    counter = conv.CONV_KERNELS[dtype][2]
+    launched = {k: c for k, c in backend.launch_counts().items() if c}
+    assert launched == {counter: 1, **(
+        {"group_stats": 1} if form == "fused" else {})}
+
+
+@pytest.mark.parametrize("apply_silu,code", [(False, 0), (True, 1),
+                                             (EXACT_SILU, 2)])
+def test_apply_pass_passes_its_silu(stand_ins, apply_silu, code):
+    """The apply pass hands the C entry 0 (no SiLU), 1 (the SFU's) or 2
+    (exact); the plain version takes both SiLUs for the exact one."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 3, 5, 8, generator=g)
+    es, eb = torch.randn(2, 8, generator=g), torch.randn(2, 8, generator=g)
+    got = normalization.group_norm_silu_apply(x, es, eb,
+                                              apply_silu=apply_silu)
+    assert stand_ins.calls[0][1] == code
+    want = group_norm_silu_apply_plain(x, es, eb, apply_silu=apply_silu)
+    assert _rel(got, want) <= 1e-6
+    assert torch.equal(want, group_norm_silu_apply_plain(
+        x, es, eb, apply_silu=bool(apply_silu)))

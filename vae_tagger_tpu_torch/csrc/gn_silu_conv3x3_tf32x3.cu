@@ -1,16 +1,19 @@
-// Kernel B'': the fused GroupNorm-affine + SiLU + conv3x3 (SAME) + bias
-// [+ residual | + 1x1 shortcut of the residual] on Hopper's tensor cores
-// for fp32 tensors, as an implicit GEMM on wgmma with 3xTF32 products.
+// Kernel B'': conv3x3 (SAME) + bias [+ residual | + 1x1 shortcut of the
+// residual] on Hopper's tensor cores for fp32 tensors, as an implicit GEMM
+// on wgmma with 3xTF32 products, over an input that kernel A's apply pass
+// has activated: the two are the fused GroupNorm-affine + SiLU + conv3x3
+// of ops/conv.py.
 //
 // Replaces, for fp32 tensors, the TPU kernel vae_tagger_tpu/ops/pallas/
 // conv_fused.py::gn_silu_conv3x3_pallas (its pallas_call at :260); bf16
-// tensors go to kernel B' (gn_silu_conv3x3_tc.cu).  It computes what the
-// SIMT kernel B (gn_silu_conv3x3.cu) computes: the activation
-// silu(x*eff_scale + eff_bias) from kernel A's stats pass, in fp32 and not
-// rounded; SAME padding of the *activated* tensor (taps outside the image
-// are 0 after activation, silu(eff_bias) is not); fp32 accumulation; then
-// bias, then the residual or the shortcut product (accumulated in the same
-// registers).
+// tensors go to kernel B' (gn_silu_conv3x3_tc.cu).  With A's apply pass it
+// computes what the SIMT kernel B (gn_silu_conv3x3.cu) computes: the
+// activation silu(x*eff_scale + eff_bias) from kernel A's stats pass, in
+// fp32 and not rounded (A's exact SiLU, vt::silu's expf and IEEE
+// division); SAME padding of the *activated* tensor (taps outside the
+// image are 0 after activation, silu(eff_bias) is not: the copy engine
+// zero-fills them); fp32 accumulation; then bias, then the residual or the
+// shortcut product (accumulated in the same registers).
 //
 // 3xTF32: each fp32 operand x is split into hi = tf32(x) and lo = tf32(x -
 // hi) (cvt.rna), and a product is accumulated in fp32 as lo*hi + hi*lo +
@@ -26,17 +29,33 @@
 // Bound on this card: operations, 3 * 2*M*9*Cin*Cout FLOP on the TF32
 // tensor cores (98.3 ms for the 20 convs of a 1024px batch of 4 against
 // 495 TFLOP/s), against 242 ms for the SIMT kernel's fp32 FMA.  What held
-// kernel B back, and what this design does (B''s, carried over):
+// kernel B back, and what this design does:
 //  - fp32 FMA on the CUDA cores, k-slices of 8 with a barrier pair each:
 //    the products are wgmma m64n128k8 tf32, 32 input channels (one
 //    128-byte swizzled row) a pipeline step, three products a k8 step;
-//  - a loader that gathered one 4-byte value a thread: the raw input
-//    arrives by TMA as a halo tile of 4 x 66 pixels x 32 channels,
-//    out-of-bounds pixels zero-filled by the copy engine;
-//  - the GN affine and SiLU (and eff_scale and eff_bias from global memory)
-//    recomputed for every tap and Cout tile, 36 times a value at 512
-//    channels: the consumer warps activate the halo tile once, in place,
-//    and all 9 taps read that one tile.
+//  - a loader that gathered one 4-byte value a thread: the input arrives
+//    by TMA as a halo tile of 4 x 66 pixels x 32 channels, out-of-bounds
+//    pixels zero-filled by the copy engine;
+//  - the GN affine and SiLU recomputed for every tap and Cout tile: A's
+//    apply pass activates each value once.
+// What bounds it now (measured on an H100 at 700 W, the 20 convs of a
+// 1024px batch of 4):
+//  - not the L2 weight stream.  A CTA reads 9 weight stages of 32 KB (hi
+//    and lo) a 32-channel chunk, about 3 TB/s over the card, where TMA
+//    delivers 17 TB/s to this ring alone, and a copy that streamed no
+//    weights at all ran no faster.  Multicasting each stage to a cluster
+//    of two CTAs (each loading half; a stage released by the consumers of
+//    both) halved the L2 reads and cost 2.4-3.6% of the conv's time
+//    (clusters of four, 13%), so every CTA loads its own.
+//  - not the activation any more.  As this kernel's prologue (the consumer
+//    warps activating each halo tile in place) it cost 25% of the time: a
+//    tile's 8,448 SiLU were computed again for every Cout tile and for the
+//    halo rows (2.1x the pixels), and they took the consumer warps' issue
+//    from the products between the chunks, beside the products, or in the
+//    producer warpgroup alike.  A's pass computes each value once, for 8
+//    bytes an element of HBM traffic (about 11 ms a batch of 4).
+//  - the products and the issue of their fragments: about 77% of the
+//    bound without the activation.
 // Operand layouts: tf32 wgmma reads shared-memory operands K-major only.
 // The weights are packed K-major, (9, Cout, Cin) hi and lo (and the
 // shortcut (Cout, Cres)).  The activations are the A operand from
@@ -100,8 +119,6 @@ conv3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap tx,
                       const __grid_constant__ CUtensorMap tsh,
                       const __grid_constant__ CUtensorMap tsl, int H, int W,
                       int Cin, int Cout, int Cres,
-                      const float* __restrict__ eff_scale,
-                      const float* __restrict__ eff_bias,
                       const float* __restrict__ bias,
                       const float* __restrict__ res,
                       const float* __restrict__ sc_bias,
@@ -187,7 +204,6 @@ conv3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap tx,
 
   // ---- consumers: warpgroup wg computes output row y0 + wg
   const int wg = warp / 4;
-  const int tid = threadIdx.x;  // 0..255 over both warpgroups
   // ldmatrix: lane gives the row address of matrix lane/8 -- pixel m of the
   // warp's 16, 16-byte chunk (lane/16) of each k8 step
   const int lm_m = (warp % 4) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
@@ -201,36 +217,9 @@ conv3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap tx,
   int wi = 0;
   for (int c = 0; c < nchunks; ++c) {
     const int hs = c & 1;
-    uint8_t* tile_p = halo + hs * L::kHaloStride;
-    const uint32_t tile_a = tc::smem_u32(tile_p);
+    const uint32_t tile_a = tc::smem_u32(halo + hs * L::kHaloStride);
     tc::mbar_wait(hfull + hs, (c >> 1) & 1);
     const bool conv = c < nconv;
-    if (conv) {
-      // activate the halo tile in place, 16 bytes (4 channels) a step
-      const float* es = eff_scale + (int64_t)n * Cin;
-      const float* eb = eff_bias + (int64_t)n * Cin;
-      for (int u = tid; u < kHH * kHW * 8; u += kConsumers) {
-        const int p = u >> 3;
-        const int q = u & 7;
-        const int ci0 = c * kCC + ((q ^ (p & 7)) << 2);
-        const int r = p / kHW;
-        const int y = y0 - 1 + r;
-        const int x = x0 - 1 + (p - r * kHW);
-        float4* ptr = reinterpret_cast<float4*>(tile_p + p * 128 + q * 16);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (y >= 0 && y < H && x >= 0 && x < W && ci0 < Cin) {
-          const float4 raw = *ptr;
-          const float4 s = *reinterpret_cast<const float4*>(es + ci0);
-          const float4 bb = *reinterpret_cast<const float4*>(eb + ci0);
-          v = make_float4(vt::silu(raw.x * s.x + bb.x),
-                          vt::silu(raw.y * s.y + bb.y),
-                          vt::silu(raw.z * s.z + bb.z),
-                          vt::silu(raw.w * s.w + bb.w));
-        }
-        *ptr = v;
-      }
-      tc::bar_sync(1, kConsumers);
-    }
 
     // One tap: the A fragments of the 64 pixels whose first row this lane
     // addresses (tile pixel p) from ldmatrix, split into hi and lo, times
@@ -345,16 +334,16 @@ struct Maps {
 
 template <int kMode>
 int launch(const Maps& m, int N, int H, int W, int Cin, int Cout, int Cres,
-           const float* es, const float* eb, const float* bias,
-           const float* res, const float* scb, float* out, cudaStream_t st) {
+           const float* bias, const float* res, const float* scb, float* out,
+           cudaStream_t st) {
   cudaError_t err = allow_smem<kMode>();
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles =
       (int64_t)N * ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
   dim3 grid((unsigned)tiles, (Cout + kBN - 1) / kBN);
   conv3x3_tf32x3_kernel<kMode><<<grid, kThreads, Layout::kBytes, st>>>(
-      m.x, m.wh, m.wl, m.r, m.sh, m.sl, H, W, Cin, Cout, Cres, es, eb, bias,
-      res, scb, out);
+      m.x, m.wh, m.wl, m.r, m.sh, m.sl, H, W, Cin, Cout, Cres, bias, res, scb,
+      out);
   return (int)cudaGetLastError();
 }
 
@@ -376,18 +365,16 @@ int attrs(int* out) {
 
 }  // namespace
 
-// x (N,H,W,Cin) fp32; eff_scale/eff_bias (N,Cin) fp32; w_hi and w_lo
+// x (N,H,W,Cin) fp32, the activated input; w_hi and w_lo
 // (9,Cout,Cin) fp32, the HWIO kernel with each tap's matrix transposed
 // (K-major), split by split_tf32; bias (Cout) fp32; res (N,H,W,Cres) fp32
 // or null; sc_hi and sc_lo (Cout,Cres) fp32, the shortcut matrix
 // transposed and split, or null for a plain residual (then Cres == Cout);
 // sc_bias (Cout) fp32 with them; out (N,H,W,Cout) fp32.  Channel counts
-// are multiples of 4, and every pointer that a tensor map names, and
-// eff_scale and eff_bias, 16-byte aligned.
+// are multiples of 4, and every pointer that a tensor map names 16-byte
+// aligned.
 VT_EXPORT int vt_gn_silu_conv3x3_tf32x3(const void* x, int N, int H, int W,
                                         int Cin, int Cout,
-                                        const float* eff_scale,
-                                        const float* eff_bias,
                                         const void* w_hi, const void* w_lo,
                                         const float* bias, const void* res,
                                         int Cres, const void* sc_hi,
@@ -403,8 +390,7 @@ VT_EXPORT int vt_gn_silu_conv3x3_tf32x3(const void* x, int N, int H, int W,
                            sc_bias == nullptr || Cres <= 0 || Cres % 4 != 0))
     return (int)cudaErrorInvalidValue;
   if (!tc::aligned16(x) || !tc::aligned16(w_hi) || !tc::aligned16(w_lo) ||
-      !tc::aligned16(out) || !tc::aligned16(eff_scale) ||
-      !tc::aligned16(eff_bias) || (res != nullptr && !tc::aligned16(res)) ||
+      !tc::aligned16(out) || (res != nullptr && !tc::aligned16(res)) ||
       (sc_hi != nullptr && (!tc::aligned16(sc_hi) || !tc::aligned16(sc_lo))))
     return (int)cudaErrorInvalidValue;
   Maps m;
@@ -438,14 +424,14 @@ VT_EXPORT int vt_gn_silu_conv3x3_tf32x3(const void* x, int N, int H, int W,
         !tc::make_map(&m.sh, sc_hi, 2, ds, ss, bs, true) ||
         !tc::make_map(&m.sl, sc_lo, 2, ds, ss, bs, true))
       return (int)cudaErrorInvalidValue;
-    return launch<kShortcut>(m, N, H, W, Cin, Cout, Cres, eff_scale,
-                             eff_bias, bias, rf, sc_bias, of, st);
+    return launch<kShortcut>(m, N, H, W, Cin, Cout, Cres, bias, rf, sc_bias,
+                             of, st);
   }
   if (res != nullptr)
-    return launch<kResidual>(m, N, H, W, Cin, Cout, Cres, eff_scale,
-                             eff_bias, bias, rf, sc_bias, of, st);
-  return launch<kPlain>(m, N, H, W, Cin, Cout, Cres, eff_scale, eff_bias,
-                        bias, rf, sc_bias, of, st);
+    return launch<kResidual>(m, N, H, W, Cin, Cout, Cres, bias, rf, sc_bias,
+                             of, st);
+  return launch<kPlain>(m, N, H, W, Cin, Cout, Cres, bias, rf, sc_bias, of,
+                        st);
 }
 
 // The instance vt_gn_silu_conv3x3_tf32x3 launches for a residual mode (0

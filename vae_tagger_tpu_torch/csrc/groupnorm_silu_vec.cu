@@ -39,11 +39,15 @@
 // - The apply pass is a grid over (row spans, samples) in the same plan;
 //   each thread keeps its vector's eff_scale/eff_bias in registers and
 //   loads and stores 16 bytes at a time.  No per-element integer division;
-//   the SiLU runs on the SFU (fast_silu).
+//   the SiLU runs on the SFU (fast_silu), or, in fp32, exactly (vt::silu:
+//   expf and IEEE division) where kernel B'' reads the output
+//   (ops/conv.py), at the same rate.
 // - Where C is not a multiple of V or x is not 16-byte aligned, the same
 //   kernels run with V = 1 (one element a thread).  Where a row holds more
 //   than kThreads vectors, blockIdx.z cuts it into strips of kThreads
 //   vectors; a block writes zero partials for the groups outside its strip.
+#include <type_traits>
+
 #include "gn_plan.cuh"
 
 namespace {
@@ -58,11 +62,16 @@ using vt::gn::kUnroll;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFoldLanes = 8;  // threads a group in the last block's fold
 
+// The apply pass's SiLU, vt_gn_apply_vec's `silu`.
+enum Silu : int { kNoSilu = 0, kFastSilu = 1, kExactSilu = 2 };
+
 // y * sigmoid(y) on the SFU (__expf, __fdividef): a few ulp from
 // vt::silu's expf and IEEE division, far inside the kernel's fp32 gate
-// (1e-4 against torch.sigmoid), at about a fifth of the instructions; the
-// precise form would make the apply pass compute-bound.  For y below -87
-// the quotient is 0, the limit of the exact value.
+// (1e-4 against torch.sigmoid), at about a fifth of the instructions.  In
+// fp32 the exact form streams as fast (10.88 against 10.82 ms over kernel
+// B'''s 20 inputs of a 1024px batch of 4, on an H100 at 700 W); in bf16,
+// twice the elements a byte, it is neither built nor measured.  For y
+// below -87 the quotient is 0, the limit of the exact value.
 __device__ __forceinline__ float fast_silu(float y) {
   return __fdividef(y, 1.0f + __expf(-y));
 }
@@ -210,7 +219,12 @@ gn_stats_vec_kernel(const T* __restrict__ x, long long S, int C, int G,
   }
 }
 
-template <typename T, int V, bool kSilu>
+template <int kSilu>
+__device__ __forceinline__ float apply_silu(float y) {
+  return kSilu == kExactSilu ? vt::silu(y) : kSilu ? fast_silu(y) : y;
+}
+
+template <typename T, int V, int kSilu>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 gn_apply_vec_kernel(const T* __restrict__ x, long long S, int C, int rows,
                     const float* __restrict__ eff_scale,
@@ -240,7 +254,7 @@ gn_apply_vec_kernel(const T* __restrict__ x, long long S, int C, int rows,
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float y = v[u][j] * sc[j] + bi[j];
-        v[u][j] = kSilu ? fast_silu(y) : y;
+        v[u][j] = apply_silu<kSilu>(y);
       }
       Vec<T, V>::store(os + (r + u * step) * C, v[u]);
     }
@@ -251,7 +265,7 @@ gn_apply_vec_kernel(const T* __restrict__ x, long long S, int C, int rows,
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const float y = v[j] * sc[j] + bi[j];
-      v[j] = kSilu ? fast_silu(y) : y;
+      v[j] = apply_silu<kSilu>(y);
     }
     Vec<T, V>::store(os + r * C, v);
   }
@@ -276,12 +290,20 @@ void launch_apply(const void* x, int N, long long S, int C, int rows,
                   const float* eff_bias, void* out, int silu,
                   cudaStream_t st) {
   const dim3 grid(blocks, N, strips);
-  if (silu)
-    gn_apply_vec_kernel<T, V, true><<<grid, kThreads, 0, st>>>(
+  if constexpr (std::is_same_v<T, float>) {  // the exact SiLU: fp32 only
+    if (silu == kExactSilu) {
+      gn_apply_vec_kernel<T, V, kExactSilu><<<grid, kThreads, 0, st>>>(
+          static_cast<const T*>(x), S, C, rows, eff_scale, eff_bias,
+          static_cast<T*>(out));
+      return;
+    }
+  }
+  if (silu == kFastSilu)
+    gn_apply_vec_kernel<T, V, kFastSilu><<<grid, kThreads, 0, st>>>(
         static_cast<const T*>(x), S, C, rows, eff_scale, eff_bias,
         static_cast<T*>(out));
   else
-    gn_apply_vec_kernel<T, V, false><<<grid, kThreads, 0, st>>>(
+    gn_apply_vec_kernel<T, V, kNoSilu><<<grid, kThreads, 0, st>>>(
         static_cast<const T*>(x), S, C, rows, eff_scale, eff_bias,
         static_cast<T*>(out));
 }
@@ -330,13 +352,16 @@ VT_EXPORT int vt_gn_stats_vec(const void* x, int dtype, int N, long long S,
 }
 
 // Apply pass: out = [silu](x * eff_scale[n, c] + eff_bias[n, c]), in the
-// same plan as the stats pass.
+// same plan as the stats pass; silu: 0 none, 1 on the SFU, 2 exact (fp32
+// only).
 VT_EXPORT int vt_gn_apply_vec(const void* x, int dtype, int N, long long S,
                               int C, int vec, int rows, int blocks,
                               int strips, const float* eff_scale,
                               const float* eff_bias, void* out, int silu,
                               void* stream) {
   if (eff_scale == nullptr || eff_bias == nullptr || out == nullptr ||
+      silu < kNoSilu || silu > kExactSilu ||
+      (silu == kExactSilu && dtype != vt::kF32) ||
       check_plan(dtype, N, S, C, vec, rows, blocks, strips, x, out))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

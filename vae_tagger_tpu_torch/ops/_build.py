@@ -70,7 +70,7 @@ SIGNATURES = {
     },
     "gn_silu_conv3x3_tf32x3": {
         "vt_gn_silu_conv3x3_tf32x3": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                                      _P, _P, _I, _P, _P, _P, _P, _P],
+                                      _I, _P, _P, _P, _P, _P],
         "vt_gn_silu_conv3x3_tf32x3_attrs": [_I, _I, _P],
     },
     "flash_attention_fwd": {

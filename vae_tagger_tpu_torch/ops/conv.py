@@ -5,15 +5,17 @@ one ResnetBlock branch, ``conv3x3(silu(gn(x))) + bias [+ residual]``, with
 the residual optionally projected by the 1x1 ``conv_shortcut``.  On a CUDA
 tensor it runs kernel A's stats pass (:func:`group_norm_affine`) and then
 the fused kernel that :data:`CONV_KERNELS` names for the dtype.  Both are
-implicit GEMMs on the tensor cores (wgmma) that activate each input tile
-once, read weights packed K-major by :func:`pack_conv3x3_weight`, and
-refuse the shapes :func:`check_tc_conv_shape` names: bf16 goes to kernel B'
+implicit GEMMs on the tensor cores (wgmma) that read weights packed
+K-major by :func:`pack_conv3x3_weight` and refuse the shapes
+:func:`check_tc_conv_shape` names: bf16 goes to kernel B'
 (``csrc/gn_silu_conv3x3_tc.cu``), fp32 to kernel B''
 (``csrc/gn_silu_conv3x3_tf32x3.cu``), which keeps fp32-level error with
 3xTF32 products (its weights split into hi and lo by
-:func:`~.tf32x3.split_tf32` in every call).  Both apply the GroupNorm
-affine and the SiLU to the input pixels they stage and add the residual or
-the shortcut product in their epilogue.  The SIMT kernel B
+:func:`~.tf32x3.split_tf32` in every call).  B' applies the GroupNorm
+affine and the SiLU to the input pixels it stages; B'' reads its input
+activated by kernel A's apply pass with the exact SiLU, launched by the
+same wrapper call (one launch counted, the conv's).  Both add the
+residual or the shortcut product in their epilogue.  The SIMT kernel B
 (``csrc/gn_silu_conv3x3.cu``) that B'' replaced is no longer dispatched;
 chip_smoke.py launches it directly as a yardstick.  Beside them,
 :func:`gn_silu_conv3x3_plain` is the same function in PyTorch:
@@ -68,6 +70,7 @@ from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
     group_stats,
     vjp_of_plain,
 )
+from .normalization import EXACT_SILU, _gn_apply_kernel
 
 
 # dtype of a CUDA tensor -> (library, C entry, launch counter) of the
@@ -206,8 +209,8 @@ def _gn_silu_conv3x3_kernel(x, gn_scale, gn_bias, kernel, bias, residual,
 def _gn_silu_conv3x3_from_stats_kernel(x, mean, meansq, gn_scale, gn_bias,
                                        kernel, bias, residual,
                                        shortcut_kernel, shortcut_bias, eps):
-    """Kernel B' or B'' alone, its prologue fed the effective affine of the
-    given statistics (no stats pass)."""
+    """Kernel B' or B'' alone (no stats pass), fed the effective affine of
+    the given statistics."""
     _check_conv(x, kernel, residual, shortcut_kernel)
     eff_scale, eff_bias = (t.contiguous() for t in effective_affine(
         mean, meansq, gn_scale, gn_bias, x.shape[-1], eps))
@@ -240,8 +243,8 @@ def _check_conv(x, kernel, residual, shortcut_kernel):
 def _fused_conv_launch(x, eff_scale, eff_bias, kernel, bias, residual,
                        shortcut_kernel, shortcut_bias):
     """Launch kernel B' (bf16) or B'' (fp32) on a contiguous CUDA tensor x
-    with its prologue's fp32 (N, Cin) eff_scale and eff_bias; returns
-    (output, launch counter)."""
+    with the fp32 (N, Cin) eff_scale and eff_bias of its activation (B''
+    after kernel A's apply pass); returns (output, launch counter)."""
     n, h, w, c_in = x.shape
     c_out = kernel.shape[-1]
     dt = x.dtype
@@ -261,17 +264,20 @@ def _fused_conv_launch(x, eff_scale, eff_bias, kernel, bias, residual,
         wsc = pack_shortcut_weight(shortcut_kernel, c_res, dt)
         scb = shortcut_bias.float().contiguous()
     wscs = operands(wsc)
+    if dt == torch.bfloat16:  # B' activates the pixels it stages
+        head, affine = [x.data_ptr(), dtype_code(x)], [eff_scale, eff_bias]
+    else:  # B'' reads x activated, with the SIMT kernel B's exact SiLU
+        x = _gn_apply_kernel(x, eff_scale, eff_bias, EXACT_SILU)
+        head, affine = [x.data_ptr()], []
     out = torch.empty(n, h, w, c_out, dtype=dt, device=x.device)
-    check_tma_aligned(x, eff_scale, eff_bias, *wmats, res, *wscs, out)
+    check_tma_aligned(x, *affine, *wmats, res, *wscs, out)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    head = [x.data_ptr()] + ([dtype_code(x)] if dt == torch.bfloat16 else [])
-    args = [*head, n, h, w, c_in, c_out, eff_scale.data_ptr(),
-            eff_bias.data_ptr(), *(t.data_ptr() for t in wmats), b.data_ptr(),
-            ptr(res), c_res, *(ptr(t) for t in wscs), ptr(scb),
-            out.data_ptr()]
+    args = [*head, n, h, w, c_in, c_out, *(t.data_ptr() for t in affine),
+            *(t.data_ptr() for t in wmats), b.data_ptr(), ptr(res), c_res,
+            *(ptr(t) for t in wscs), ptr(scb), out.data_ptr()]
     err = getattr(lib(stem), fn)(*args, stream_of(x))
     check(err, fn)
     return out, counter

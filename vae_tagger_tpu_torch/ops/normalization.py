@@ -14,7 +14,8 @@ serves three wrappers here:
   stats pass alone, giving the statistics and their fold with the affine,
   per-(n, c) ``eff_scale``/``eff_bias``, for the fused conv (ops/conv.py);
 - :func:`group_norm_silu_apply`: the apply pass alone, from a given
-  effective affine.
+  effective affine; with the exact SiLU (:data:`EXACT_SILU`), the input
+  of kernel B'' (ops/conv.py).
 
 Kernel F (``csrc/groupnorm_silu_bwd.cu``, in A's span and strip rules on a
 grid of its own, :func:`_f_plan`) is the backward:
@@ -335,16 +336,22 @@ def group_norm_affine(x, gn_scale, gn_bias, *, num_groups: int,
                                    num_groups=num_groups, eps=eps)[2:]
 
 
+# ``apply_silu`` of the apply pass: False, True (the SiLU on the SFU, a few
+# ulp from the exact one) or this, vt::silu's expf and IEEE division (fp32
+# only)
+EXACT_SILU = 2
+
+
 def _gn_apply_launch(x, plan: GNPlan, es: int, eb: int, apply_silu):
     """Launch the apply pass on a contiguous CUDA tensor x with the fp32
     eff_scale/eff_bias (N, C) at addresses ``es``, ``eb``; returns the
-    output."""
+    output.  ``apply_silu``: False, True or :data:`EXACT_SILU`."""
     n, h, w, c = x.shape
     out = torch.empty_like(x)
     err = lib("groupnorm_silu_vec").vt_gn_apply_vec(
         x.data_ptr(), dtype_code(x), n, h * w, c, plan.vec, plan.rows,
         plan.blocks, plan.strips, es, eb, out.data_ptr(),
-        int(bool(apply_silu)), stream_of(x))
+        int(apply_silu), stream_of(x))
     check(err, "vt_gn_apply_vec")
     return out
 
