@@ -1,6 +1,8 @@
 """The benchmark's own arithmetic: the card's peaks, and the operations and
 bytes of each measured op, of an encode+tag forward and of a train_full
-step, all counted from shapes.
+step, all counted from shapes.  The encoder's layers are the
+configuration's VAE family's (``families/<_class_name>.py``); the head's,
+the peaks and the per-op costs are here.
 
 Peaks are NVIDIA's H100 SXM data sheet, dense: 989 TFLOP/s for bf16 on the
 tensor cores, 495 TFLOP/s for fp32 operands (TF32's rate: the highest
@@ -18,6 +20,8 @@ backward's scores, a checkpointed forward) is not counted.
 """
 
 from __future__ import annotations
+
+from bench_port import spec
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -65,49 +69,9 @@ def group_norm_silu_bwd(n, h, w, c, dtype="float32"):
 
 # ---------------------------------------------------------------- models
 
-def _conv(pixels, c_out, c_in, k):
+def conv_ops(pixels, c_out, c_in, k):
+    """Operations of a k x k conv over ``pixels`` output pixels."""
     return 2 * pixels * c_out * c_in * k * k
-
-
-def _down(n):
-    """A side after the stride-2 3x3 conv on one extra row (column) of
-    zeros: (n + 1 - 3) // 2 + 1."""
-    return (n - 2) // 2 + 1
-
-
-def _latent_side(vae, n):
-    for _ in vae["block_out_channels"][1:]:
-        n = _down(n)
-    return n
-
-
-def encoder_layers(vae: dict, height: int, width: int):
-    """[(operations of one image's forward, whether the input needs a
-    gradient)] of every conv, linear and attention product of the FLUX
-    encoder (diffusers ``Encoder``) at ``height`` x ``width``."""
-    boc = vae["block_out_channels"]
-    layers = [(_conv(height * width, boc[0], vae["in_channels"], 3), False)]
-    h, w, ch = height, width, boc[0]
-    for i, out in enumerate(boc):
-        for j in range(vae["layers_per_block"]):
-            c_in = ch if j == 0 else out
-            layers.append((_conv(h * w, out, c_in, 3), True))
-            layers.append((_conv(h * w, out, out, 3), True))
-            if c_in != out:
-                layers.append((_conv(h * w, out, c_in, 1), True))
-        ch = out
-        if i < len(boc) - 1:
-            h, w = _down(h), _down(w)
-            layers.append((_conv(h * w, ch, ch, 3), True))
-    for _ in range(2):
-        layers += [(_conv(h * w, ch, ch, 3), True)] * 2
-    if vae.get("mid_block_add_attention", True):
-        s = h * w
-        layers += [(2 * s * ch * ch, True)] * 4        # q, k, v, out
-        layers.append((4 * s * s * ch, True))          # q k^T and p v
-        # the second resnet follows the attention
-    layers.append((_conv(h * w, 2 * vae["latent_channels"], ch, 3), True))
-    return layers
 
 
 def head_layers(head: dict, latent_channels: int, lh: int, lw: int,
@@ -120,8 +84,8 @@ def head_layers(head: dict, latent_channels: int, lh: int, lw: int,
     if head["use_spatial_attention"]:
         # the channel gate's bottleneck on the pooled (detached) latents
         layers += [(2 * (hidden * c + c * hidden), False)] * 2  # avg, max
-        layers.append((_conv(lh * lw, 1, 2, 7), True))
-    layers.append((_conv(lh * lw, c2, c, 3), head["use_spatial_attention"]))
+        layers.append((conv_ops(lh * lw, 1, 2, 7), True))
+    layers.append((conv_ops(lh * lw, c2, c, 3), head["use_spatial_attention"]))
     s = 64  # the adaptive pool's 8 x 8 tokens
     if head["use_self_attention"]:
         layers += [(2 * s * c2 * c2, True)] * 4
@@ -131,14 +95,21 @@ def head_layers(head: dict, latent_channels: int, lh: int, lw: int,
     return layers
 
 
+def _model(config: dict, height: int, width: int):
+    """(encoder layers, head layers) of one image at ``height`` x ``width``;
+    the encoder's from the configuration's VAE family."""
+    fam = spec.family(config)
+    lh = fam.latent_side(config, height)
+    lw = fam.latent_side(config, width)
+    return (fam.encoder_layers(config, height, width),
+            head_layers(config["head"], fam.latent_channels(config), lh, lw,
+                        config["num_tags"]))
+
+
 def encode_tag_flops(config: dict, height: int, width: int) -> float:
     """Operations of one image's encode+tag forward."""
-    vae = config["vae"]
-    lh, lw = _latent_side(vae, height), _latent_side(vae, width)
-    return float(sum(op for op, _ in encoder_layers(vae, height, width))
-                 + sum(op for op, _ in head_layers(
-                     config["head"], vae["latent_channels"], lh, lw,
-                     config["num_tags"])))
+    enc, head = _model(config, height, width)
+    return float(sum(op for op, _ in enc) + sum(op for op, _ in head))
 
 
 def _train(layers):
@@ -150,9 +121,5 @@ def train_full_step_flops(config: dict, height: int, width: int,
     """Operations of one simplified-loss train_full step on ``triplets``
     (anchor, positive, negative) triplets: the encoder's forward and
     backward over all 3 x triplets images, the head's over the anchors."""
-    vae = config["vae"]
-    lh, lw = _latent_side(vae, height), _latent_side(vae, width)
-    enc = _train(encoder_layers(vae, height, width))
-    head = _train(head_layers(config["head"], vae["latent_channels"], lh, lw,
-                              config["num_tags"]))
-    return float(3 * triplets * enc + triplets * head)
+    enc, head = _model(config, height, width)
+    return float(3 * triplets * _train(enc) + triplets * _train(head))

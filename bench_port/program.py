@@ -5,7 +5,11 @@ the harness (with the traffic drivers) that imports the program,
 
 from __future__ import annotations
 
+import importlib
+
 import torch
+
+from bench_port import spec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -31,25 +35,26 @@ def build_kernels() -> dict:
     return {k: v["seconds"] for k, v in _build.build_all().items()}
 
 
-def vae_config(config: dict):
-    from vae_tagger_tpu_torch.core.config import vae_config_from_dict
-
-    return vae_config_from_dict(config["vae"])
+def _dotted(path: str):
+    """The object at the dotted import path ``package.module.name``."""
+    module, name = path.rsplit(".", 1)
+    return getattr(importlib.import_module(module), name)
 
 
 def models(config: dict, weights: dict, device, with_decoder: bool = False,
            head_dtype=torch.float32):
-    """(AutoencoderKL, AttentionClassificationDecoder) of the program on
-    ``device``, holding ``weights`` (the VAE's under ``vae.``, the head's
-    under ``head.``)."""
+    """(the VAE family's VAE, AttentionClassificationDecoder) of the program
+    on ``device``, holding ``weights`` (the VAE's under ``vae.``, the
+    head's under ``head.``)."""
     from vae_tagger_tpu_torch.core.config import AttentionDecoderConfig
-    from vae_tagger_tpu_torch.models.autoencoder_kl import AutoencoderKL
     from vae_tagger_tpu_torch.models.taggers import (
         AttentionClassificationDecoder,
     )
 
     from .reference.model import part
 
+    family = spec.family(config)
+    make_config, vae_class = (_dotted(p) for p in family.PROGRAM)
     h = config["head"]
     attention = AttentionDecoderConfig(
         use_spatial_attention=h["use_spatial_attention"],
@@ -58,9 +63,9 @@ def models(config: dict, weights: dict, device, with_decoder: bool = False,
         attention_heads=h["attention_heads"],
         attention_dropout=h["attention_dropout"])
     with torch.device(device):
-        vae = AutoencoderKL(vae_config(config), with_decoder=with_decoder)
+        vae = vae_class(make_config(config["vae"]), with_decoder=with_decoder)
         head = AttentionClassificationDecoder(
-            config["vae"]["latent_channels"], config["num_tags"], attention,
+            family.latent_channels(config), config["num_tags"], attention,
             head_dtype)
     vae.load_state_dict(part(weights, "vae"))
     head.load_state_dict(part(weights, "head"))

@@ -1,13 +1,12 @@
 """The plain reference of encode+tag, built from a configuration file and
 given the benchmark's weights.
 
-uint8 NHWC pixels -> x / 127.5 - 1 (NCHW) -> the FLUX encoder -> the
-posterior mean (the first ``latent_channels`` of the moments) ->
-mean * scaling_factor + shift_factor -> the attention tagger head in eval
-mode -> logits; probabilities are their sigmoid.  The latent transform is
-the tagger's own (its inference feeds the head ``mode * scale + shift``);
-diffusers' FLUX pipeline applies ``(z - shift) * scale`` before its
-transformer instead, which this system never runs.
+uint8 NHWC pixels -> x / 127.5 - 1 (NCHW) -> the encoder of the
+configuration's VAE family (``bench_port/families/<_class_name>.py``) ->
+the posterior mean (the first ``latent_channels`` of the moments) -> the
+family's transform of it (FLUX: ``mean * scaling_factor + shift_factor``)
+-> the attention tagger head in eval mode -> logits; probabilities are
+their sigmoid.
 
 ``precision``:
 
@@ -27,33 +26,22 @@ import contextlib
 
 import torch
 
+from bench_port import spec
+
 from .tagger import AttentionDecoderOracle
-from .vae import AutoencoderKLOracle
 
 FP8_MAX = 448.0
 
 
 def build_vae(config: dict, with_decoder: bool = True):
-    v = config["vae"]
-    model = AutoencoderKLOracle(
-        in_channels=v["in_channels"], out_channels=v["out_channels"],
-        block_out_channels=tuple(v["block_out_channels"]),
-        layers_per_block=v["layers_per_block"],
-        latent_channels=v["latent_channels"],
-        norm_num_groups=v["norm_num_groups"],
-        add_attention=v["mid_block_add_attention"],
-        use_quant_conv=v["use_quant_conv"],
-        use_post_quant_conv=v["use_post_quant_conv"])
-    if not with_decoder:
-        model.decoder = None
-        model.post_quant_conv = None
-    return model
+    """The family's plain reference VAE, with or without its decoder."""
+    return spec.family(config).reference_vae(config, with_decoder)
 
 
 def build_head(config: dict):
     h = config["head"]
     return AttentionDecoderOracle(
-        config["vae"]["latent_channels"], config["num_tags"],
+        spec.family(config).latent_channels(config), config["num_tags"],
         use_spatial=h["use_spatial_attention"],
         use_self=h["use_self_attention"], heads=h["attention_heads"],
         dropout=h["attention_dropout"])
@@ -105,11 +93,12 @@ def _fp8_inputs(module, args):
 class EncodeTag:
     """The reference's encode+tag over a batch of uint8 NHWC pixels, on
     ``device``, in ``precision``; the posterior mean is read from the
-    encoder's moments (the quant conv applied when the VAE has one)."""
+    reference VAE's ``encode_moments``."""
 
     def __init__(self, config: dict, weights: dict, device,
                  precision: str = "float32"):
         self.config, self.precision = config, precision
+        self.family = spec.family(config)
         self.dtype = torch.float32 if precision == "float32" else torch.bfloat16
         with torch.device(device):
             vae, head = build_vae(config, False), build_head(config)
@@ -127,12 +116,11 @@ class EncodeTag:
     @torch.no_grad()
     def logits(self, pixels_uint8: torch.Tensor) -> torch.Tensor:
         """(B, num_tags) fp32 logits of (B, H, W, 3) uint8 pixels."""
-        v = self.config["vae"]
         ctx = fp32_exact() if self.precision == "float32" else \
             contextlib.nullcontext()
         with ctx:
             x = pixels_uint8.permute(0, 3, 1, 2).to(self.dtype) / 127.5 - 1.0
             moments = self.vae.encode_moments(x)
-            mean = moments[:, :v["latent_channels"]]
-            latents = mean * v["scaling_factor"] + v["shift_factor"]
+            mean = moments[:, :self.family.latent_channels(self.config)]
+            latents = self.family.head_latents(self.config, mean)
             return self.head(latents.to(self.dtype)).float()

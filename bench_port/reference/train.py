@@ -4,13 +4,15 @@ off, followed from the same initial weights over the same batches.
 
 One step on B (anchor, positive, negative) triplets of uint8 pixels:
 
-1. the 3B images, x / 127.5 - 1, through the FLUX encoder -> the moments
-   -> mean and log-variance (clamped to [-30, 20]);
+1. the 3B images, x / 127.5 - 1, through the encoder of the
+   configuration's VAE family -> the moments -> mean and log-variance
+   (clamped to [-30, 20]);
 2. z = mean + exp(logvar / 2) * eps, eps standard normal from the step's
    generator, drawn for the whole (3B, h, w, C) stack in NHWC order;
 3. the triplet term on the flattened z: cosine distance, hinge at the
    margin, each triplet weighted by 1 + 0.5 * overlap / anchor tag count;
-4. the head, in training mode, on the anchors' scaled means, detached:
+4. the head, in training mode, on the anchors' means as the family
+   transforms them for the head (FLUX: scaled and shifted), detached:
    BatchNorm on the batch's statistics (biased variance), and each dropout
    mask drawn from the same generator after eps, in the order the layers
    run (the self-attention's weights, then the classifier's three), as
@@ -24,7 +26,7 @@ One step on B (anchor, positive, negative) triplets of uint8 pixels:
 The step's generator is seeded as the trainer seeds it:
 ``(seed * 1_000_003 + step) mod 2**64``.  The encoder's gradient comes only
 from the triplet term, which is a mean over triplets of per-triplet terms,
-so the encoder runs one triplet at a time (its GroupNorm is per sample) and
+so the encoder runs one triplet at a time (its norms are per sample) and
 the gradients add up; the head's BatchNorm couples the batch, so the head
 runs on the whole batch.
 
@@ -42,6 +44,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.nn.utils import parametrize
+
+from bench_port import spec
 
 from .model import build_head, build_vae, fp32_exact, fp8_round, part
 
@@ -141,6 +145,7 @@ class TrainReference:
                  device, precision: str = "float32"):
         self.config, self.hp, self.seed, self.device = config, hp, seed, device
         self.precision = precision
+        self.family = spec.family(config)
         with torch.device(device):
             vae, head = build_vae(config, False), build_head(config)
         vae.load_state_dict(part(weights, "vae"), strict=False)
@@ -174,13 +179,13 @@ class TrainReference:
             return self._step(batch, index)
 
     def _step(self, batch, index):
-        hp, v = self.hp, self.config["vae"]
-        c = v["latent_channels"]
+        hp, fam = self.hp, self.family
+        c = fam.latent_channels(self.config)
         g = step_generator(self.device, self.seed, index)
         anchor = torch.from_numpy(batch["anchor"])
         b = anchor.shape[0]
-        f = 2 ** (len(v["block_out_channels"]) - 1)
-        lat = anchor.shape[1] // f, anchor.shape[2] // f
+        lat = (fam.latent_side(self.config, anchor.shape[1]),
+               fam.latent_side(self.config, anchor.shape[2]))
         eps = torch.randn((3 * b, *lat, c), generator=g, device=self.device,
                           dtype=torch.float32).permute(0, 3, 1, 2)
         la = torch.from_numpy(batch["labels"]).to(self.device).float()
@@ -199,7 +204,7 @@ class TrainReference:
             (hp["triplet_weight"] * per.sum() / b).backward()
             trip_sum += float(per.sum().detach())
             means.append(mean[0:1].detach())
-        latents = torch.cat(means) * v["scaling_factor"] + v["shift_factor"]
+        latents = fam.head_latents(self.config, torch.cat(means))
         logits = head_train_forward(self.head, latents, g).float()
         bce = F.binary_cross_entropy_with_logits(logits, la)
         (hp["bce_weight"] * bce).backward()

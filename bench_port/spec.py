@@ -9,10 +9,44 @@
 - ``bench_port/configs/<config>.json``: the configuration as it is run;
 - ``bench_port/traffic/<kind>.py``: the driver of a traffic kind;
 - ``bench_port/metrics/<metric>.py``: the reader of a per-layer metric,
-  found by the metric's whole name.
+  found by the metric's whole name;
+- ``bench_port/families/<_class_name>.py``: the VAE family of a
+  configuration, found by its ``vae._class_name`` (as in a diffusers
+  ``vae/config.json``).
 
-A cell, a configuration or a metric is added by adding files and entries;
-no file here names one.
+A cell, a configuration, a metric or a VAE family is added by adding files
+and entries; no file here names one.
+
+A family module holds everything that depends on the VAE's architecture,
+so that nothing else in the harness reads a key of ``config["vae"]``
+other than ``_class_name``.  It provides:
+
+1. ``reference_vae(config, with_decoder=True)``: the plain reference VAE
+   (plain ``torch``, fp32, importing nothing of the program), an
+   ``nn.Module`` whose ``encode_moments(x)`` maps NCHW pixels in [-1, 1]
+   to the posterior's moments, (N, 2 x latent channels, h, w): the mean,
+   then the log-variance.  Its ``state_dict`` names and shapes are the
+   ones the seeded weights are drawn for and the program loads.
+2. ``head_latents(config, mean)``: the tagger head's input from the
+   posterior mean (the family's scale and shift of the latents).
+3. ``latent_channels(config)`` and ``latent_side(config, n)``: the
+   latents' channels, and the latent side of an image side ``n``.
+4. ``encoder_layers(config, height, width)``: [(operations of one image's
+   forward, whether the input needs a gradient)] of every conv, linear
+   and attention product of the encoder, which ``arith`` sums.
+5. Optional ``weight_kind(name, shape)`` and ``weight_fan_in(name,
+   shape)``, given every leaf's whole name (``vae.`` or ``head.``), where
+   the family's leaves differ from ``weights.leaf_kind`` and
+   ``weights.fan_in`` (a norm scale not named ``weight``, a conv kernel
+   with taps that touch no data); they return those defaults for the
+   other leaves.
+6. ``PROGRAM``: (the port's config-from-dict function, its VAE class) as
+   dotted import paths.  ``program.py`` builds
+   ``vae_class(make_config(config["vae"]), with_decoder=...)``.
+7. ``TRAIN_REFERENCE``: whether ``reference/train.py`` can follow this
+   family's training step; a cell whose traffic needs it
+   (``NEEDS_TRAIN_REFERENCE`` in its traffic module) is refused at load
+   where the family says no.
 """
 
 from __future__ import annotations
@@ -49,6 +83,10 @@ class Cell:
         return load_module(self.root / "bench_port" / "traffic"
                            / f"{self.workload['kind']}.py")
 
+    def family(self):
+        """The module of this cell's VAE family."""
+        return family(self.config, self.root)
+
     def quantity(self, metric: str) -> str:
         """The traffic's quantity that the end-to-end ``metric`` reports."""
         return self.workload["end_to_end"][metric]
@@ -65,6 +103,19 @@ def load_module(path: Path):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def family(config: dict, root: Path = ROOT):
+    """The module of ``config``'s VAE family:
+    ``bench_port/families/<config["vae"]["_class_name"]>.py`` under
+    ``root`` (by default the checkout this harness runs from)."""
+    name = config["vae"]["_class_name"]
+    path = root / "bench_port" / "families" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"configuration {config.get('name')!r} names the VAE family "
+            f"{name!r}, and there is no such file: {path}")
+    return load_module(path)
 
 
 def _reports(entry: dict, cell: str, e2e_names=None) -> bool:
@@ -98,4 +149,12 @@ def load(cell: str, root: Path = ROOT) -> Cell:
     readers = {m["name"]: load_module(root / "bench_port" / "metrics"
                                       / f"{m['name']}.py")
                for m in per_layer}
-    return Cell(cell, root, workload, config, e2e, per_layer, readers)
+    c = Cell(cell, root, workload, config, e2e, per_layer, readers)
+    fam = c.family()
+    if getattr(c.traffic(), "NEEDS_TRAIN_REFERENCE", False) \
+            and not fam.TRAIN_REFERENCE:
+        raise ValueError(
+            f"{cell}: its traffic {workload['kind']!r} needs the training "
+            f"reference, which cannot follow the VAE family "
+            f"{config['vae']['_class_name']!r}")
+    return c

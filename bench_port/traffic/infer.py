@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from bench_port import inputs, program, weights
+from bench_port import inputs, program, spec, weights
 from bench_port.reference import model as reference
 
 
@@ -93,7 +93,8 @@ def setup(ctx):
             ctx.log(f"kernels built: {built}")
     ctx.mark("kernels")
     program.apply_precision(cfg)
-    w = weights.make(reference.shapes(cfg), ctx.seed, ctx.device)
+    w = weights.make(reference.shapes(cfg), ctx.seed, ctx.device,
+                     family=spec.family(cfg))
     engine = program.tagger_engine(cfg, w, ctx.device)
     ctx.mark("weights and engine")
     res, b = p["resolution"], p["batch"]

@@ -51,9 +51,11 @@ import time
 import numpy as np
 import torch
 
-from bench_port import inputs, program, weights
+from bench_port import inputs, program, spec, weights
 from bench_port.reference import model as reference
 from bench_port.reference.train import TrainReference
+
+NEEDS_TRAIN_REFERENCE = True  # spec.load refuses a family it cannot follow
 
 
 def host_batches(seed, count, triplets, res, num_tags):
@@ -94,7 +96,8 @@ class Setup:
         program.apply_precision(cfg)
         dtype = program.DTYPES[cfg["precision"]["compute"]]
         self.w = weights.make(reference.shapes(cfg, with_decoder=True),
-                              ctx.seed, ctx.device)
+                              ctx.seed, ctx.device,
+                              family=spec.family(cfg))
         vae, head = program.models(cfg, self.w, ctx.device, True, dtype)
         vae.train()
         head.train()
