@@ -200,11 +200,24 @@ failure (non-zero exit, no ``ok`` line):
    process with ``parallel.mesh.local_devices`` giving the slab devices:
    the JSON within 1e-5 (one 4-decimal rounding) and the training loss
    within rel 1e-4 of the runs without --spatial_parallel, exact launches;
-11. kernel A's device time by kernel (torch.profiler), new and its first
+11. the Wan 2.1 VAE's encoder (``phase_wan``), at the shapes of its bf16
+   benchmark cell (a batch of 8 at 1024px), each check fatal: the RMS
+   stats pass and the apply pass on 8 x 1024^2 x 96 in both dtypes; the
+   fused residual branch at each of the encoder's twelve distinct shapes
+   (96, 192 and 384 channels; plain, residual, shortcut): the stats pass
+   and B' in its RMS mode in bf16, the stats and apply passes and B'' in
+   fp32; C' and C'' at B=8, S=16,384, D=384; each against its plain
+   version (fp32 within 1e-4 relative, 1e-5 for the RMS passes; bf16
+   within 4x the plain bf16 error) and timed beside its bound; then
+   ``AutoencoderKLWan`` at the published widths on one seeded 1024px image,
+   its moments against the plain path in both dtypes, and the exact
+   launches of one encode (bf16: stats 22, B' 20, apply 2, C' 1; fp32:
+   stats 22, apply 22, B'' 20, C'' 1);
+12. kernel A's device time by kernel (torch.profiler), new and its first
    form's (csrc/groupnorm_silu.cu), at
    each stats site with its bandwidth, and of A's two passes: last, since a
    profiler session may slow the host's launches after it;
-12. one JSON line ``{"kernels": [...]}`` (each kernel's launches on every
+13. one JSON line ``{"kernels": [...]}`` (each kernel's launches on every
    path, ``launches_by_path``, the train_vae, tiled, train_decoder,
    bucket, serve, attention-map, drill, data-parallel and spatial paths
    included, ``spatial_launches`` on its spatial train_full step, its
@@ -224,6 +237,7 @@ in the order parent, this, this, parent.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import re
 import shutil
@@ -5764,6 +5778,196 @@ def _tree_steps(art, json_path):
     return out
 
 
+# --------------------------------------------------------------------------
+# the Wan 2.1 VAE's encoder
+# --------------------------------------------------------------------------
+
+def _wan_b_cases(n=TILE_BATCH):
+    """The distinct shapes of the fused residual-block branch in the
+    published Wan 2.1 encoder (``default_wan_vae_config``) at a batch of n
+    at RES: (N, side, Cin, Cout, variant, Cres); each block's first conv
+    takes no residual, its second the block's input, through the 1x1
+    shortcut where the width changes.  The mid block's two blocks repeat
+    the last stage's shapes."""
+    from vae_tagger_tpu_torch.core.config import default_wan_vae_config
+
+    cfg = default_wan_vae_config()
+    dims, side, cases = cfg.widths, RES, []
+    for i, (c_in, c_out) in enumerate(zip(dims[:-1], dims[1:])):
+        for _ in range(cfg.num_res_blocks):
+            cases.append((n, side, c_in, c_out, "plain", None))
+            cases.append((n, side, c_out, c_out,
+                          "shortcut" if c_in != c_out else "residual", c_in))
+            c_in = c_out
+        if i != len(dims) - 2:
+            side //= 2
+    return list(dict.fromkeys(cases))
+
+
+def phase_wan():
+    """The Wan 2.1 VAE's kernels at the shapes its bf16 benchmark cell
+    (a batch of 8 at 1024px) gives them, each against its plain version in
+    the dtypes it runs, and one 1024px encode through the model:
+
+    - the RMS stats pass, and the apply pass with SiLU, on the largest
+      activation, 8 x 1024^2 x 96, in both dtypes;
+    - the residual-block branch (``rms_silu_conv3x3``) at each of the
+      encoder's distinct shapes (``_wan_b_cases``: 96, 192 and 384
+      channels, plain, with the residual, with the shortcut): the stats
+      pass and B' in its RMS mode in bf16, the stats and apply passes and
+      B'' in fp32;
+    - C' and C'' at B=8, S=16,384, D=384 (the mid block's attention);
+    - ``AutoencoderKLWan`` at the published widths, seeded, on one 1024px
+      image: the moments of the kernel path against the plain path
+      (fp32 within 1e-4 relative, bf16 within 4x the plain bf16 path's own
+      error) and the exact launches of one encode in each dtype, the counts
+      reset just before it.
+
+    Every kernel is timed beside its bound (the products, or the bytes
+    moved once; the stats pass's read of x counted with B')."""
+    import torch
+    from vae_tagger_tpu_torch.core.config import default_wan_vae_config
+    from vae_tagger_tpu_torch.models.autoencoder_kl_wan import (
+        AutoencoderKLWan,
+    )
+    from vae_tagger_tpu_torch.nn.blocks import seeded_init_
+    from vae_tagger_tpu_torch.ops import backend
+    from vae_tagger_tpu_torch.ops.attention import flash_attention_fwd
+    from vae_tagger_tpu_torch.ops.conv import rms_silu_conv3x3
+    from vae_tagger_tpu_torch.ops.normalization import (
+        rms_norm_silu,
+        rms_norm_silu_apply,
+        rms_norm_stats,
+    )
+
+    log(f"the Wan 2.1 VAE: the RMS passes, B'/B'' in the RMS mode at the "
+        f"encoder's shapes and C'/C'' at D=384, a batch of {TILE_BATCH} at "
+        f"{RES}^2; one {RES}px encode")
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    out = {"kernels": {}}
+    dts = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+    def timed(key, label, chk, fn, nbytes, flops=0.0):
+        """Time fn(dt) in each dtype that chk ran, beside its bound."""
+        row = {k: max(r[k] for r in chk.rows if k in r)
+               for k in ("rel_err_fp32", "rel_err_bf16")
+               if any(k in r for r in chk.rows)}
+        for name in chk.dtypes:
+            dt = dts[name]
+            ms = time_ms(lambda: fn(dt))
+            esize = 2.0 if dt == torch.bfloat16 else 4.0
+            b_ms, b_by = (bound(nbytes(esize), flops) if name == "bf16"
+                          else _fp32_bounds(nbytes(esize), flops)[1])
+            log(f"  {key} {label} {name}: {ms:.3f} ms (bound {b_ms:.3f}, "
+                f"{b_ms / ms:.1%}, {b_by})")
+            row[f"ms_{name}"], row[f"bound_ms_{name}"] = ms, b_ms
+        out["kernels"].setdefault(key, {})[label] = row
+
+    # the RMS passes on the stem's activation
+    n, side, c = TILE_BATCH, RES, default_wan_vae_config().base_dim
+    m = n * side * side
+    x = _both(_rnd_dev(g, n, side, side, c))
+    gamma = _rnd_dev(g, c, scale=0.2, shift=1.0)
+    label = f"N={n} {side}x{side} C={c}"
+    chk = Check("rms_norm_stats", tol32=1e-5)
+    chk.run(label, lambda dt: rms_norm_stats(x[dt]))
+    timed("rms_norm_stats", label, chk, lambda dt: rms_norm_stats(x[dt]),
+          lambda e: e * m * c + 4.0 * m)
+    chk = Check("rms_norm_silu", tol32=1e-5)
+    chk.run(label, lambda dt: rms_norm_silu(x[dt], gamma))
+    r = {dt: rms_norm_stats(x[dt]) for dt in x}
+    timed("rms_norm_silu", f"{label} (apply pass)", chk,
+          lambda dt: rms_norm_silu_apply(x[dt], r[dt], gamma),
+          lambda e: 2 * e * m * c + 4.0 * m)
+    del x, r
+    torch.cuda.empty_cache()
+
+    # the residual-block branch at each distinct shape
+    for n, side, cin, cout, variant, cres in _wan_b_cases():
+        m = n * side * side
+        x = _rnd_dev(g, n, side, side, cin)
+        gamma = _rnd_dev(g, cin, scale=0.2, shift=1.0)
+        k = _rnd_dev(g, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+        b = _rnd_dev(g, cout, scale=0.1)
+        res = sck = scb = None
+        if variant != "plain":
+            res = _rnd_dev(g, n, side, side, cres)
+        if variant == "shortcut":
+            sck = _rnd_dev(g, cres, cout, scale=cres ** -0.5)
+            scb = _rnd_dev(g, cout, scale=0.1)
+        xs, rs = _both(x), _both(res)
+        del x, res
+        label = (f"N={n} {side}x{side} {cin}->{cout} {variant}"
+                 + (f" Cres={cres}" if variant == "shortcut" else ""))
+
+        def op(dt):
+            return rms_silu_conv3x3(xs[dt], gamma, k, b, rs[dt], sck, scb)
+
+        chk = Check("rms_silu_conv3x3")
+        chk.run(label, op)
+        k_dim = 9 * cin + (cres if variant == "shortcut" else 0)
+        c_res = cres or 0
+        timed("rms_silu_conv3x3", label, chk, op,
+              lambda e: e * (2 * m * cin + m * cout + m * c_res
+                             + k_dim * cout),
+              2.0 * m * k_dim * cout)
+        del xs, rs
+        torch.cuda.empty_cache()
+
+    # the mid block's attention
+    b, s, d = TILE_BATCH, (RES // 8) ** 2, default_wan_vae_config().widths[-1]
+    qkv = [_both(_rnd_dev(g, b, s, d)) for _ in range(3)]
+    label = f"B={b} S={s} D={d}"
+
+    def attn(dt):
+        return flash_attention_fwd(*(t[dt] for t in qkv))
+
+    chk = Check("flash_attention_fwd")
+    chk.run(label, attn)
+    timed("flash_attention_fwd", label, chk, attn,
+          lambda e: e * 4 * b * s * d + 4.0 * b * s, 4.0 * b * s * s * d)
+    del qkv
+    torch.cuda.empty_cache()
+
+    # one encode through the model (gammas and biases off their identity
+    # start), and its launches
+    vae = seeded_init_(AutoencoderKLWan(default_wan_vae_config()), SEED)
+    gp = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in sorted(vae.named_parameters()):
+            if name.endswith(("gamma", "bias")):
+                p.add_(0.05 * torch.randn(p.shape, generator=gp))
+    vaes = {torch.float32: vae.to(DEVICE).eval()}
+    vaes[torch.bfloat16] = copy.deepcopy(vaes[torch.float32]).bfloat16()
+    pixels = _rnd_dev(g, 1, RES, RES, 3).clamp_(-1.0, 1.0)
+
+    def encode(dt):
+        post = vaes[dt].encode(pixels.to(dt))
+        return torch.cat([post.mean, post.logvar], -1)
+
+    chk = Check("AutoencoderKLWan.encode")
+    chk.run(f"N=1 {RES}x{RES}", encode)
+    expect = {"bf16": {"rms_norm_stats": 22, "rms_norm_silu": 2,
+                       "rms_silu_conv3x3_tc": 20,
+                       "flash_attention_fwd_tc": 1},
+              "fp32": {"rms_norm_stats": 22, "rms_norm_silu": 22,
+                       "gn_silu_conv3x3_tf32x3": 20,
+                       "flash_attention_fwd_tf32x3": 1}}
+    out["encode"] = {"rows": chk.rows, "launches": {}}
+    for name, want in expect.items():
+        torch.cuda.synchronize()
+        backend.reset_launch_counts()
+        encode(dts[name])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in backend.launch_counts().items() if v}
+        log(f"  launches of one {RES}px Wan encode, {name}: {counts}")
+        assert counts == want, (name, counts, want)
+        out["encode"]["launches"][name] = counts
+    del vae, vaes, pixels
+    torch.cuda.empty_cache()
+    return out
+
+
 def measure_tree(tree, steps=None):
     """--measure-tree: kernel F's site times (_f_site_times) and, with
     ``steps`` (JSON of the artifacts and data.json), the steady steps
@@ -5915,6 +6119,9 @@ def main():
     torch.cuda.empty_cache()
     report["spatial"] = phase_spatial(art, json_path, batch,
                                       report["training"]["fp32"]["history"])
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        report["wan"] = phase_wan()
     if args.parent_tree is not None:
         log(f"{time.perf_counter() - t_start:.1f} s before the parent "
             f"tree's phase")

@@ -9,7 +9,8 @@ Shapes here are small and deliberately ragged (channel counts that are not
 multiples of the kernels' tiles, sequences that are not multiples of the
 key tile, images narrower or wider than one pixel tile); chip_smoke.py
 covers the encode path's full shapes.  Each check runs both dtypes (the
-attention kernels take head width 512 alone, other widths raise): bf16
+attention forward takes head widths 512 and 384, the backward 512 alone,
+other widths raise): bf16
 goes to the tensor-core kernels B', C', D' and E', fp32 to the 3xTF32
 tensor-core kernels B'', C'', D'' and E''.
 Tolerances: fp32 max relative error 1e-4 (1e-5 for B'' and C''); bf16
@@ -37,6 +38,8 @@ from vae_tagger_tpu_torch.ops.conv import (
     gn_silu_conv3x3,
     gn_silu_conv3x3_plain,
     gn_silu_conv3x3_vjp,
+    rms_silu_conv3x3,
+    tc_kernel_attrs,
 )
 from vae_tagger_tpu_torch.ops.normalization import (
     effective_affine,
@@ -47,6 +50,10 @@ from vae_tagger_tpu_torch.ops.normalization import (
     group_norm_silu_backward,
     group_stats,
     group_stats_plain,
+    rms_norm_silu,
+    rms_norm_silu_apply,
+    rms_norm_stats,
+    rms_stats_plain,
     vjp_of_plain,
 )
 
@@ -393,6 +400,11 @@ def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
 
 @pytest.mark.parametrize("b,sq,skv,d", [(2, 300, 300, 128),
                                         (1, 100, 260, 64),
+                                        # the Wan VAE's width
+                                        (2, 300, 300, 384),
+                                        (1, 100, 260, 384),
+                                        (2, 64, 33, 384),
+                                        (1, 1024, 1024, 384),
                                         (2, 300, 300, 512),
                                         (1, 100, 260, 512),
                                         (1, 1024, 1024, 512),
@@ -402,11 +414,11 @@ def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
                                         (1, 4096, 4096, 512)])
 def test_flash_attention_fwd_kernel(gen, b, sq, skv, d):
     """Ragged Sq != Skv and sequences that are not multiples of the 64-row
-    or 32-key tiles.  At the model's width D = 512 both dtypes (bf16 runs
-    kernel C', fp32 kernel C'', to 1e-5); both take D = 512 alone, and
-    other widths raise in either dtype."""
+    or 32-key tiles.  At the models' widths D = 512 (FLUX) and 384 (Wan)
+    both dtypes (bf16 runs kernel C', fp32 kernel C'', to 1e-5); both take
+    those two alone, and other widths raise in either dtype."""
     q, k, v = _rnd(gen, b, sq, d), _rnd(gen, b, skv, d), _rnd(gen, b, skv, d)
-    if d != 512:
+    if d not in (384, 512):
         for dt in (torch.float32, torch.bfloat16):
             with pytest.raises(ValueError, match="head width"):
                 flash_attention_fwd(q.to(dt), k.to(dt), v.to(dt))
@@ -884,3 +896,162 @@ def test_spatial_encode_over_two_gpus(gen):
                                         torch.device("cuda", 1)])).mean
     assert backend.launch_counts()["gn_silu_conv3x3_tf32x3"] == 40
     assert two.device == x.device and _mse(two, one) < 1e-12
+
+
+# ---------------------------------------------------------------- Wan VAE
+
+@pytest.mark.parametrize("shape", [(2, 33, 17, 96), (1, 9, 70, 384),
+                                   (2, 5, 7, 30), (1, 3, 5, 4)])
+def test_rms_stats_pass(gen, shape):
+    """r = sqrt(C) / max(||x||, 1e-12) a pixel, in both dtypes; 16-byte
+    vectors where C allows (96, 384), single elements otherwise (30, 4);
+    a zero pixel reads sqrt(C) / 1e-12, as F.normalize floors it."""
+    x = _rnd(gen, *shape)
+    x[0, 0, 0] = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        got = rms_norm_stats(x.to(dt))
+        want = rms_stats_plain(x.to(dt))
+        torch.cuda.synchronize()
+        assert got.shape == shape[:3] and got.dtype == torch.float32
+        assert torch.allclose(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 17, 96), (1, 9, 70, 384),
+                                   (2, 5, 7, 30)])
+@pytest.mark.parametrize("silu", [True, False])
+def test_rms_norm_silu_kernel(gen, shape, silu):
+    """The stats and apply passes (fp32 with the exact SiLU) against the
+    plain RMS norm."""
+    x = _rnd(gen, *shape)
+    gamma = _rnd(gen, shape[-1], scale=0.2, shift=1.0)
+    _check(lambda dt: rms_norm_silu(x.to(dt), gamma, apply_silu=silu),
+           tol32=1e-5)
+    counts = {k: c for k, c in backend.launch_counts().items() if c}
+    assert counts == {"rms_norm_stats": 2, "rms_norm_silu": 2}
+
+
+def test_rms_apply_pass_misaligned(gen):
+    """An input off the 16-byte boundary takes the one-element path."""
+    x = _rnd(gen, 2, 7, 9, 96)
+    gamma = _rnd(gen, 96, shift=1.0)
+    for dt in (torch.float32, torch.bfloat16):
+        flat = torch.empty(1 + x.numel(), dtype=dt, device="cuda")
+        xm = flat[1:].view(x.shape)
+        xm.copy_(x)
+        r = rms_norm_stats(xm)
+        got = rms_norm_silu_apply(xm, r, gamma, apply_silu=True)
+        with backend.backend("torch"):
+            want = rms_norm_silu_apply(x.to(dt), rms_norm_stats(x.to(dt)),
+                                       gamma, apply_silu=True)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= (1e-5 if dt == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,variant", [
+    (2, 8, 8, 96, 96, "plain"),
+    (1, 9, 13, 96, 96, "residual"),
+    (2, 7, 11, 96, 192, "shortcut"),
+    (1, 6, 70, 192, 384, "shortcut"),
+    (1, 5, 66, 384, 384, "residual"),
+    (2, 3, 130, 384, 32, "plain"),
+    (1, 1, 70, 40, 136, "shortcut"),
+])
+def test_rms_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
+    """The Wan residual branch: B' in its RMS mode (bf16), the RMS apply
+    pass and B'' (fp32, to 1e-5), each after the stats pass, against the
+    plain version; ragged images and channel counts."""
+    x = _rnd(gen, n, h, w, cin)
+    gamma = _rnd(gen, cin, scale=0.2, shift=1.0)
+    k = _rnd(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    b = _rnd(gen, cout, scale=0.1)
+    res = sck = scb = None
+    if variant == "residual":
+        res = _rnd(gen, n, h, w, cout)
+    if variant == "shortcut":
+        res = _rnd(gen, n, h, w, cin)
+        sck = _rnd(gen, cin, cout, scale=cin ** -0.5)
+        scb = _rnd(gen, cout, scale=0.1)
+    _check(lambda dt: rms_silu_conv3x3(
+        x.to(dt), gamma, k, b, None if res is None else res.to(dt), sck,
+        scb), tol32=1e-5)
+    counts = {k: c for k, c in backend.launch_counts().items() if c}
+    assert counts == {"rms_norm_stats": 2, "rms_silu_conv3x3_tc": 1,
+                      "rms_norm_silu": 1, "gn_silu_conv3x3_tf32x3": 1}
+
+
+def test_the_rms_kernels_run_forward_only(gen):
+    x = _rnd(gen, 1, 4, 4, 96).requires_grad_()
+    gamma = _rnd(gen, 96, shift=1.0)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        rms_norm_silu(x, gamma)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        rms_silu_conv3x3(x, gamma, _rnd(gen, 3, 3, 96, 96), _rnd(gen, 96))
+
+
+def test_a_wan_encoder_on_the_card(gen):
+    """A Wan encoder at the published widths (96-384) on 64x80 images:
+    the kernel path against the plain one in both dtypes, and the
+    launches of one encode."""
+    from vae_tagger_tpu_torch.core.config import default_wan_vae_config
+    from vae_tagger_tpu_torch.models.autoencoder_kl_wan import (
+        AutoencoderKLWan,
+    )
+
+    torch.manual_seed(0)
+    vae = seeded_init_(AutoencoderKLWan(default_wan_vae_config()), 3)
+    with torch.no_grad():
+        for name, p in vae.named_parameters():
+            if name.endswith("gamma") or name.endswith("bias"):
+                p.add_(0.05 * torch.randn(p.shape))
+    vae = vae.cuda().eval()
+    x = _rnd(gen, 2, 64, 80, 3)
+
+    def encode(dt):
+        with torch.inference_mode():
+            post = vae.encode(x.to(dt))
+        return torch.cat([post.mean, post.logvar], -1)
+
+    _check(encode, tol32=1e-4)
+    expect = {torch.bfloat16: {"rms_norm_stats": 22, "rms_norm_silu": 2,
+                               "rms_silu_conv3x3_tc": 20,
+                               "flash_attention_fwd_tc": 1},
+              torch.float32: {"rms_norm_stats": 22, "rms_norm_silu": 22,
+                              "gn_silu_conv3x3_tf32x3": 20,
+                              "flash_attention_fwd_tf32x3": 1}}
+    for dt, want in expect.items():
+        backend.reset_launch_counts()
+        encode(dt)
+        torch.cuda.synchronize()
+        assert {k: c for k, c in backend.launch_counts().items() if c} == want
+
+
+# What cudaFuncGetAttributes reported for the instances the FLUX cells run,
+# before the RMS mode and the head width 384 existed (NVIDIA H100 80GB
+# HBM3): {(Cout tile, residual mode): (registers, shared memory bytes)} of
+# B' in its GroupNorm mode; (registers, shared memory bytes) of C' and C''
+# at D = 512.
+GN_B_PRIME = {(c_out, mode): (168, smem)
+              for c_out, smem in ((128, 169088), (256, 199808))
+              for mode in ("plain", "residual", "shortcut")}
+C_AT_512 = {"bfloat16": (168, 230528), "float32": (255, 230528)}
+
+
+def test_the_flux_instances_are_unchanged(gen):
+    """The GroupNorm-mode B' and the D = 512 C' and C'' report the
+    registers and shared memory they had before the RMS mode and head
+    width 384 were added; the new instances report theirs."""
+    from vae_tagger_tpu_torch.ops.attention import fwd_tc_kernel_attrs
+
+    for (c_out, mode), (regs, smem) in GN_B_PRIME.items():
+        a = tc_kernel_attrs(c_out, mode)
+        assert (a["registers"], a["smem_bytes"]) == (regs, smem), (c_out, mode)
+    for dt, (regs, smem) in C_AT_512.items():
+        a = fwd_tc_kernel_attrs(getattr(torch, dt), 512)
+        assert (a["registers"], a["smem_bytes"]) == (regs, smem), dt
+    for c_out in (128, 384):
+        for mode in ("plain", "residual", "shortcut"):
+            a = tc_kernel_attrs(c_out, mode, norm="rms")
+            assert a["registers"] > 0 and a["smem_bytes"] > 0
+    for dt in (torch.bfloat16, torch.float32):
+        a = fwd_tc_kernel_attrs(dt, 384)
+        assert a["registers"] > 0

@@ -60,7 +60,7 @@ def test_cuda_sources_ship_as_package_data():
         "flash_attention_fwd_tc.cu", "flash_attention_fwd_tf32x3.cu",
         "gn_silu_conv3x3.cu", "gn_silu_conv3x3_tc.cu",
         "gn_silu_conv3x3_tf32x3.cu", "groupnorm_silu.cu",
-        "groupnorm_silu_bwd.cu", "groupnorm_silu_vec.cu"]
+        "groupnorm_silu_bwd.cu", "groupnorm_silu_vec.cu", "rms_norm.cu"]
     text = (ROOT / "pyproject.toml").read_text()
     assert '"vae_tagger_tpu_torch"' in text and "csrc/*.cu" in text
 

@@ -113,9 +113,94 @@ def vae_config_from_dict(d: dict) -> VAEConfig:
     return VAEConfig(**kwargs)
 
 
-def vae_config_from_file(path: str) -> VAEConfig:
+@dataclasses.dataclass(frozen=True)
+class WanVAEConfig:
+    """The Wan 2.1 VAE (diffusers ``AutoencoderKLWan``), as its
+    ``vae/config.json`` configures it; defaults are the published
+    Wan-AI/Wan2.1-T2V-14B-Diffusers values.  The port runs its encoder on
+    one frame (an image): ``temperal_downsample`` and ``dropout`` do not
+    act there and are kept as the file gives them."""
+
+    base_dim: int = 96
+    z_dim: int = 16
+    dim_mult: Sequence[int] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    attn_scales: Sequence[float] = ()
+    temperal_downsample: Sequence[bool] = (False, True, True)
+    dropout: float = 0.0
+    latents_mean: Sequence[float] = (
+        -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+        0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921)
+    latents_std: Sequence[float] = (
+        2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+        3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.916)
+    in_channels: int = 3
+
+    @property
+    def latent_channels(self) -> int:
+        return self.z_dim
+
+    @property
+    def widths(self) -> tuple:
+        """Channels of the stem and of each stage: base_dim * [1] +
+        dim_mult."""
+        return tuple(self.base_dim * m for m in (1, *self.dim_mult))
+
+    @property
+    def downsample_factor(self) -> int:
+        return 2 ** (len(self.dim_mult) - 1)
+
+    def to_json_dict(self) -> dict:
+        """Diffusers-layout config dict."""
+        out = {"_class_name": "AutoencoderKLWan"}
+        for f in dataclasses.fields(self):
+            if f.name == "in_channels":
+                continue
+            v = getattr(self, f.name)
+            out[f.name] = list(v) if isinstance(v, tuple) else v
+        return out
+
+
+def default_wan_vae_config(**overrides) -> WanVAEConfig:
+    """The Wan 2.1 VAE config, with optional field overrides."""
+    return dataclasses.replace(WanVAEConfig(), **overrides)
+
+
+_WAN_FIELDS = {f.name for f in dataclasses.fields(WanVAEConfig)}
+
+
+def wan_vae_config_from_dict(d: dict) -> WanVAEConfig:
+    """Build a WanVAEConfig from a diffusers ``AutoencoderKLWan`` JSON dict,
+    ignoring extra keys; keys the JSON omits get the published values."""
+    kwargs = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in d.items() if k in _WAN_FIELDS and v is not None}
+    return WanVAEConfig(**kwargs)
+
+
+# a config JSON's ``_class_name`` -> the function that reads it; a file
+# without one is an AutoencoderKL, as the JAX package reads every file
+VAE_CONFIG_READERS = {
+    "AutoencoderKL": vae_config_from_dict,
+    "AutoencoderKLWan": wan_vae_config_from_dict,
+}
+
+
+def any_vae_config_from_dict(d: dict):
+    """The config of the VAE family that the dict's ``_class_name`` names
+    (:data:`VAE_CONFIG_READERS`); raises for a family the port lacks."""
+    name = d.get("_class_name") or "AutoencoderKL"
+    if name not in VAE_CONFIG_READERS:
+        raise ValueError(f"the port runs no VAE of class {name!r}; it runs "
+                         f"{sorted(VAE_CONFIG_READERS)}")
+    return VAE_CONFIG_READERS[name](d)
+
+
+def vae_config_from_file(path: str):
+    """The config of a diffusers ``config.json``: a :class:`VAEConfig`, or
+    a :class:`WanVAEConfig` where ``_class_name`` is
+    ``AutoencoderKLWan``."""
     with open(path, "r", encoding="utf-8") as f:
-        return vae_config_from_dict(json.load(f))
+        return any_vae_config_from_dict(json.load(f))
 
 
 def get_vae_latent_info(resolution: int, latent_channels: int = 16,

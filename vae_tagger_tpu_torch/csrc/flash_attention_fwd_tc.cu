@@ -39,6 +39,10 @@
 //
 // Shared memory at D = 512: Q 64 KB, K and V rings 2 x 2 x 32 KB, the S
 // exchange 2 x 16 KB (double-buffered, one barrier per tile): 224 KB.
+// The head width is a template parameter, built for D = 512 (the FLUX and
+// SD VAEs' mid block) and D = 384 (the Wan VAE's): at 384 each warpgroup
+// owns 192 columns of O (96 registers a thread), its P V product is
+// m64n192k16, and shared memory is 176 KB; every other line is shared.
 // Tensor maps: encoded on the host per call (tc_common.cuh, driver entry
 // point, no -lcuda).  Ragged shapes: TMA fills rows past Sq or Skv with
 // zeros; keys past Skv are masked, rows past Sq are not stored.
@@ -59,8 +63,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-constexpr int kD = 512;  // the head width: the VAE mid-block's channels
-
+template <int kD>  // the head width: the VAE mid-block's channels
 struct Layout {
   static constexpr int kBoxes = kD / 64;      // boxes a row
   static constexpr int kWgBoxes = kD / 128;   // boxes a warpgroup's half
@@ -74,13 +77,23 @@ struct Layout {
   static constexpr int kBytes = kBar + 16 * 8 + 1024;  // + alignment slack
 };
 
+// O += P V over this warpgroup's D/2 columns, V read MN-major.
+template <int kHalf>
+__device__ __forceinline__ void wgmma_pv(float (&o)[kHalf / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (kHalf == 256) tc::wgmma_rs_n256<1>(o, a, db);
+  if constexpr (kHalf == 192) tc::wgmma_rs_n192<1>(o, a, db);
+}
+
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, int Sq, int Skv,
                     float scale_log2, __nv_bfloat16* __restrict__ out,
                     float* __restrict__ lse) {
-  using L = Layout;
+  using L = Layout<kD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = tc::align1024(smem_raw);
   uint8_t* qs = sm + L::kQ;
@@ -250,7 +263,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const uint64_t db = tc::desc_sw128(
           vs + s * L::kStage + wg * L::kWgBoxes * kBoxBytesKV + t * 2048,
           kBoxBytesKV, 1024);
-      tc::wgmma_rs_n256<1>(o, pa[t], db);
+      wgmma_pv<L::kHalf>(o, pa[t], db);
     }
     tc::wg_commit();
     tc::wg_wait<0>();
@@ -283,15 +296,17 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+template <int kD>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(flash_fwd_tc_kernel,
+  return cudaFuncSetAttribute(flash_fwd_tc_kernel<kD>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Layout::kBytes);
+                              Layout<kD>::kBytes);
 }
 
+template <int kD>
 int launch(const void* q, const void* k, const void* v, int B, int Sq, int Skv,
            float scale, void* out, float* lse, cudaStream_t st) {
-  using L = Layout;
+  using L = Layout<kD>;
   CUtensorMap mq, mk, mv;
   const uint64_t dq[3] = {(uint64_t)kD, (uint64_t)Sq, (uint64_t)B};
   const uint64_t dkv[3] = {(uint64_t)kD, (uint64_t)Skv, (uint64_t)B};
@@ -303,40 +318,50 @@ int launch(const void* q, const void* k, const void* v, int B, int Sq, int Skv,
       !tc::make_map(&mk, k, 3, dkv, skv, bkv) ||
       !tc::make_map(&mv, v, 3, dkv, skv, bkv))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem();
+  cudaError_t err = allow_smem<kD>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, B);
-  flash_fwd_tc_kernel<<<grid, kThreads, L::kBytes, st>>>(
+  flash_fwd_tc_kernel<kD><<<grid, kThreads, L::kBytes, st>>>(
       mq, mk, mv, Sq, Skv, scale * kLog2e, static_cast<__nv_bfloat16*>(out),
       lse);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q (B,Sq,D), k and v (B,Skv,D), contiguous bf16, 16-byte aligned; out
-// (B,Sq,D) bf16; lse (B,Sq) fp32.  D must be 512 and dtype bf16 (fp32 goes
-// to kernel C).
-VT_EXPORT int vt_flash_attn_fwd_tc(const void* q, const void* k, const void* v,
-                                   int dtype, int B, int Sq, int Skv, int D,
-                                   float scale, void* out, float* lse,
-                                   void* stream) {
-  if (dtype != vt::kBF16 || D != kD || B <= 0 || Sq <= 0 || Skv <= 0 ||
-      !tc::aligned16(q) || !tc::aligned16(k) || !tc::aligned16(v) ||
-      !tc::aligned16(out))
-    return (int)cudaErrorInvalidValue;
-  return launch(q, k, v, B, Sq, Skv, scale, out, lse,
-                static_cast<cudaStream_t>(stream));
-}
-
-// out = {registers a thread at launch, shared memory bytes a block (static
-// + the dynamic size every launch passes)}, from the CUDA runtime.
-VT_EXPORT int vt_flash_attn_fwd_tc_attrs(int* out) {
-  cudaError_t err = allow_smem();
+template <int kD>
+int attrs(int* out) {
+  cudaError_t err = allow_smem<kD>();
   cudaFuncAttributes a;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, flash_fwd_tc_kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&a, flash_fwd_tc_kernel<kD>);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes + a.maxDynamicSharedSizeBytes;
   return 0;
+}
+
+}  // namespace
+
+// q (B,Sq,D), k and v (B,Skv,D), contiguous bf16, 16-byte aligned; out
+// (B,Sq,D) bf16; lse (B,Sq) fp32.  D must be 512 or 384 and dtype bf16
+// (fp32 goes to kernel C'').
+VT_EXPORT int vt_flash_attn_fwd_tc(const void* q, const void* k, const void* v,
+                                   int dtype, int B, int Sq, int Skv, int D,
+                                   float scale, void* out, float* lse,
+                                   void* stream) {
+  if (dtype != vt::kBF16 || (D != 512 && D != 384) || B <= 0 || Sq <= 0 ||
+      Skv <= 0 || !tc::aligned16(q) || !tc::aligned16(k) ||
+      !tc::aligned16(v) || !tc::aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 384) return launch<384>(q, k, v, B, Sq, Skv, scale, out, lse, st);
+  return launch<512>(q, k, v, B, Sq, Skv, scale, out, lse, st);
+}
+
+// The instance for head width D (512 or 384): out = {registers a thread at
+// launch, shared memory bytes a block (static + the dynamic size every
+// launch passes)}, from the CUDA runtime.
+VT_EXPORT int vt_flash_attn_fwd_tc_attrs(int D, int* out) {
+  if (D == 384) return attrs<384>(out);
+  if (D == 512) return attrs<512>(out);
+  return (int)cudaErrorInvalidValue;
 }

@@ -72,15 +72,16 @@
 // tile's P (hi and lo, 8 KB each): 224 KB.  Tensor maps: encoded
 // on the host per call (tc_common.cuh).  Ragged shapes: TMA fills rows past
 // Sq or Skv with zeros; keys past Skv are masked, rows past Sq not stored.
+// The head width is a template parameter, built for D = 512 (the FLUX and
+// SD VAEs' mid block) and D = 384 (the Wan VAE's): at 384 a warpgroup owns
+// three 64-column chunks of O (96 registers a thread) and Q takes 96 KB of
+// shared memory; every other line is shared.
 #include "tc_common.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;          // query rows a block (one wgmma M)
 constexpr int kBKV = 32;         // keys a tile
-constexpr int kD = 512;          // the head width: the VAE mid-block's channels
-constexpr int kHalf = kD / 2;    // D columns a warpgroup: S's K, O's N
-constexpr int kChunks = kHalf / 64;  // K chunks (and V^T chunks) a tile
 constexpr int kConsumers = 256;  // two warpgroups
 constexpr int kThreads = kConsumers;
 constexpr int kStages = 2;           // ring stages a warpgroup
@@ -94,7 +95,11 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// kD: the head width, the VAE mid-block's channels
+template <int kD>
 struct Layout {
+  static constexpr int kHalf = kD / 2;  // D columns a warpgroup: S's K, O's N
+  static constexpr int kChunks = kHalf / 64;  // K (and V^T) chunks a tile
   static constexpr int kQ = 0;
   static constexpr int kRing = kQ + kBQ * kD * 4;
   static constexpr int kX = kRing + 2 * kStages * kStage;
@@ -102,6 +107,7 @@ struct Layout {
   static constexpr int kBytes = kBar + 16 * 8 + 1024;  // + alignment slack
 };
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tkh,
@@ -110,7 +116,9 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tvl, int Sq,
                         int Skv, float scale_log2, float* __restrict__ out,
                         float* __restrict__ lse) {
-  using L = Layout;
+  using L = Layout<kD>;
+  constexpr int kHalf = L::kHalf;
+  constexpr int kChunks = L::kChunks;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = tc::align1024(smem_raw);
   uint8_t* qs = sm + L::kQ;
@@ -376,30 +384,17 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+template <int kD>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(flash_fwd_tf32x3_kernel,
+  return cudaFuncSetAttribute(flash_fwd_tf32x3_kernel<kD>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Layout::kBytes);
+                              Layout<kD>::kBytes);
 }
 
-}  // namespace
-
-// q (B,Sq,D) fp32; k_hi and k_lo (B,Skv,D) fp32, K split by split_tf32;
-// vt_hi and vt_lo (B,D,Skv_pad) fp32, V^T split the same way, Skv_pad =
-// Skv rounded up to a multiple of 8, the keys of each group of 8 in the
-// order 0 2 4 6 1 3 5 7 and zero past Skv; out (B,Sq,D) fp32; lse (B,Sq)
-// fp32.  D must be 512; every operand 16-byte aligned.
-VT_EXPORT int vt_flash_attn_fwd_tf32x3(const void* q, const void* k_hi,
-                                       const void* k_lo, const void* vt_hi,
-                                       const void* vt_lo, int B, int Sq,
-                                       int Skv, int Skv_pad, int D,
-                                       float scale, void* out, float* lse,
-                                       void* stream) {
-  if (D != kD || B <= 0 || Sq <= 0 || Skv <= 0 || Skv_pad < Skv ||
-      Skv_pad % 8 != 0 || !tc::aligned16(q) || !tc::aligned16(k_hi) ||
-      !tc::aligned16(k_lo) || !tc::aligned16(vt_hi) ||
-      !tc::aligned16(vt_lo) || !tc::aligned16(out))
-    return (int)cudaErrorInvalidValue;
+template <int kD>
+int launch(const void* q, const void* k_hi, const void* k_lo,
+           const void* vt_hi, const void* vt_lo, int B, int Sq, int Skv,
+           int Skv_pad, float scale, void* out, float* lse, cudaStream_t st) {
   CUtensorMap mq, mkh, mkl, mvh, mvl;
   const uint64_t dq[3] = {(uint64_t)kD, (uint64_t)Sq, (uint64_t)B};
   const uint64_t dk[3] = {(uint64_t)kD, (uint64_t)Skv, (uint64_t)B};
@@ -416,25 +411,58 @@ VT_EXPORT int vt_flash_attn_fwd_tf32x3(const void* q, const void* k_hi,
       !tc::make_map(&mvh, vt_hi, 3, dv, sv, bv, true) ||
       !tc::make_map(&mvl, vt_lo, 3, dv, sv, bv, true))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem();
+  cudaError_t err = allow_smem<kD>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, B);
-  flash_fwd_tf32x3_kernel<<<grid, kThreads, Layout::kBytes,
-                            static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_tf32x3_kernel<kD><<<grid, kThreads, Layout<kD>::kBytes, st>>>(
       mq, mkh, mkl, mvh, mvl, Sq, Skv, scale * kLog2e,
       static_cast<float*>(out), lse);
   return (int)cudaGetLastError();
 }
 
-// out = {registers a thread at launch, shared memory bytes a block (static
-// + the dynamic size every launch passes)}, from the CUDA runtime.
-VT_EXPORT int vt_flash_attn_fwd_tf32x3_attrs(int* out) {
-  cudaError_t err = allow_smem();
+template <int kD>
+int attrs(int* out) {
+  cudaError_t err = allow_smem<kD>();
   cudaFuncAttributes a;
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&a, flash_fwd_tf32x3_kernel);
+    err = cudaFuncGetAttributes(&a, flash_fwd_tf32x3_kernel<kD>);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes + a.maxDynamicSharedSizeBytes;
   return 0;
+}
+
+}  // namespace
+
+// q (B,Sq,D) fp32; k_hi and k_lo (B,Skv,D) fp32, K split by split_tf32;
+// vt_hi and vt_lo (B,D,Skv_pad) fp32, V^T split the same way, Skv_pad =
+// Skv rounded up to a multiple of 8, the keys of each group of 8 in the
+// order 0 2 4 6 1 3 5 7 and zero past Skv; out (B,Sq,D) fp32; lse (B,Sq)
+// fp32.  D must be 512 or 384; every operand 16-byte aligned.
+VT_EXPORT int vt_flash_attn_fwd_tf32x3(const void* q, const void* k_hi,
+                                       const void* k_lo, const void* vt_hi,
+                                       const void* vt_lo, int B, int Sq,
+                                       int Skv, int Skv_pad, int D,
+                                       float scale, void* out, float* lse,
+                                       void* stream) {
+  if ((D != 512 && D != 384) || B <= 0 || Sq <= 0 || Skv <= 0 ||
+      Skv_pad < Skv || Skv_pad % 8 != 0 || !tc::aligned16(q) ||
+      !tc::aligned16(k_hi) || !tc::aligned16(k_lo) || !tc::aligned16(vt_hi) ||
+      !tc::aligned16(vt_lo) || !tc::aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 384)
+    return launch<384>(q, k_hi, k_lo, vt_hi, vt_lo, B, Sq, Skv, Skv_pad,
+                       scale, out, lse, st);
+  return launch<512>(q, k_hi, k_lo, vt_hi, vt_lo, B, Sq, Skv, Skv_pad, scale,
+                     out, lse, st);
+}
+
+// The instance for head width D (512 or 384): out = {registers a thread at
+// launch, shared memory bytes a block (static + the dynamic size every
+// launch passes)}, from the CUDA runtime.
+VT_EXPORT int vt_flash_attn_fwd_tf32x3_attrs(int D, int* out) {
+  if (D == 384) return attrs<384>(out);
+  if (D == 512) return attrs<512>(out);
+  return (int)cudaErrorInvalidValue;
 }

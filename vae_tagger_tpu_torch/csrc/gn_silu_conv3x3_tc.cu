@@ -50,6 +50,15 @@
 // any N, H, W and channel counts that are multiples of 8 (TMA's 16-byte
 // strides).  Tensor maps: encoded on the host per call (tc_common.cuh,
 // through the driver entry point, no -lcuda).
+//
+// The prologue's normalisation is a compile-time mode, kNorm.  kGN, the
+// GroupNorm above: a per-(sample, channel) scale and shift.  kRms, the
+// per-pixel RMS norm of the Wan VAE (diffusers WanRMS_norm): the activation
+// silu(x * (r[n, y, x] * gamma[c])), where rms_norm.cu's stats pass wrote
+// r = sqrt(C) / max(||x[n, :, y, x]||, 1e-12) over the input's channels;
+// vt_rms_silu_conv3x3_tc passes gamma (Cin) and r (N, H, W) in the places
+// of eff_scale and eff_bias.  Every other line of the kernel is shared, so
+// the GN instances compile to what they were before the mode existed.
 #include "tc_common.cuh"
 
 namespace {
@@ -64,6 +73,7 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 
 enum Mode : int { kPlain = 0, kResidual = 1, kShortcut = 2 };
+enum Norm : int { kGN = 0, kRms = 1 };
 
 template <int BN>
 struct Layout {
@@ -100,7 +110,7 @@ __device__ __forceinline__ uint32_t pix_off(int p, int chunk) {
   return (uint32_t)p * 128 + (uint32_t)((chunk ^ (p & 7)) << 4);
 }
 
-template <int BN, int kMode>
+template <int BN, int kMode, int kNorm>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_tc_kernel(const __grid_constant__ CUtensorMap tx,
                   const __grid_constant__ CUtensorMap tw,
@@ -211,7 +221,8 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap tx,
     const bool conv = c < nconv;
     if (conv) {
       // activate the halo tile in place, 16 bytes (8 channels) a step
-      const float* es = eff_scale + (int64_t)n * Cin;
+      const float* es =
+          kNorm == kRms ? eff_scale : eff_scale + (int64_t)n * Cin;
       const float* eb = eff_bias + (int64_t)n * Cin;
       for (int u = tid; u < L::kHH * kHW * 8; u += kConsumers) {
         const int p = u >> 3;
@@ -226,18 +237,36 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap tx,
           const uint4 raw = *ptr;
           const __nv_bfloat162* xv =
               reinterpret_cast<const __nv_bfloat162*>(&raw);
-          const float4 s0 = *reinterpret_cast<const float4*>(es + ci0);
-          const float4 s1 = *reinterpret_cast<const float4*>(es + ci0 + 4);
-          const float4 b0 = *reinterpret_cast<const float4*>(eb + ci0);
-          const float4 b1 = *reinterpret_cast<const float4*>(eb + ci0 + 4);
-          const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-          const float bi[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
           uint32_t* o = reinterpret_cast<uint32_t*>(&v);
+          if constexpr (kNorm == kRms) {
+            // r of this pixel times gamma of each channel; no shift
+            const float rr = eff_bias[((int64_t)n * H + y) * W + x];
+            const float4 g0 = *reinterpret_cast<const float4*>(es + ci0);
+            const float4 g1 = *reinterpret_cast<const float4*>(es + ci0 + 4);
+            const float sc[8] = {rr * g0.x, rr * g0.y, rr * g0.z, rr * g0.w,
+                                 rr * g1.x, rr * g1.y, rr * g1.z, rr * g1.w};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(xv[e]);
-            o[e] = tc::pack_bf16(silu_fast(f.x * sc[2 * e] + bi[2 * e]),
-                                 silu_fast(f.y * sc[2 * e + 1] + bi[2 * e + 1]));
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(xv[e]);
+              o[e] = tc::pack_bf16(silu_fast(f.x * sc[2 * e]),
+                                   silu_fast(f.y * sc[2 * e + 1]));
+            }
+          } else {
+            const float4 s0 = *reinterpret_cast<const float4*>(es + ci0);
+            const float4 s1 = *reinterpret_cast<const float4*>(es + ci0 + 4);
+            const float4 b0 = *reinterpret_cast<const float4*>(eb + ci0);
+            const float4 b1 = *reinterpret_cast<const float4*>(eb + ci0 + 4);
+            const float sc[8] = {s0.x, s0.y, s0.z, s0.w,
+                                 s1.x, s1.y, s1.z, s1.w};
+            const float bi[8] = {b0.x, b0.y, b0.z, b0.w,
+                                 b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(xv[e]);
+              o[e] = tc::pack_bf16(
+                  silu_fast(f.x * sc[2 * e] + bi[2 * e]),
+                  silu_fast(f.y * sc[2 * e + 1] + bi[2 * e + 1]));
+            }
           }
         }
         *ptr = v;
@@ -340,25 +369,25 @@ conv3x3_tc_kernel(const __grid_constant__ CUtensorMap tx,
 // The output-channel tile for Cout: 128 up to 128 channels, else 256.
 int bn_for(int Cout) { return Cout <= 128 ? 128 : 256; }
 
-template <int BN, int kMode>
+template <int BN, int kMode, int kNorm>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(conv3x3_tc_kernel<BN, kMode>,
+  return cudaFuncSetAttribute(conv3x3_tc_kernel<BN, kMode, kNorm>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               Layout<BN>::kBytes);
 }
 
-template <int BN, int kMode>
+template <int BN, int kMode, int kNorm>
 int launch(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& mr,
            const CUtensorMap& mws, int N, int H, int W, int Cin, int Cout,
            int Cres, const float* es, const float* eb, const float* bias,
            const void* res, const float* scb, void* out, cudaStream_t st) {
   using L = Layout<BN>;
-  cudaError_t err = allow_smem<BN, kMode>();
+  cudaError_t err = allow_smem<BN, kMode, kNorm>();
   if (err != cudaSuccess) return (int)err;
   const int64_t tiles =
       (int64_t)N * ((H + L::kTH - 1) / L::kTH) * ((W + kTW - 1) / kTW);
   dim3 grid((unsigned)tiles, (Cout + BN - 1) / BN);
-  conv3x3_tc_kernel<BN, kMode><<<grid, kThreads, L::kBytes, st>>>(
+  conv3x3_tc_kernel<BN, kMode, kNorm><<<grid, kThreads, L::kBytes, st>>>(
       mx, mw, mr, mws, H, W, Cin, Cout, Cres, es, eb, bias,
       static_cast<const __nv_bfloat16*>(res), scb,
       static_cast<__nv_bfloat16*>(out));
@@ -367,7 +396,7 @@ int launch(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& mr,
 
 // The tensor maps of one call (their boxes depend on BN's tile height) and
 // the launch of the variant for the residual mode.
-template <int BN>
+template <int BN, int kNorm>
 int dispatch(const void* x, const void* wpack, const void* res,
              const void* wsc_t, int N, int H, int W, int Cin, int Cout,
              int Cres, const float* es, const float* eb, const float* bias,
@@ -398,25 +427,25 @@ int dispatch(const void* x, const void* wpack, const void* res,
     if (!tc::make_map(&mr, res, 4, dr, sr, br) ||
         !tc::make_map(&mws, wsc_t, 2, ds, ss, bs))
       return (int)cudaErrorInvalidValue;
-    return launch<BN, kShortcut>(mx, mw, mr, mws, N, H, W, Cin, Cout, Cres,
-                                 es, eb, bias, res, scb, out, st);
+    return launch<BN, kShortcut, kNorm>(mx, mw, mr, mws, N, H, W, Cin, Cout,
+                                        Cres, es, eb, bias, res, scb, out, st);
   }
   if (res != nullptr)
-    return launch<BN, kResidual>(mx, mw, mr, mws, N, H, W, Cin, Cout, Cres, es,
-                                 eb, bias, res, scb, out, st);
-  return launch<BN, kPlain>(mx, mw, mr, mws, N, H, W, Cin, Cout, Cres, es, eb,
-                            bias, res, scb, out, st);
+    return launch<BN, kResidual, kNorm>(mx, mw, mr, mws, N, H, W, Cin, Cout,
+                                        Cres, es, eb, bias, res, scb, out, st);
+  return launch<BN, kPlain, kNorm>(mx, mw, mr, mws, N, H, W, Cin, Cout, Cres,
+                                   es, eb, bias, res, scb, out, st);
 }
 
 // What the runtime reports for one instance: out = {BN, registers a thread
 // at launch, shared memory a block (static + the dynamic size every launch
 // passes)}.
-template <int BN, int kMode>
+template <int BN, int kMode, int kNorm>
 int attrs(int* out) {
-  cudaError_t err = allow_smem<BN, kMode>();
+  cudaError_t err = allow_smem<BN, kMode, kNorm>();
   cudaFuncAttributes a;
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&a, conv3x3_tc_kernel<BN, kMode>);
+    err = cudaFuncGetAttributes(&a, conv3x3_tc_kernel<BN, kMode, kNorm>);
   if (err != cudaSuccess) return (int)err;
   out[0] = BN;
   out[1] = a.numRegs;
@@ -424,11 +453,51 @@ int attrs(int* out) {
   return 0;
 }
 
-template <int BN>
+template <int BN, int kNorm>
 int attrs_of_mode(int mode, int* out) {
-  if (mode == kShortcut) return attrs<BN, kShortcut>(out);
-  if (mode == kResidual) return attrs<BN, kResidual>(out);
-  return attrs<BN, kPlain>(out);
+  if (mode == kShortcut) return attrs<BN, kShortcut, kNorm>(out);
+  if (mode == kResidual) return attrs<BN, kResidual, kNorm>(out);
+  return attrs<BN, kPlain, kNorm>(out);
+}
+
+// The checks and the launch of both exported entries; kNorm picks the
+// prologue's normalisation (eff_scale and eff_bias: the GN affine (N, Cin)
+// each, or gamma (Cin) and r (N, H, W) for kRms).
+template <int kNorm>
+int gn_or_rms(const void* x, int dtype, int N, int H, int W, int Cin,
+              int Cout, const float* eff_scale, const float* eff_bias,
+              const void* wpack, const float* bias, const void* res, int Cres,
+              const void* wsc_t, const float* sc_bias, void* out,
+              void* stream) {
+  if (dtype != vt::kBF16 || N <= 0 || H <= 0 || W <= 0 || Cin <= 0 ||
+      Cout <= 0 || Cin % 8 != 0 || Cout % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (res != nullptr && wsc_t == nullptr && Cres != Cout)
+    return (int)cudaErrorInvalidValue;
+  if (wsc_t != nullptr &&
+      (res == nullptr || sc_bias == nullptr || Cres <= 0 || Cres % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (!tc::aligned16(x) || !tc::aligned16(wpack) || !tc::aligned16(out) ||
+      !tc::aligned16(eff_scale) ||
+      (kNorm == kGN && !tc::aligned16(eff_bias)) ||
+      (res != nullptr && !tc::aligned16(res)) ||
+      (wsc_t != nullptr && !tc::aligned16(wsc_t)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bn_for(Cout) == 256)
+    return dispatch<256, kNorm>(x, wpack, res, wsc_t, N, H, W, Cin, Cout,
+                                Cres, eff_scale, eff_bias, bias, sc_bias, out,
+                                st);
+  return dispatch<128, kNorm>(x, wpack, res, wsc_t, N, H, W, Cin, Cout, Cres,
+                              eff_scale, eff_bias, bias, sc_bias, out, st);
+}
+
+template <int kNorm>
+int attrs_of(int Cout, int mode, int* out) {
+  if (Cout <= 0 || mode < kPlain || mode > kShortcut)
+    return (int)cudaErrorInvalidValue;
+  if (bn_for(Cout) == 256) return attrs_of_mode<256, kNorm>(mode, out);
+  return attrs_of_mode<128, kNorm>(mode, out);
 }
 
 }  // namespace
@@ -448,33 +517,32 @@ VT_EXPORT int vt_gn_silu_conv3x3_tc(const void* x, int dtype, int N, int H,
                                     int Cres, const void* wsc_t,
                                     const float* sc_bias, void* out,
                                     void* stream) {
-  if (dtype != vt::kBF16 || N <= 0 || H <= 0 || W <= 0 || Cin <= 0 ||
-      Cout <= 0 || Cin % 8 != 0 || Cout % 8 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (res != nullptr && wsc_t == nullptr && Cres != Cout)
-    return (int)cudaErrorInvalidValue;
-  if (wsc_t != nullptr &&
-      (res == nullptr || sc_bias == nullptr || Cres <= 0 || Cres % 8 != 0))
-    return (int)cudaErrorInvalidValue;
-  if (!tc::aligned16(x) || !tc::aligned16(wpack) || !tc::aligned16(out) ||
-      !tc::aligned16(eff_scale) || !tc::aligned16(eff_bias) ||
-      (res != nullptr && !tc::aligned16(res)) ||
-      (wsc_t != nullptr && !tc::aligned16(wsc_t)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bn_for(Cout) == 256)
-    return dispatch<256>(x, wpack, res, wsc_t, N, H, W, Cin, Cout, Cres,
-                         eff_scale, eff_bias, bias, sc_bias, out, st);
-  return dispatch<128>(x, wpack, res, wsc_t, N, H, W, Cin, Cout, Cres,
-                       eff_scale, eff_bias, bias, sc_bias, out, st);
+  return gn_or_rms<kGN>(x, dtype, N, H, W, Cin, Cout, eff_scale, eff_bias,
+                        wpack, bias, res, Cres, wsc_t, sc_bias, out, stream);
+}
+
+// The RMS mode: as vt_gn_silu_conv3x3_tc, the activation
+// silu(x * r[n, y, x] * gamma[c]) from gamma (Cin) fp32, 16-byte aligned,
+// and r (N,H,W) fp32 (rms_norm.cu's stats pass).
+VT_EXPORT int vt_rms_silu_conv3x3_tc(const void* x, int dtype, int N, int H,
+                                     int W, int Cin, int Cout,
+                                     const float* gamma, const float* r,
+                                     const void* wpack, const float* bias,
+                                     const void* res, int Cres,
+                                     const void* wsc_t, const float* sc_bias,
+                                     void* out, void* stream) {
+  return gn_or_rms<kRms>(x, dtype, N, H, W, Cin, Cout, gamma, r, wpack, bias,
+                         res, Cres, wsc_t, sc_bias, out, stream);
 }
 
 // The instance vt_gn_silu_conv3x3_tc launches for Cout and a residual mode
 // (0 none, 1 residual, 2 1x1 shortcut): out = {output-channel tile,
 // registers a thread, shared memory bytes a block}, from the CUDA runtime.
 VT_EXPORT int vt_gn_silu_conv3x3_tc_attrs(int Cout, int mode, int* out) {
-  if (Cout <= 0 || mode < kPlain || mode > kShortcut)
-    return (int)cudaErrorInvalidValue;
-  if (bn_for(Cout) == 256) return attrs_of_mode<256>(mode, out);
-  return attrs_of_mode<128>(mode, out);
+  return attrs_of<kGN>(Cout, mode, out);
+}
+
+// The same for the instance vt_rms_silu_conv3x3_tc launches.
+VT_EXPORT int vt_rms_silu_conv3x3_tc_attrs(int Cout, int mode, int* out) {
+  return attrs_of<kRms>(Cout, mode, out);
 }

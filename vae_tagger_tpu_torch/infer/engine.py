@@ -65,7 +65,7 @@ from ..core.device import indexed_device, resolve_device
 from ..core.precision import Policy, resolve_mixed_precision
 from ..data.dataset import load_tag_names
 from ..io.checkpoints import load_decoder, load_vae
-from ..models.autoencoder_kl import AutoencoderKL, encode_scaled
+from ..models.autoencoder_kl import AutoencoderKL
 from ..models.taggers import (
     AttentionClassificationDecoder,
     ClassificationDecoder,
@@ -208,7 +208,7 @@ class VAEOnlyEngine:
             mode = torch.cat([self.vae.encode(chunk, spatial=row).mode()
                               for chunk, row in zip(x.chunk(len(rows)),
                                                     rows)])
-        return encode_scaled(mode, self.vae.config)
+        return self.vae.scale_latents(mode)
 
     def _placed(self, pixels_uint8) -> torch.Tensor:
         """The batch on the device.  In spatial mode a height the shards do

@@ -136,7 +136,6 @@ class TiledVAE:
         return next(self.vae.parameters()).device
 
     def _encode_chunk(self, px_u8: np.ndarray) -> np.ndarray:
-        from ..models.autoencoder_kl import encode_scaled
         from ..ops.image import normalize_uint8
 
         with torch.inference_mode():
@@ -144,7 +143,7 @@ class TiledVAE:
                 self.device)
             posterior = self.vae.encode(normalize_uint8(px,
                                                         self.compute_dtype))
-            z = encode_scaled(posterior.mode(), self.vae.config)
+            z = self.vae.scale_latents(posterior.mode())
             return z.float().cpu().numpy()
 
     def _decode_chunk(self, z_scaled: np.ndarray) -> np.ndarray:

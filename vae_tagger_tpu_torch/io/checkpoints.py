@@ -1,10 +1,15 @@
 """Checkpoint I/O for the port.
 
 - :func:`load_vae`: diffusers-layout VAE weights (``.safetensors`` or a
-  pickled ``.bin``) plus ``config.json``, loaded into the port's
-  ``AutoencoderKL`` with ``load_state_dict(strict=False)`` and a key-diff
-  report, as the reference loads them.  The port's modules carry the
-  diffusers key names, so no key is renamed and no weight transposed.
+  pickled ``.bin``) plus ``config.json``, loaded into the port's VAE of
+  the family that the config's ``_class_name`` names (``AutoencoderKL``,
+  FLUX and SD; ``AutoencoderKLWan``, the Wan 2.1 VAE's encoder;
+  :func:`vae_class`) with ``load_state_dict(strict=False)`` and a
+  key-diff report, as the reference loads them.  The port's modules carry
+  the diffusers key names, so no key is renamed and no weight transposed;
+  a Wan checkpoint's 5-D conv kernels are cut to the tap that meets a
+  first frame, its ``gamma`` flattened and its ``time_conv`` dropped as it
+  loads (models/autoencoder_kl_wan.py).
   With ``with_decoder`` the model holds the decoder and loads
   ``decoder.*`` and ``post_quant_conv.*`` too; without it (the tagging
   engine, latent extraction) those keys are skipped.
@@ -39,6 +44,7 @@ import torch
 
 from ..core.config import (
     VAEConfig,
+    WanVAEConfig,
     default_flux_vae_config,
     vae_config_from_file,
 )
@@ -143,38 +149,71 @@ def warn_if_quant_convs_missing(missing) -> None:
               "config -- randomly-initialized quant convs corrupt latents.")
 
 
+def vae_class(config):
+    """The port's VAE class for ``config``: ``AutoencoderKLWan`` for a
+    :class:`WanVAEConfig`, else ``AutoencoderKL``."""
+    from ..models.autoencoder_kl import AutoencoderKL
+    from ..models.autoencoder_kl_wan import AutoencoderKLWan
+
+    return AutoencoderKLWan if isinstance(config, WanVAEConfig) \
+        else AutoencoderKL
+
+
+def read_vae_config(vae_config_path: Optional[str]):
+    """The config of ``vae_config_path`` (any family), or None without
+    one."""
+    if vae_config_path and os.path.exists(vae_config_path):
+        return vae_config_from_file(vae_config_path)
+    return None
+
+
+def refuse_vae_backward(vae_config_path: Optional[str], trainer: str) -> None:
+    """Raise before anything loads where ``trainer`` would backpropagate
+    through a VAE family whose backward the port lacks (the Wan VAE)."""
+    if isinstance(read_vae_config(vae_config_path), WanVAEConfig):
+        from ..models.autoencoder_kl_wan import UNPORTED_BACKWARD
+
+        raise NotImplementedError(
+            f"{trainer} backpropagates through the VAE, and the port runs "
+            f"the Wan VAE (AutoencoderKLWan) forward only: missing "
+            f"{UNPORTED_BACKWARD}.  train_decoder trains the tagger head on "
+            f"its latents")
+
+
 def load_vae(vae_checkpoint: Optional[str],
              vae_config_path: Optional[str] = None, *,
              require_checkpoint: bool = True,
              resolution: Optional[int] = None, remat: bool = False,
              use_quant_conv: bool = False,
              use_post_quant_conv: bool = False, with_decoder: bool = False):
-    """The port's ``AutoencoderKL`` (CPU, fp32), with its decoder when
+    """The port's VAE (CPU, fp32) of the config JSON's family
+    (``AutoencoderKL`` or ``AutoencoderKLWan``), with its decoder when
     ``with_decoder``: the config JSON if given, else the FLUX config
     (``sample_size`` = ``resolution`` when given);
     ``use_quant_conv``/``use_post_quant_conv`` force the SD-style quant
-    convs on.  Weights come from a diffusers-layout checkpoint; keys it
-    lacks keep a seeded fresh initialization (strict=False).  Without a
+    convs on (``AutoencoderKL`` only).  Weights come from a
+    diffusers-layout checkpoint; keys it lacks keep a seeded fresh
+    initialization (strict=False).  Without a
     checkpoint the model stays freshly initialized, unless
     ``require_checkpoint``."""
-    from ..models.autoencoder_kl import AutoencoderKL
     from ..nn.blocks import seeded_init_
 
     have = bool(vae_checkpoint and os.path.exists(vae_checkpoint))
     if require_checkpoint and not have:
         raise RuntimeError(f"VAE checkpoint not found: {vae_checkpoint}")
-    if vae_config_path and os.path.exists(vae_config_path):
+    config = read_vae_config(vae_config_path)
+    if config is not None:
         print(f"creating VAE from config file: {vae_config_path}")
-        config = vae_config_from_file(vae_config_path)
     else:
         config = default_flux_vae_config()
         if resolution is not None:
             config = dataclasses.replace(config, sample_size=resolution)
-    if use_quant_conv or use_post_quant_conv:
+    if (use_quant_conv or use_post_quant_conv) and \
+            isinstance(config, VAEConfig):
         config = dataclasses.replace(config, use_quant_conv=use_quant_conv,
                                      use_post_quant_conv=use_post_quant_conv)
-    model = seeded_init_(AutoencoderKL(config, remat=remat,
-                                       with_decoder=with_decoder))
+    model = seeded_init_(vae_class(config)(config, remat=remat,
+                                           with_decoder=with_decoder))
     if not have:
         print("no VAE checkpoint: training from a fresh initialization")
         return model

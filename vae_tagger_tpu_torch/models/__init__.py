@@ -6,6 +6,7 @@ from .autoencoder_kl import (
     decode_scaled,
     encode_scaled,
 )
+from .autoencoder_kl_wan import AutoencoderKLWan
 from .taggers import (
     AttentionClassificationDecoder,
     ClassificationDecoder,
@@ -19,6 +20,7 @@ from .taggers import (
 __all__ = [
     "AttentionClassificationDecoder",
     "AutoencoderKL",
+    "AutoencoderKLWan",
     "ClassificationDecoder",
     "CrossAttention",
     "Decoder",

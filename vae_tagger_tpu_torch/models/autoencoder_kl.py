@@ -205,6 +205,11 @@ class AutoencoderKL(nn.Module):
             return gather_height(xs, z.device).float()
         return self.decoder(z).float()
 
+    def scale_latents(self, mean: torch.Tensor) -> torch.Tensor:
+        """The latents the tagger head reads (:func:`encode_scaled`):
+        ``mean * scaling_factor + shift_factor``."""
+        return encode_scaled(mean, self.config)
+
     def forward(self, x, generator: torch.Generator):
         """The training forward: (reconstruction of a posterior draw from
         ``generator``, posterior), in the dtype of x."""

@@ -1,4 +1,5 @@
-"""Building blocks of the FLUX AutoencoderKL, NHWC in and out.
+"""Building blocks of the FLUX AutoencoderKL and of the Wan VAE's encoder,
+NHWC in and out.
 
 Counterpart of ``vae_tagger_tpu/nn/blocks.py``.  Module and parameter names
 follow the diffusers state-dict keys
@@ -28,6 +29,16 @@ each slab's own rows; the stride-2 ``Downsample`` takes one halo row from
 below, its zero row on the last slab only; the mid-block attention runs
 each slab's queries against the gathered keys and values.  A slab's
 parameters are read on its device through ``.to``.
+
+The Wan VAE's encoder (diffusers ``AutoencoderKLWan``, one frame) has its
+own blocks at the end of the module: :class:`RMSNorm` (``gamma`` (C,), the
+per-pixel RMS norm), :class:`WanResidualBlock` (both branches through the
+fused ``rms_silu_conv3x3``, kernel B' in its RMS mode on the card),
+:class:`WanAttentionBlock` (RMS norm, a 1x1 ``to_qkv``, kernel C at head
+width = channels, a 1x1 ``proj``) and :class:`WanResample` (the stride-2
+downsample).  Their causal 3x3x3 convs hold only the last temporal tap,
+the one that multiplies the first frame (models/autoencoder_kl_wan.py);
+they have no slab form.
 """
 
 from __future__ import annotations
@@ -47,8 +58,13 @@ from ..ops.conv import (
     conv2d_nhwc,
     gn_silu_conv3x3,
     gn_silu_conv3x3_from_stats,
+    rms_silu_conv3x3,
 )
-from ..ops.normalization import group_norm_silu, group_norm_silu_from_stats
+from ..ops.normalization import (
+    group_norm_silu,
+    group_norm_silu_from_stats,
+    rms_norm_silu,
+)
 from ..parallel import spatial
 
 
@@ -361,6 +377,87 @@ class UpDecoderBlock(nn.Module):
         return xs
 
 
+class RMSNorm(nn.Module):
+    """The Wan VAE's RMS norm over the channels of each pixel,
+    ``x / max(||x||, 1e-12) * sqrt(C) * gamma`` (no bias), optionally
+    followed by SiLU (the RMS stats and apply passes on the card)."""
+
+    def __init__(self, channels: int, with_silu: bool = False):
+        super().__init__()
+        self.with_silu = with_silu
+        self.gamma = nn.Parameter(torch.ones(channels))
+
+    def forward(self, x):
+        return rms_norm_silu(x, self.gamma, apply_silu=self.with_silu)
+
+
+class WanResidualBlock(nn.Module):
+    """RMS norm -> SiLU -> conv3x3, twice, plus the (1x1-projected)
+    residual; both branches run fused (ops/conv.py::rms_silu_conv3x3).
+    Dropout (0 in the published config) is left out: the encoder runs in
+    eval mode."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.norm1 = RMSNorm(in_channels, with_silu=True)
+        self.conv1 = Conv2D(in_channels, out_channels)
+        self.norm2 = RMSNorm(out_channels, with_silu=True)
+        self.conv2 = Conv2D(out_channels, out_channels)
+        self.conv_shortcut = (Conv2D(in_channels, out_channels, 1, padding=0)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x):
+        h = rms_silu_conv3x3(x, self.norm1.gamma, self.conv1.hwio(),
+                             self.conv1.bias)
+        sc = self.conv_shortcut
+        return rms_silu_conv3x3(
+            h, self.norm2.gamma, self.conv2.hwio(), self.conv2.bias,
+            residual=x,
+            shortcut_kernel=None if sc is None else sc.weight[:, :, 0, 0].t(),
+            shortcut_bias=None if sc is None else sc.bias)
+
+
+class WanAttentionBlock(nn.Module):
+    """Single-head spatial self-attention with residual (the Wan VAE's mid
+    block): RMS norm (no SiLU), a 1x1 ``to_qkv`` (C -> 3C: q, k, v in that
+    order of channels), one head of dim == channels (kernel C on the
+    card), a 1x1 ``proj``."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.norm = RMSNorm(channels)
+        self.to_qkv = Conv2D(channels, 3 * channels, 1, padding=0)
+        self.proj = Conv2D(channels, channels, 1, padding=0)
+
+    @staticmethod
+    def _pointwise(conv: Conv2D, x):
+        """A 1x1 conv as a matmul over the channels, in x's dtype."""
+        w = conv.weight[:, :, 0, 0].to(x.device, x.dtype)
+        return F.linear(x, w, conv.bias.to(x.device, x.dtype))
+
+    def forward(self, x):
+        n, h, w, c = x.shape
+        qkv = self._pointwise(self.to_qkv, self.norm(x).reshape(n, h * w, c))
+        q, k, v = qkv.chunk(3, dim=-1)
+        o = spatial_single_head_attention(q, k, v)
+        return self._pointwise(self.proj, o).reshape(n, h, w, c) + x
+
+
+class WanResample(nn.Module):
+    """The Wan encoder's spatial downsample: one column and row of zeros on
+    the right and bottom, then a stride-2 3x3 conv (``resample.1``; index
+    0 is the padding, which holds no weight).  ``downsample3d``'s
+    ``time_conv`` never runs on a first frame and is not built."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.resample = nn.ModuleList([
+            nn.Identity(), Conv2D(channels, channels, 3, stride=2, padding=0)])
+
+    def forward(self, x):
+        return self.resample[1](F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
 @torch.no_grad()
 def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:
     """Deterministic fresh weights from a ``torch.Generator``: conv and
@@ -374,7 +471,7 @@ def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:
             fan_in = math.prod(p.shape[1:])
             w = torch.randn(p.shape, generator=g) / math.sqrt(fan_in)
             p.copy_(w.to(p))
-        elif leaf == "weight":
+        elif leaf in ("weight", "gamma"):  # a norm's scale
             p.fill_(1.0)
         else:
             p.zero_()

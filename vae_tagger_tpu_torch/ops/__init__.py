@@ -11,7 +11,7 @@ from .attention import (
     flash_attention_fwd,
     spatial_single_head_attention,
 )
-from .conv import conv2d_nhwc, gn_silu_conv3x3
+from .conv import conv2d_nhwc, gn_silu_conv3x3, rms_silu_conv3x3
 from .image import normalize_uint8
 from .normalization import (
     group_norm,
@@ -19,6 +19,7 @@ from .normalization import (
     group_norm_silu,
     group_stats,
     layer_norm,
+    rms_norm_silu,
 )
 from .pooling import adaptive_avg_pool_nhwc, adaptive_max_pool_nhwc
 
@@ -36,5 +37,7 @@ __all__ = [
     "group_stats",
     "layer_norm",
     "normalize_uint8",
+    "rms_norm_silu",
+    "rms_silu_conv3x3",
     "spatial_single_head_attention",
 ]

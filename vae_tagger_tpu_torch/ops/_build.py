@@ -59,6 +59,10 @@ SIGNATURES = {
         "vt_gn_bwd_apply": [_P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P,
                             _P, _P, _I, _P, _P],
     },
+    "rms_norm": {
+        "vt_rms_stats": [_P, _I, _L, _I, _F, _P, _P],
+        "vt_rms_apply": [_P, _I, _L, _I, _P, _P, _P, _I, _P],
+    },
     "gn_silu_conv3x3": {
         "vt_gn_silu_conv3x3": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                _P, _I, _P, _P, _P, _P],
@@ -66,7 +70,10 @@ SIGNATURES = {
     "gn_silu_conv3x3_tc": {
         "vt_gn_silu_conv3x3_tc": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                                   _P, _P, _I, _P, _P, _P, _P],
+        "vt_rms_silu_conv3x3_tc": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                   _P, _P, _I, _P, _P, _P, _P],
         "vt_gn_silu_conv3x3_tc_attrs": [_I, _I, _P],
+        "vt_rms_silu_conv3x3_tc_attrs": [_I, _I, _P],
     },
     "gn_silu_conv3x3_tf32x3": {
         "vt_gn_silu_conv3x3_tf32x3": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
@@ -80,12 +87,12 @@ SIGNATURES = {
     "flash_attention_fwd_tc": {
         "vt_flash_attn_fwd_tc": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P,
                                  _P],
-        "vt_flash_attn_fwd_tc_attrs": [_P],
+        "vt_flash_attn_fwd_tc_attrs": [_I, _P],
     },
     "flash_attention_fwd_tf32x3": {
         "vt_flash_attn_fwd_tf32x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _F, _P, _P, _P],
-        "vt_flash_attn_fwd_tf32x3_attrs": [_P],
+        "vt_flash_attn_fwd_tf32x3_attrs": [_I, _P],
     },
     "flash_attention_bwd": {
         "vt_flash_attn_bwd_dq": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

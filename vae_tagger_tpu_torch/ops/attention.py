@@ -4,12 +4,14 @@ kernels C', C'', D, D', E and E'.
 Counterpart of ``vae_tagger_tpu/ops/attention.py`` and of the custom VJP in
 ``vae_tagger_tpu/ops/pallas/flash_attention.py``.  The one long-sequence
 attention of the model is the VAE mid-block: one head of D = 512 channels
-over the whole latent grid (16,384 tokens at 1024px).
+(FLUX, SD) or 384 (Wan) over the whole latent grid (16,384 tokens at
+1024px).
 
 :func:`flash_attention` is a ``torch.autograd.Function``.  Its forward is
 :func:`flash_attention_fwd`, which on a CUDA tensor launches the kernel
 that :data:`FWD_KERNELS` names for the dtype, both on the tensor cores and
-for head width 512 (the mid-block's): bf16 goes to kernel C'
+built for head widths 512 and 384 (:data:`TC_HEAD_DIMS`): bf16 goes to
+kernel C'
 (``csrc/flash_attention_fwd_tc.cu``), fp32 to kernel C''
 (``csrc/flash_attention_fwd_tf32x3.cu``, 3xTF32 products; the wrapper
 splits K and a key-permuted V^T into hi and lo in every call,
@@ -20,7 +22,7 @@ L.  Its backward is :func:`flash_attention_bwd`: Dl = rowsum(dO * O) in
 fp32 with plain torch, as the JAX package takes it in XLA, then the dQ kernel
 (:func:`flash_attention_bwd_dq`) and the dK/dV kernel
 (:func:`flash_attention_bwd_dkv`) that :data:`BWD_KERNELS` names, all on
-the tensor cores for head width 512: bf16 goes to D' and E'
+the tensor cores for head width 512 alone: bf16 goes to D' and E'
 (``csrc/flash_attention_bwd_tc.cu``), fp32 to D'' and E''
 (``csrc/flash_attention_bwd_tf32x3.cu``, 3xTF32 products; the wrapper lays
 out and splits their shared-memory operands in every call,
@@ -86,34 +88,39 @@ BWD_KERNELS = {
                 "flash_attention_bwd_dkv_tf32x3"),
     },
 }
-# the dtypes whose kernels are tensor-core kernels that take head width
-# TC_HEAD_DIM only: all of them
+# the dtypes whose kernels are tensor-core kernels that take the head widths
+# of TC_HEAD_DIMS only: all of them
 TC_DTYPES = {"fwd": {torch.bfloat16, torch.float32},
              "bwd": {torch.bfloat16, torch.float32}}
 # kernels a C entry launches a call: E' and E'' run their dV pass, then
 # their dK pass
 LAUNCHES_PER_CALL = {"vt_flash_attn_bwd_dkv_tc": 2,
                      "vt_flash_attn_bwd_dkv_tf32x3": 2}
-# the head width the tensor-core kernels C', C'', D', D'', E' and E'' are
-# built for: the VAE mid-block's channels
-TC_HEAD_DIM = 512
+# the head widths the tensor-core kernels are built for, the VAE
+# mid-block's channels: the forward's C' and C'' at 512 (FLUX, SD) and 384
+# (Wan), the backward's D', D'', E' and E'' at 512 alone
+TC_HEAD_DIMS = {"fwd": (384, 512), "bwd": (512,)}
+_TC_NAMES = {"fwd": "C', C''", "bwd": "D', D'', E', E''"}
 
 
-def check_tc_head_width(d):
-    """Raise for a head width the tensor-core kernels are not built for."""
-    if d != TC_HEAD_DIM:
-        raise ValueError(f"the tensor-core attention kernels (C', C'', D', "
-                         f"D'', E', E'') take head width {TC_HEAD_DIM}, "
-                         f"got {d}")
+def check_tc_head_width(d, direction: str = "fwd"):
+    """Raise for a head width the tensor-core kernels of ``direction``
+    ("fwd" or "bwd") are not built for."""
+    widths = TC_HEAD_DIMS[direction]
+    if d not in widths:
+        raise ValueError(f"the tensor-core attention kernels "
+                         f"({_TC_NAMES[direction]}) take head width "
+                         f"{' or '.join(map(str, widths))}, got {d}")
 
 
-def fwd_tc_kernel_attrs(dtype=torch.bfloat16):
-    """What the CUDA runtime reports for kernel C' (bf16) or C'' (fp32):
-    registers a thread and shared memory bytes a block.  On a machine with
-    the card only."""
+def fwd_tc_kernel_attrs(dtype=torch.bfloat16, d: int = 512):
+    """What the CUDA runtime reports for the instance of kernel C' (bf16)
+    or C'' (fp32) at head width ``d``: registers a thread and shared memory
+    bytes a block.  On a machine with the card only."""
+    check_tc_head_width(d)
     stem, fn, _ = FWD_KERNELS[dtype]
     out = (ctypes.c_int * 2)()
-    check(getattr(lib(stem), f"{fn}_attrs")(out), f"{fn}_attrs")
+    check(getattr(lib(stem), f"{fn}_attrs")(d, out), f"{fn}_attrs")
     return dict(registers=out[0], smem_bytes=out[1])
 
 
@@ -238,7 +245,7 @@ def _kernel_entry(table, q, direction):
         raise TypeError(f"the attention kernels take bfloat16 or float32, "
                         f"got {q.dtype}")
     if q.dtype in TC_DTYPES[direction]:
-        check_tc_head_width(q.shape[-1])
+        check_tc_head_width(q.shape[-1], direction)
     return entry
 
 

@@ -37,6 +37,9 @@ LAUNCHES = {
     "group_norm_silu": 0,
     "group_stats": 0,
     "group_norm_silu_bwd": 0,
+    "rms_norm_stats": 0,
+    "rms_norm_silu": 0,
+    "rms_silu_conv3x3_tc": 0,
     "gn_silu_conv3x3": 0,
     "gn_silu_conv3x3_tc": 0,
     "gn_silu_conv3x3_tf32x3": 0,

@@ -34,6 +34,14 @@ height slab extended by its neighbours' halo rows takes
 (parallel/spatial.py), its plain version
 :func:`gn_silu_conv3x3_from_stats_plain`.
 
+:func:`rms_silu_conv3x3` is the Wan VAE's residual-block branch,
+``conv3x3(silu(rms_norm(x) * gamma)) + bias [+ residual]``: the RMS stats
+pass (ops/normalization.py), then on bf16 kernel B' in its RMS mode (a
+compile-time mode of the same kernel: the activation from the per-pixel
+factor and gamma), on fp32 the RMS apply pass with the exact SiLU and then
+B'' unchanged.  It is forward only on the card; its plain version
+:func:`rms_silu_conv3x3_plain` trains on the CPU.
+
 Every other conv of the encode path (``conv_in``, the stride-2
 downsamples, ``conv_out``, the tagger head's convs) is :func:`conv2d_nhwc`,
 ``F.conv2d``, as the JAX package leaves them to ``lax.conv``.  The
@@ -70,7 +78,16 @@ from .normalization import (  # noqa: F401  (re-exported, as in the JAX module)
     group_stats,
     vjp_of_plain,
 )
-from .normalization import EXACT_SILU, _gn_apply_kernel
+from .normalization import (
+    EXACT_SILU,
+    RMS_EPS,
+    _gn_apply_kernel,
+    refuse_grad,
+    rms_norm_silu_apply,
+    rms_norm_silu_apply_plain,
+    rms_norm_stats,
+    rms_stats_plain,
+)
 
 
 # dtype of a CUDA tensor -> (library, C entry, launch counter) of the
@@ -82,6 +99,10 @@ CONV_KERNELS = {
     torch.float32: ("gn_silu_conv3x3_tf32x3", "vt_gn_silu_conv3x3_tf32x3",
                     "gn_silu_conv3x3_tf32x3"),
 }
+
+# the RMS mode of kernel B' (bf16): (C entry, launch counter); in fp32 the
+# RMS apply pass feeds B'' as it is
+RMS_CONV_KERNEL = ("vt_rms_silu_conv3x3_tc", "rms_silu_conv3x3_tc")
 
 # the residual modes of the instances of kernels B' and B''
 TC_MODES = ("plain", "residual", "shortcut")
@@ -115,13 +136,15 @@ def check_tc_conv_shape(n, h, w, c_in, c_out, c_shortcut=0,
         raise ValueError(f"empty conv: {(n, h, w, c_in, c_out)}")
 
 
-def tc_kernel_attrs(c_out, mode, dtype=torch.bfloat16):
+def tc_kernel_attrs(c_out, mode, dtype=torch.bfloat16, norm: str = "gn"):
     """What the CUDA runtime reports for the instance of kernel B' (bf16)
     or B'' (fp32) that a conv with ``c_out`` output channels and residual
-    ``mode`` (one of :data:`TC_MODES`) launches: its output-channel tile,
-    registers a thread and shared memory bytes a block.  On a machine with
-    the card only."""
+    ``mode`` (one of :data:`TC_MODES`) launches, in B''s GroupNorm or
+    (``norm="rms"``) RMS mode: its output-channel tile, registers a thread
+    and shared memory bytes a block.  On a machine with the card only."""
     stem, fn, _ = CONV_KERNELS[dtype]
+    if norm == "rms" and dtype == torch.bfloat16:
+        fn = RMS_CONV_KERNEL[0]
     out = (ctypes.c_int * 3)()
     check(getattr(lib(stem), f"{fn}_attrs")(c_out, TC_MODES.index(mode), out),
           f"{fn}_attrs")
@@ -241,14 +264,18 @@ def _check_conv(x, kernel, residual, shortcut_kernel):
 
 
 def _fused_conv_launch(x, eff_scale, eff_bias, kernel, bias, residual,
-                       shortcut_kernel, shortcut_bias):
+                       shortcut_kernel, shortcut_bias, rms=False):
     """Launch kernel B' (bf16) or B'' (fp32) on a contiguous CUDA tensor x
     with the fp32 (N, Cin) eff_scale and eff_bias of its activation (B''
-    after kernel A's apply pass); returns (output, launch counter)."""
+    after kernel A's apply pass); returns (output, launch counter).  With
+    ``rms`` they are the RMS norm's gamma (Cin) and per-pixel factors r
+    (N, H, W): B' in its RMS mode, or B'' after the RMS apply pass."""
     n, h, w, c_in = x.shape
     c_out = kernel.shape[-1]
     dt = x.dtype
     stem, fn, counter = conv_kernel_for(x)
+    if rms and dt == torch.bfloat16:
+        fn, counter = RMS_CONV_KERNEL
     c_res = 0 if residual is None else residual.shape[-1]
 
     def operands(wmat):  # B' reads a packed bf16 weight, B'' its hi and lo
@@ -266,6 +293,9 @@ def _fused_conv_launch(x, eff_scale, eff_bias, kernel, bias, residual,
     wscs = operands(wsc)
     if dt == torch.bfloat16:  # B' activates the pixels it stages
         head, affine = [x.data_ptr(), dtype_code(x)], [eff_scale, eff_bias]
+    elif rms:  # B'' reads x activated by the RMS apply pass, exact SiLU
+        x = rms_norm_silu_apply(x, eff_bias, eff_scale, apply_silu=EXACT_SILU)
+        head, affine = [x.data_ptr()], []
     else:  # B'' reads x activated, with the SIMT kernel B's exact SiLU
         x = _gn_apply_kernel(x, eff_scale, eff_bias, EXACT_SILU)
         head, affine = [x.data_ptr()], []
@@ -436,3 +466,54 @@ def gn_silu_conv3x3_from_stats(x, mean, meansq, gn_scale, gn_bias, kernel,
     return _GnSiluConv3x3FromStats.apply(eps, x, mean, meansq, gn_scale,
                                          gn_bias, kernel, bias, residual,
                                          shortcut_kernel, shortcut_bias)
+
+
+def rms_silu_conv3x3_plain(x, gamma, kernel, bias, residual=None,
+                           shortcut_kernel=None, shortcut_bias=None, *,
+                           eps: float = RMS_EPS):
+    """:func:`rms_silu_conv3x3` in PyTorch: the RMS norm and the SiLU in
+    fp32, cast once (as kernel B' rounds its activated tile), then the
+    conv, the bias and the residual or shortcut as
+    :func:`gn_silu_conv3x3_plain` adds them."""
+    y = rms_norm_silu_apply_plain(x, rms_stats_plain(x, eps), gamma)
+    return _conv3x3_tail(y, kernel, bias, residual, shortcut_kernel,
+                         shortcut_bias)
+
+
+@on_tensor_device
+def _rms_silu_conv3x3_kernel(x, gamma, kernel, bias, residual,
+                             shortcut_kernel, shortcut_bias, eps):
+    """The RMS stats pass, then kernel B' in its RMS mode (bf16) or the RMS
+    apply pass and kernel B'' (fp32); returns (output, launch counter)."""
+    _check_conv(x, kernel, residual, shortcut_kernel)
+    x = x.contiguous()
+    r = rms_norm_stats(x, eps)
+    g = gamma.to(x.device, torch.float32).contiguous()
+    if g.data_ptr() % 16:  # B' loads gamma 16 bytes a time
+        g = g.clone()
+    return _fused_conv_launch(x, g, r, kernel, bias, residual,
+                              shortcut_kernel, shortcut_bias, rms=True)
+
+
+@ranged("op.rms_silu_conv3x3")
+def rms_silu_conv3x3(x, gamma, kernel, bias, residual=None,
+                     shortcut_kernel=None, shortcut_bias=None, *,
+                     eps: float = RMS_EPS):
+    """The Wan VAE's residual-block branch: conv3x3(silu(x / max(||x||,
+    eps) * sqrt(C) * gamma)) + bias [+ residual], the norm over the
+    channels of each pixel.
+
+    x (N,H,W,Cin); gamma (Cin,); kernel (3,3,Cin,Cout) HWIO; bias (Cout,);
+    residual (N,H,W,Cout), or (N,H,W,Cres) projected first by
+    ``shortcut_kernel`` ((1,1,Cres,Cout) or (Cres,Cout)) + ``shortcut_bias``.
+    Forward only on the card; the plain version on the CPU."""
+    if backend.use_kernel(x):
+        refuse_grad(x, gamma, kernel, bias, residual, shortcut_kernel,
+                    shortcut_bias)
+        out, counter = _rms_silu_conv3x3_kernel(
+            x, gamma, kernel, bias, residual, shortcut_kernel, shortcut_bias,
+            eps)
+        backend.count_launch(counter)
+        return out
+    return rms_silu_conv3x3_plain(x, gamma, kernel, bias, residual,
+                                  shortcut_kernel, shortcut_bias, eps=eps)

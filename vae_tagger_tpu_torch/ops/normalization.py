@@ -41,6 +41,13 @@ effective affine of given (global) statistics; its backward, with respect
 to x and the statistics, is kernel F without the statistics' term in dx on
 the kernel path, else the VJP of :func:`group_norm_silu_from_stats_plain`.
 
+The Wan VAE's per-pixel RMS norm (``csrc/rms_norm.cu``, forward only) has
+two passes of its own: :func:`rms_norm_stats`, one fp32 factor r = sqrt(C)
+/ max(||x||, 1e-12) a pixel, which kernel B' takes in its RMS mode
+(ops/conv.py), and :func:`rms_norm_silu_apply`, ``[silu]((x * r) *
+gamma)``, the input of kernel B'' in fp32; :func:`rms_norm_silu` runs
+both.
+
 Beside them, the plain versions compute the same functions in PyTorch: the
 fp32 sum and sum of squares, ``rstd = rsqrt(E[x^2] - mean^2 + eps)``, the
 affine and the SiLU in fp32, one cast at the end; the backward's sums and
@@ -52,6 +59,7 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -707,3 +715,112 @@ def group_norm_silu_from_stats(x, mean, meansq, scale, bias, *,
     gradients to x, the statistics, scale and bias."""
     return _GroupNormSiLUFromStats.apply(x, mean, meansq, scale, bias, eps,
                                          apply_silu)
+
+
+# --------------------------------------------------------------------------
+# the per-pixel RMS norm of the Wan VAE (csrc/rms_norm.cu)
+# --------------------------------------------------------------------------
+
+# F.normalize's floor on the norm (diffusers WanRMS_norm)
+RMS_EPS = 1e-12
+
+
+def rms_stats_plain(x, eps: float = RMS_EPS):
+    """(N, H, W) fp32 factors r = sqrt(C) / max(||x[n, h, w, :]||, eps) of
+    an NHWC tensor: ``F.normalize(x, dim=channels) * sqrt(C)`` is x * r."""
+    norm = x.float().square().sum(-1).sqrt()
+    return math.sqrt(x.shape[-1]) / norm.clamp_min(eps)
+
+
+def rms_norm_silu_apply_plain(x, r, gamma, *, apply_silu: bool = True):
+    """The RMS apply pass in PyTorch: ``[silu]((x * r) * gamma)`` in fp32
+    from the (N, H, W) factors r, one cast at the end."""
+    y = x.float() * r[..., None] * gamma.float()
+    if apply_silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+def rms_norm_silu_plain(x, gamma, *, apply_silu: bool = True,
+                        eps: float = RMS_EPS):
+    """The Wan VAE's RMS norm (+ SiLU) in PyTorch."""
+    return rms_norm_silu_apply_plain(x, rms_stats_plain(x, eps), gamma,
+                                     apply_silu=apply_silu)
+
+
+def refuse_grad(*tensors) -> None:
+    """Raise where a gradient would be asked of the RMS kernels: the Wan
+    VAE's backward (the RMS norm's, and kernels D', D'', E', E'' at head
+    width 384) is not ported, so only the plain path on the CPU trains."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the RMS norm's kernels have no backward: the Wan VAE runs "
+            "forward only on the card (torch.inference_mode or no_grad)")
+
+
+@on_tensor_device
+def _rms_stats_launch(x, eps: float):
+    """The stats pass (one launch) on a contiguous CUDA tensor x."""
+    n, h, w, c = x.shape
+    r = torch.empty(n, h, w, dtype=torch.float32, device=x.device)
+    err = lib("rms_norm").vt_rms_stats(x.data_ptr(), dtype_code(x), n * h * w,
+                                       c, float(eps), r.data_ptr(),
+                                       stream_of(x))
+    check(err, "vt_rms_stats")
+    return r
+
+
+@ranged("op.rms_norm_stats")
+def rms_norm_stats(x, eps: float = RMS_EPS):
+    """The per-pixel factors r (N, H, W) fp32 of :func:`rms_stats_plain`:
+    one launch of the stats pass on a CUDA tensor, else the plain
+    version."""
+    if backend.use_kernel(x):
+        r = _rms_stats_launch(x.contiguous(), eps)
+        backend.count_launch("rms_norm_stats")
+        return r
+    return rms_stats_plain(x, eps)
+
+
+@on_tensor_device
+def _rms_apply_launch(x, r, gamma, apply_silu):
+    """The apply pass (one launch) on a contiguous CUDA tensor x."""
+    n, h, w, c = x.shape
+    out = torch.empty_like(x)
+    r = r.float().contiguous()
+    gamma = gamma.to(x.device, torch.float32).contiguous()
+    err = lib("rms_norm").vt_rms_apply(
+        x.data_ptr(), dtype_code(x), n * h * w, c, r.data_ptr(),
+        gamma.data_ptr(), out.data_ptr(), int(apply_silu), stream_of(x))
+    check(err, "vt_rms_apply")
+    return out
+
+
+@ranged("op.rms_norm_silu")
+def rms_norm_silu_apply(x, r, gamma, *, apply_silu=True):
+    """The apply pass, ``[silu]((x * r) * gamma)`` from given factors r:
+    one launch on a CUDA tensor, else the plain version.  ``apply_silu``:
+    False, True (fp32: the exact SiLU, bf16: the SFU's) or
+    :data:`EXACT_SILU`."""
+    if backend.use_kernel(x):
+        mode = (EXACT_SILU if apply_silu and x.dtype == torch.float32
+                else apply_silu)
+        out = _rms_apply_launch(x.contiguous(), r, gamma, mode)
+        backend.count_launch("rms_norm_silu")
+        return out
+    return rms_norm_silu_apply_plain(x, r, gamma,
+                                     apply_silu=bool(apply_silu))
+
+
+def rms_norm_silu(x, gamma, *, apply_silu: bool = True,
+                  eps: float = RMS_EPS):
+    """The Wan VAE's RMS norm over the channels of each pixel of an NHWC
+    tensor, ``F.normalize(x, dim=C) * sqrt(C) * gamma``, optionally followed
+    by SiLU: the stats pass, then the apply pass.  Forward only on the
+    card (:func:`refuse_grad`); on the CPU the plain version, with
+    autograd's gradients."""
+    if backend.use_kernel(x):
+        refuse_grad(x, gamma)
+    return rms_norm_silu_apply(x, rms_norm_stats(x, eps), gamma,
+                               apply_silu=apply_silu)

@@ -94,7 +94,7 @@ from ..losses.combined import (
     simplified_combined_loss,
 )
 from ..losses.metric_learning import triplet_loss
-from ..models.autoencoder_kl import DiagonalGaussian, encode_scaled
+from ..models.autoencoder_kl import DiagonalGaussian
 from ..ops.image import normalize_uint8, yuv420_to_rgb_uint8
 from ..parallel.mesh import mean_over_processes
 from ..utils.profiling import ranged, span
@@ -268,7 +268,7 @@ class FullSteps(_Steps):
         posterior = triplet_posterior(vae, batch, self.compute_dtype,
                                       self.checkpoint_encode, self.spatial)
         z = posterior.sample(generator)
-        latents = encode_scaled(posterior.mean[:b], vae.config).detach()
+        latents = vae.scale_latents(posterior.mean[:b]).detach()
         decoder.train(train)
         logits = decoder(latents.to(self.compute_dtype), generator)
         labels = batch["labels"]
@@ -375,8 +375,8 @@ class DecoderSteps:
         px = resolve_transfer_format(batch)["pixel_values"]
         posterior = self.vae.encode(normalize_uint8(px, self.compute_dtype),
                                     self.spatial)
-        return encode_scaled(posterior.mode(),
-                             self.vae.config).to(self.compute_dtype)
+        return self.vae.scale_latents(posterior.mode()).to(
+            self.compute_dtype)
 
     @ranged("steps.train_step")
     def train_step_from_latents(self, state: TrainState, latents, labels,

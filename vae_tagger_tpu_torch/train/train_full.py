@@ -67,6 +67,7 @@ from ..infer.engine import build_decoder
 from ..io.checkpoints import (
     load_decoder,
     load_vae,
+    refuse_vae_backward,
     restore_train_state,
     save_decoder_bin,
     save_train_state,
@@ -74,7 +75,6 @@ from ..io.checkpoints import (
 )
 from ..losses.classification import class_balanced_weights
 from ..losses.combined import AdaptiveLossWeights, LossConfig
-from ..models.autoencoder_kl import encode_scaled
 from ..ops.image import normalize_uint8
 from ..parallel.mesh import (
     broadcast_from_main,
@@ -107,6 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def train_full(args) -> TrainState:
+    refuse_vae_backward(args.vae_config_path, "train_full")
     device = initialize_distributed(resolve_device(args.device))
     refuse_unported(args, process_count())
     if is_main_process():
@@ -239,7 +240,7 @@ def final_evaluation(state: TrainState, val_loader, class_names,
         px = resolve_transfer_format(
             batch_to_device(batch, device, ("anchor",)))["anchor"]
         posterior = vae.encode(normalize_uint8(px, compute_dtype), spatial)
-        latents = encode_scaled(posterior.mode(), vae.config)
+        latents = vae.scale_latents(posterior.mode())
         return torch.sigmoid(head(latents.to(compute_dtype)).float())
 
     collected = collect_predictions(predict_fn, val_loader)

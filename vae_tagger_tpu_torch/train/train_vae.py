@@ -37,6 +37,7 @@ from ..core.device import resolve_device
 from ..core.precision import resolve_mixed_precision
 from ..io.checkpoints import (
     load_vae,
+    refuse_vae_backward,
     restore_train_state,
     save_train_state,
     save_vae_pretrained,
@@ -72,6 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def train_vae(args) -> TrainState:
+    refuse_vae_backward(args.vae_config_path, "train_vae")
     device = initialize_distributed(resolve_device(args.device))
     refuse_unported(args, process_count())
     if is_main_process():

@@ -31,13 +31,15 @@ prefix in the trace):
 - ``loop.data``: the epoch loop waiting on the train loader for the next
   batch (train/loop.py);
 - ``op.<name>``: every call of an ``ops/`` function on the models' path:
-  ``conv2d_nhwc``, ``gn_silu_conv3x3``, ``gn_silu_conv3x3_from_stats``
-  (ops/conv.py); ``spatial_single_head_attention``,
+  ``conv2d_nhwc``, ``gn_silu_conv3x3``, ``gn_silu_conv3x3_from_stats``,
+  ``rms_silu_conv3x3`` (the Wan VAE's fused branch; ops/conv.py);
+  ``spatial_single_head_attention``,
   ``spatial_single_head_attention_sharded``, ``flash_attention_fwd``
   (ops/attention.py); ``group_norm_silu``, ``group_norm_silu_from_stats``,
-  ``group_stats_with_grad``, ``group_norm_silu_backward`` (kernel F;
-  ops/normalization.py); ``normalize_uint8``, ``yuv420_to_rgb_uint8``
-  (ops/image.py); ``adaptive_avg_pool_nhwc``, ``adaptive_max_pool_nhwc``
+  ``group_stats_with_grad``, ``group_norm_silu_backward`` (kernel F),
+  ``rms_norm_stats`` and ``rms_norm_silu`` (the Wan VAE's RMS stats and
+  apply passes; ops/normalization.py); ``normalize_uint8``,
+  ``yuv420_to_rgb_uint8`` (ops/image.py); ``adaptive_avg_pool_nhwc``, ``adaptive_max_pool_nhwc``
   (ops/pooling.py);
 - ``op.<name>.bwd``: the backward of each autograd Function there:
   ``op.gn_silu_conv3x3.bwd``, ``op.gn_silu_conv3x3_from_stats.bwd``,
