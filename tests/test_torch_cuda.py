@@ -353,6 +353,36 @@ def test_fused_site_backward_matches_vjp_of_plain(gen, variant):
         assert ((a - b).norm() / b.norm()).item() <= 1e-4
 
 
+def _residual_operands(gen, n, h, w, cin, cout, variant):
+    """(residual, shortcut kernel, shortcut bias) of a fused conv test:
+    ``variant`` is "plain", "residual" or "shortcut[:Cres]" (the shortcut's
+    input channels, Cin unless given)."""
+    kind, _, c_res = variant.partition(":")
+    c_res = int(c_res) if c_res else cin
+    if kind == "residual":
+        return _rnd(gen, n, h, w, cout), None, None
+    if kind == "shortcut":
+        return (_rnd(gen, n, h, w, c_res),
+                _rnd(gen, c_res, cout, scale=c_res ** -0.5),
+                _rnd(gen, cout, scale=0.1))
+    return None, None, None
+
+
+# B''s hand-offs between the halo stream, its activator warps and the
+# consumers, at both output-channel tiles (BN = 128 up to 128 channels):
+# one 64-channel chunk; more chunks than halo buffers over three or more
+# pixel tiles of height; a shortcut whose residual chunks (136 channels,
+# the last partial) follow an odd count of conv chunks.
+B_PRIME_HANDOFFS = [
+    (2, 6, 70, 64, 128, "plain"),
+    (2, 6, 70, 64, 256, "plain"),
+    (1, 13, 70, 512, 128, "plain"),
+    (1, 9, 70, 512, 256, "residual"),
+    (1, 6, 70, 192, 128, "shortcut:136"),
+    (1, 6, 70, 192, 256, "shortcut:136"),
+]
+
+
 @pytest.mark.parametrize("n,h,w,cin,cout,variant", [
     (2, 8, 8, 128, 128, "plain"),
     (1, 9, 13, 64, 64, "residual"),
@@ -374,7 +404,7 @@ def test_fused_site_backward_matches_vjp_of_plain(gen, variant):
     (1, 5, 64, 64, 256, "residual"),
     (3, 1, 64, 64, 256, "shortcut"),
     (1, 2, 64, 32, 128, "plain"),
-])
+] + B_PRIME_HANDOFFS)
 def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
     groups = 8
     x = _rnd(gen, n, h, w, cin)
@@ -382,13 +412,7 @@ def test_gn_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
     gb = _rnd(gen, cin, scale=0.1)
     k = _rnd(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
     b = _rnd(gen, cout, scale=0.1)
-    res = sck = scb = None
-    if variant == "residual":
-        res = _rnd(gen, n, h, w, cout)
-    if variant == "shortcut":
-        res = _rnd(gen, n, h, w, cin)
-        sck = _rnd(gen, cin, cout, scale=cin ** -0.5)
-        scb = _rnd(gen, cout, scale=0.1)
+    res, sck, scb = _residual_operands(gen, n, h, w, cin, cout, variant)
     _check(lambda dt: gn_silu_conv3x3(
         x.to(dt), gs, gb, k, b, None if res is None else res.to(dt), sck,
         scb, num_groups=groups), tol32=1e-5)
@@ -750,6 +774,39 @@ def test_tf32x3_repeats_bit_for_bit(gen):
     assert counts["flash_attention_fwd_tf32x3"] == 2
 
 
+@pytest.mark.parametrize("norm", ["gn", "rms"])
+@pytest.mark.parametrize("cout", [128, 256])
+def test_b_prime_repeats_bit_for_bit(gen, norm, cout):
+    """Ten launches of B' on one input give bit-identical outputs, in each
+    prologue mode and at each output-channel tile: its activator warps and
+    its wgmma hand tiles over without a race.  Three conv chunks and three
+    shortcut chunks, three pixel tiles of height, two of width."""
+    n, h, w, cin, c_res = 2, 9, 70, 192, 136
+    x = _rnd(gen, n, h, w, cin).bfloat16()
+    k = _rnd(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    b = _rnd(gen, cout, scale=0.1)
+    res, sck, scb = _residual_operands(gen, n, h, w, cin, cout,
+                                       f"shortcut:{c_res}")
+    res = res.bfloat16()
+    if norm == "gn":
+        gs, gb = _rnd(gen, cin, scale=0.2, shift=1.0), _rnd(gen, cin)
+
+        def call():
+            return gn_silu_conv3x3(x, gs, gb, k, b, res, sck, scb,
+                                   num_groups=8)
+    else:
+        gamma = _rnd(gen, cin, scale=0.2, shift=1.0)
+
+        def call():
+            return rms_silu_conv3x3(x, gamma, k, b, res, sck, scb)
+    backend.reset_launch_counts()
+    first = call()
+    for _ in range(9):
+        assert torch.equal(call(), first)
+    counter = {"gn": "gn_silu_conv3x3_tc", "rms": "rms_silu_conv3x3_tc"}
+    assert backend.launch_counts()[counter[norm]] == 10
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_wrappers_launch_on_their_tensors_device(gen, dtype):
     """Every wrapper launches on its input's device, not the current one:
@@ -955,7 +1012,7 @@ def test_rms_apply_pass_misaligned(gen):
     (1, 5, 66, 384, 384, "residual"),
     (2, 3, 130, 384, 32, "plain"),
     (1, 1, 70, 40, 136, "shortcut"),
-])
+] + B_PRIME_HANDOFFS)
 def test_rms_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
     """The Wan residual branch: B' in its RMS mode (bf16), the RMS apply
     pass and B'' (fp32, to 1e-5), each after the stats pass, against the
@@ -964,13 +1021,7 @@ def test_rms_silu_conv3x3_kernel(gen, n, h, w, cin, cout, variant):
     gamma = _rnd(gen, cin, scale=0.2, shift=1.0)
     k = _rnd(gen, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
     b = _rnd(gen, cout, scale=0.1)
-    res = sck = scb = None
-    if variant == "residual":
-        res = _rnd(gen, n, h, w, cout)
-    if variant == "shortcut":
-        res = _rnd(gen, n, h, w, cin)
-        sck = _rnd(gen, cin, cout, scale=cin ** -0.5)
-        scb = _rnd(gen, cout, scale=0.1)
+    res, sck, scb = _residual_operands(gen, n, h, w, cin, cout, variant)
     _check(lambda dt: rms_silu_conv3x3(
         x.to(dt), gamma, k, b, None if res is None else res.to(dt), sck,
         scb), tol32=1e-5)
@@ -1025,21 +1076,22 @@ def test_a_wan_encoder_on_the_card(gen):
         assert {k: c for k, c in backend.launch_counts().items() if c} == want
 
 
-# What cudaFuncGetAttributes reported for the instances the FLUX cells run,
-# before the RMS mode and the head width 384 existed (NVIDIA H100 80GB
-# HBM3): {(Cout tile, residual mode): (registers, shared memory bytes)} of
-# B' in its GroupNorm mode; (registers, shared memory bytes) of C' and C''
-# at D = 512.
+# What cudaFuncGetAttributes reports for the instances the FLUX cells run
+# (NVIDIA H100 80GB HBM3): {(Cout tile, residual mode): (registers, shared
+# memory bytes)} of B' in its GroupNorm mode, three halo buffers and four
+# weight stages at BN = 128, three of each at BN = 256; (registers, shared
+# memory bytes) of C' and C'' at D = 512, as before the RMS mode and the head
+# width 384 existed.
 GN_B_PRIME = {(c_out, mode): (168, smem)
-              for c_out, smem in ((128, 169088), (256, 199808))
+              for c_out, smem in ((128, 220296), (256, 200824))
               for mode in ("plain", "residual", "shortcut")}
 C_AT_512 = {"bfloat16": (168, 230528), "float32": (255, 230528)}
 
 
 def test_the_flux_instances_are_unchanged(gen):
-    """The GroupNorm-mode B' and the D = 512 C' and C'' report the
-    registers and shared memory they had before the RMS mode and head
-    width 384 were added; the new instances report theirs."""
+    """The GroupNorm-mode B' reports the registers and shared memory of its
+    layout, and the D = 512 C' and C'' those they had before the RMS mode
+    and head width 384 were added; the new instances report theirs."""
     from vae_tagger_tpu_torch.ops.attention import fwd_tc_kernel_attrs
 
     for (c_out, mode), (regs, smem) in GN_B_PRIME.items():
